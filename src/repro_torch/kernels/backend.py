@@ -1,0 +1,156 @@
+"""Kernel execution backends for the CNN serving hot path.
+
+Every conv/fc node a `Graph` executes routes through one of two
+backends, selectable per node; the counterparts of the JAX package's
+``"xla"`` and ``"pallas_fused"`` routes:
+
+``"torch"``
+    The plain route: explicit im2col patch matrix + matmul
+    (`cnn/layers.py`).  Reference semantics and the numerical baseline.
+``"cuda_fused"``
+    The hand-written fused kernels (`kernels/conv_fused.py`): the
+    implicit-GEMM conv and the fc GEMM, both with the epilogue (bias,
+    ReLU) fused.  On a CUDA tensor they launch the kernel or raise; on a
+    CPU tensor they take their plain PyTorch versions.  Shapes
+    `conv_fused.supports` rejects (grouped and depthwise convs) take the
+    plain fused route and are counted in ``fallbacks``.
+
+The unfused GEMM route (``"pallas"`` in the reference) is a later slice.
+
+A backend *spec* is a backend name, a ``{node_name: name}`` mapping
+(missing nodes get ``default``), or a callable ``node_name -> name``.
+`resolve_backend` turns a spec into a `KernelBackend`; everything above
+`Graph._apply_node` (stage builders, engines, server, planner) just
+threads the spec through.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+
+from .conv_fused import conv2d_fused, fused_route_ref, matmul_fused, supports
+
+BACKENDS = ("torch", "cuda_fused")
+
+BackendSpec = Union[str, Mapping[str, str], Callable[[str], str], "KernelBackend"]
+
+
+@dataclasses.dataclass
+class KernelBackend:
+    """Per-node kernel routing.
+
+    ``fallbacks`` records nodes the fused kernel declined (a shape it
+    does not take) as ``{node_name: reason}``.
+    """
+
+    spec: BackendSpec = "torch"
+    default: str = "torch"
+    fallbacks: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if isinstance(self.spec, str) and self.spec not in BACKENDS:
+            raise ValueError(f"unknown backend {self.spec!r}; pick from {BACKENDS}")
+
+    # ------------------------------------------------------------- routing
+    def for_node(self, name: str) -> str:
+        if callable(self.spec):
+            choice = self.spec(name)
+        elif isinstance(self.spec, str):
+            choice = self.spec
+        else:
+            choice = self.spec.get(name, self.default)
+        if choice not in BACKENDS:
+            raise ValueError(f"unknown backend {choice!r} for node {name!r}")
+        return choice
+
+    # -------------------------------------------------------------- convs
+    def conv2d(
+        self,
+        name: str,
+        x: torch.Tensor,
+        w: torch.Tensor,
+        b: Optional[torch.Tensor],
+        *,
+        stride: int = 1,
+        pad: int = 0,
+        groups: int = 1,
+        relu: bool = False,
+    ) -> Tuple[torch.Tensor, bool]:
+        """Returns ``(y, act_done)`` — ``act_done`` when the backend fused
+        the ReLU into the kernel epilogue."""
+        from ..cnn import layers as L
+
+        if self.for_node(name) == "torch":
+            return L.conv2d(x, w, b, stride=stride, pad=pad, groups=groups), False
+        fh, fw, _, _ = w.shape
+        if not supports(fh, fw, stride, groups):
+            # grouped convolution is the only shape supports() rejects today
+            self.fallbacks[name] = f"groups={groups}"
+            return (
+                fused_route_ref(
+                    x, w, b, stride=stride, pad=pad, groups=groups, relu=relu
+                ),
+                True,
+            )
+        return conv2d_fused(x, w, b, stride=stride, pad=pad, relu=relu), True
+
+    def depthwise(
+        self,
+        name: str,
+        x: torch.Tensor,
+        w: torch.Tensor,
+        b: Optional[torch.Tensor],
+        *,
+        stride: int = 1,
+        pad: int = 0,
+        relu: bool = False,
+    ) -> Tuple[torch.Tensor, bool]:
+        """Depthwise convs keep their native grouped-conv implementation on
+        every backend; under ``cuda_fused`` the epilogue still fuses and
+        the fallback is recorded."""
+        from ..cnn import layers as L
+
+        if self.for_node(name) == "cuda_fused":
+            self.fallbacks[name] = "depthwise"
+            return (
+                fused_route_ref(
+                    x, w, b, stride=stride, pad=pad,
+                    groups=x.shape[-1], relu=relu,
+                ),
+                True,
+            )
+        return L.depthwise_conv2d(x, w, b, stride=stride, pad=pad), False
+
+    # -------------------------------------------------------------- dense
+    def dense(
+        self,
+        name: str,
+        x: torch.Tensor,
+        w: torch.Tensor,
+        b: Optional[torch.Tensor],
+        *,
+        relu: bool = False,
+    ) -> Tuple[torch.Tensor, bool]:
+        from ..cnn import layers as L
+
+        if self.for_node(name) == "torch":
+            return L.dense(x, w, b), False
+        x2 = x.reshape(x.shape[0], -1)  # NHWC flatten: (h, w, c) order
+        bias = torch.zeros(w.shape[1], device=w.device) if b is None else b
+        return matmul_fused(x2, w, bias, relu=relu), True
+
+
+def resolve_backend(spec: Optional[BackendSpec]) -> Optional[KernelBackend]:
+    """None passes through (the graph then runs its plain layers)."""
+    if spec is None or isinstance(spec, KernelBackend):
+        return spec
+    return KernelBackend(spec=spec)
+
+
+def finish_act(result: Tuple[torch.Tensor, bool]) -> torch.Tensor:
+    """Apply the ReLU a backend did NOT fuse — keeps cross-backend timing
+    and parity comparisons symmetric (same total work on every route)."""
+    y, act_done = result
+    return y if act_done else torch.relu(y)

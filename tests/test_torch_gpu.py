@@ -1,0 +1,128 @@
+"""The port's CUDA kernels and served path on a card.
+
+Imports only ``repro_torch`` (no JAX), so it runs on a CUDA host that has
+no JAX:  ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``.
+Every test skips on a host without CUDA (decided inside the test).
+
+Tolerance: kernel vs its plain PyTorch version on the same inputs,
+``RTOL, ATOL = 1e-4, 1e-5`` (the reference's bar, tests/
+test_conv_fused.py); both are IEEE f32 (TF32 off) summed in different
+orders at small K.  Batch invariance is bitwise: the kernels sum every
+output in a fixed order whatever the batch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.cnn.graph import Graph
+from repro_torch.kernels import build
+from repro_torch.kernels import conv_fused as K
+from repro_torch.serving import SingleStageEngine, serve
+
+RTOL, ATOL = 1e-4, 1e-5
+
+# (B, H, W, C, F, Cout, stride, pad, relu)
+CONV_CASES = [
+    (1, 8, 8, 3, 3, 5, 1, 1, True),  # C=3 (K=27)
+    (2, 9, 7, 4, 3, 6, 2, 0, False),  # stride 2, odd Ow
+    (1, 13, 13, 5, 5, 7, 4, 2, True),  # stride 4, pad 2
+    (1, 6, 6, 8, 1, 4, 1, 0, False),  # 1x1
+    (2, 14, 14, 64, 3, 70, 1, 1, True),  # Ow=14 (ragged M tile), Cout not a multiple of 64
+    (1, 23, 23, 3, 11, 96, 4, 0, True),  # AlexNet conv1 geometry
+]
+# (M, K, N, relu)
+MM_CASES = [(4, 40, 24, True), (3, 17, 10, False), (9, 300, 130, True), (4, 4096, 1000, False)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_conv_kernel_matches_plain(cuda, case):
+    b, h, w, c, f, cout, stride, pad, relu = case
+    rng = np.random.default_rng(sum(case))
+    x, wt, bias = _on(cuda, rng, b, h, w, c), _on(cuda, rng, f, f, c, cout, scale=0.3), _on(cuda, rng, cout)
+    before = K.launch_counts()["conv2d_fused"]
+    y = K.conv2d_fused(x, wt, bias, stride=stride, pad=pad, relu=relu)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["conv2d_fused"] == before + 1
+    ref = K.fused_route_ref(x, wt, bias, stride=stride, pad=pad, relu=relu)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    # bitwise the same rows whatever the batch they ride in
+    y0 = K.conv2d_fused(x[:1].contiguous(), wt, bias, stride=stride, pad=pad, relu=relu)
+    assert torch.equal(y0, y[:1])
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_matmul_kernel_matches_plain(cuda, case):
+    m, k, n, relu = case
+    rng = np.random.default_rng(m * k + n)
+    a, w, bias = _on(cuda, rng, m, k), _on(cuda, rng, k, n, scale=k ** -0.5), _on(cuda, rng, n)
+    y = K.matmul_fused(a, w, bias, relu=relu)
+    ref = K.matmul_fused_ref(a, w, bias, relu=relu)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(K.matmul_fused(a[:1].contiguous(), w, bias, relu=relu)[0], y[0])
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        K.conv2d_fused(x, torch.zeros(3, 3, 2, 2, device=cuda), None, pad=1)
+    with pytest.raises(ValueError):
+        K.conv2d_fused(x.float(), torch.zeros(3, 3, 3, 2, device=cuda), None, pad=1)
+    with pytest.raises(ValueError):
+        K.conv2d_fused(x.float(), torch.zeros(3, 3, 2, 2), None, pad=1)  # weights on the CPU
+    with pytest.raises(ValueError):
+        K.matmul_fused(torch.zeros(2, 3, device=cuda), torch.zeros(4, 5, device=cuda),
+                       torch.zeros(5, device=cuda))
+
+
+def test_build_is_cached_by_content(cuda):
+    first = build.build_all()
+    assert build.build_all() == first
+    assert all("-" in p.rsplit("/", 1)[-1] for p in first)
+
+
+def _tiny():
+    g = Graph("tiny", (16, 16, 3))
+    a = g.conv("c1", "input", 8, 3)
+    a = g.conv("c2", a, 8, 3, stride=2)
+    a = g.pool_max("p1", a, 2, 2)
+    a = g.conv("c3", a, 16, 3)
+    a = g.fc("fc1", a, 24, act="relu")
+    a = g.fc("fc2", a, 10)
+    g.softmax("sm", a)
+    return g
+
+
+def test_served_outputs_bitwise_equal_single_stage(cuda):
+    g = _tiny()
+    rng = np.random.default_rng(0)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    K.reset_launches()
+    server = serve(g, backend="cuda_fused", batch_size=4, warmup=False, seed=1)
+    try:
+        outs = [o.cpu() for o in server.run(images)["outputs"]]
+        batches = server.metrics.stages[0].snapshot()["batches"]
+    finally:
+        server.stop()
+    counts = K.launch_counts()
+    assert counts == {"conv2d_fused": 3 * batches, "matmul_fused": 2 * batches}
+    single = SingleStageEngine(g, server.params, backend="cuda_fused").run(images)["outputs"]
+    for a, b in zip(outs, single):
+        assert torch.equal(a, b.cpu())
+    plain = SingleStageEngine(g, server.params, backend="torch").run(images)["outputs"]
+    for a, b in zip(outs, plain):
+        np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=RTOL, atol=ATOL)
