@@ -9,17 +9,29 @@ Phases (any failure exits non-zero):
    cuBLAS so every f32 reference below is IEEE f32;
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel);
-3. hold each kernel against its plain PyTorch version on the card: the
-   fused conv at every distinct ``groups == 1`` conv geometry of the six
-   nets (batch 1) and the fused dense GEMM at every fc shape of the six
-   nets, then time both kernels at VGG-16's shapes at batch 4 beside
-   their plain version, one library call and their bound;
+3. hold each kernel against its plain PyTorch version on the card, at
+   batch 1 over the six nets: the fused conv at every distinct
+   ``groups == 1`` conv geometry and the fused dense GEMM at every fc
+   shape (3a); the patch matrix (B4) at every conv geometry, bitwise; the
+   GEMM (B3) at every ``groups == 1`` conv GEMM shape and every fc
+   shape; the quantized conv (B1q) at every ``groups == 1`` conv
+   geometry, bitwise (3c).  Then time every kernel at VGG-16's shapes at
+   batch 4 beside its plain version, one library call where there is
+   one, and its bound (3b, 3d);
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
    batch_size=4)``, with 32 seeded images; the launch counters must show
    13 conv and 3 dense launches per micro-batch, the outputs must be
    bitwise equal to the single-stage ``cuda_fused`` engine's and close to
    the plain ``torch`` route's; then time the same server over three
-   steady windows of 1024 images each;
+   steady windows of 1024 images each.  4b: the same for the unfused
+   route, ``serve("vgg16", backend="cuda", ...)`` on the same weights:
+   13 im2col and 16 GEMM launches per micro-batch and no fused one,
+   bitwise equal to the single-stage ``cuda`` engine.  4c: the quantized
+   path at full width: each of the served VGG-16's 13 conv nodes through
+   ``make_quant_conv_fn(..., kernel=True)`` on its real batch-4 input
+   (teacher-forced from a ``cuda_fused`` forward), bitwise equal to
+   ``qfused_route_ref`` and close to ``im2col`` + ``qgemm``, with each
+   node's relative error against its f32 output printed (paper Fig. 13);
 5. print ``{"kernels": [...]}`` with each kernel's numbers, then the
    ``{"ok": true, ...}`` line last.
 
@@ -28,7 +40,12 @@ with ``RTOL, ATOL = 1e-4, 1e-5`` (the reference's bar, its absolute floor
 scaled by the output range because f32 reordering error of a K-term sum
 follows the size of its partial sums).  Served outputs vs the plain
 ``torch`` route, 16 chained layers summed in different orders, are held
-to ``rtol=1e-3, atol=1e-6`` on the softmax probabilities.
+to ``rtol=1e-3, atol=1e-6`` on the softmax probabilities.  The patch
+matrix is a copy and the quantized conv an exact int32 sum followed by
+the same two f32 roundings as its plain version, so both are held
+bitwise (``torch.equal``); the quantized conv against ``im2col`` +
+``qgemm``, whose requant rounds in another order, is held to the
+reference's flat bar ``rtol=1e-4, atol=1e-5``.
 """
 from __future__ import annotations
 
@@ -47,9 +64,12 @@ STEADY_IMAGES = 1024  # per steady window: 256 micro-batches, some seconds
 STEADY_REPS = 3
 BATCH = 4
 SEED = 0
+DEVICE = "cuda"
 
 # Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s and
-# HBM bytes/s; the SXM part unless the card names another.
+# HBM bytes/s; the SXM part unless the card names another.  The CUDA
+# cores' int32 multiply-add rate is half the f32 FMA rate (64 INT32 lanes
+# per SM against 128 FP32), the bound of the quantized conv.
 PEAKS = {
     "H100 PCIe": (51.2e12, 2.0e12),
     "H100 NVL": (60.0e12, 3.9e12),
@@ -64,6 +84,22 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/matmul_fused.cu",
         "replaces": "src/repro/kernels/conv_fused.py:260",
     },
+    "qconv2d_fused": {
+        "source": "src/repro_torch/kernels/csrc/conv_fused.cu",
+        "replaces": "src/repro/kernels/conv_fused.py:53",
+    },
+    "gemm": {
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:31",
+    },
+    "im2col": {
+        "source": "src/repro_torch/kernels/csrc/im2col.cu",
+        "replaces": "src/repro/kernels/im2col.py:24",
+    },
+}
+NO_LIBRARY = {
+    "qconv2d_fused": "no PyTorch call computes an int32 conv on CUDA",
+    "im2col": "F.unfold gives another layout ([B, C*FH*FW, L]) and feature order",
 }
 
 
@@ -110,6 +146,55 @@ def time_ms(fn, torch):
     return s.elapsed_time(e) / iters
 
 
+def serve_route(torch, serve, backend, images, **kw):
+    """Serve ``images`` through VGG-16 on ``backend`` at micro-batch BATCH
+    with the launch counts set to 0 just before and read just after;
+    then three steady windows of STEADY_IMAGES on the same server."""
+    from repro_torch.kernels import runtime
+
+    runtime.reset_launches()
+    t_build = time.perf_counter()
+    server = serve("vgg16", backend=backend, batch_size=BATCH, seed=SEED, device=DEVICE, **kw)
+    try:
+        setup_s = time.perf_counter() - t_build
+        t0 = time.perf_counter()
+        tickets = [server.submit(img) for img in images]
+        outs = [t.result(timeout=600) for t in tickets]
+        wall = time.perf_counter() - t0
+        # served rate over steady windows, each long enough that filling
+        # and draining the pipeline is a few of its 256 micro-batches
+        steady = []
+        for _ in range(STEADY_REPS):
+            t0 = time.perf_counter()
+            ts = [server.submit(images[i % len(images)]) for i in range(STEADY_IMAGES)]
+            for t in ts:
+                t.result(timeout=600)
+            steady.append(STEADY_IMAGES / (time.perf_counter() - t0))
+        snap = server.metrics.snapshot()
+    finally:
+        server.stop()
+    counts = runtime.launch_counts()
+    stage_batches = [st["batches"] for st in snap["stages"]]
+    check(len(set(stage_batches)) == 1, f"{backend}: stages saw different batch counts {stage_batches}")
+    outs_cpu = [o.cpu() for o in outs]
+    check(all(o.shape == (1, 1000) and bool(torch.isfinite(o).all()) for o in outs_cpu),
+          f"{backend}: served outputs are not finite [1, 1000] rows")
+    sums = torch.cat(outs_cpu).sum(-1)
+    check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-4)),
+          f"{backend}: softmax rows do not sum to 1")
+    report = {
+        "model": "vgg16", "backend": backend, "batch_size": BATCH,
+        "images": len(images), "plan": server.plan.notation(),
+        "setup_s": setup_s, "checked_window_s": wall,
+        "steady_images": STEADY_IMAGES, "steady_img_per_s": steady,
+        "stage_p50_ms": [st["service_p50_s"] * 1e3 for st in snap["stages"]],
+        "stage_occupancy": [st["occupancy"] for st in snap["stages"]],
+        "micro_batches": stage_batches[0], "launches": counts,
+    }
+    # + the warmup batch serve() runs
+    return server, outs_cpu, counts, stage_batches[0] + 1, report
+
+
 def main() -> int:
     import torch
 
@@ -125,9 +210,13 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.cnn import quant as Q
     from repro_torch.cnn.models import MODELS
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import conv_fused as K
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import im2col as I
+    from repro_torch.kernels.backend import resolve_backend
     from repro_torch.serving import SingleStageEngine, serve
 
     # ---------------------------------------------------------- 1. the card
@@ -144,7 +233,8 @@ def main() -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     flops_peak, bytes_peak = peaks(kind)
-    dev = torch.device("cuda")
+    int_ops_peak = flops_peak / 2
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     # ---------------------------------------------------------- 2. build
@@ -153,7 +243,7 @@ def main() -> int:
     print(f"build_s={time.perf_counter() - t0:.3f} libs={[os.path.basename(p) for p in libs]}")
 
     # ------------------------------------------- 3a. correctness, all nets
-    convs, fcs = {}, []
+    convs, fcs, all_convs = {}, [], {}
     for net, make in sorted(MODELS.items()):
         for d in make().descriptors():
             if d.kind == "conv" and d.groups == 1:
@@ -162,6 +252,10 @@ def main() -> int:
                 )
             elif d.kind == "fc":
                 fcs.append((d.i_w * d.i_h * d.i_d, d.ofm, f"{net}:{d.name}"))
+            if d.kind == "conv":  # the patch matrix of each group
+                all_convs.setdefault(
+                    (d.i_h, d.i_w, d.i_d // d.groups, d.f_h, d.f_w, d.stride, d.pad), f"{net}:{d.name}"
+                )
     worst = {"conv2d_fused": (0.0, 0.0, ""), "matmul_fused": (0.0, 0.0, "")}
     for (h, w, c, fh, fw, st, pd, cout), where in convs.items():
         x = torch.randn(1, h, w, c, device=dev, generator=gen)
@@ -197,116 +291,185 @@ def main() -> int:
     for name, (_, ratio, where) in worst.items():
         check(ratio <= 1.0, f"{name} exceeds tolerance at {where} (err/tol {ratio:.3g})")
 
-    # ---------------------------------------- 3b. timing, VGG-16 at batch 4
+    # --------------------------- 3c. correctness of B4, B3, B1q, all nets
+    im2col_bad = []
+    for (h, w, c, fh, fw, st, pd), where in all_convs.items():
+        x = torch.randn(1, h, w, c, device=dev, generator=gen)
+        if not torch.equal(ops.im2col_batched(x, fh, fw, st, pd), I.im2col_ref(x, fh, fw, st, pd)):
+            im2col_bad.append(where)
+    gemm_shapes = [
+        (((h - fh + 2 * pd) // st + 1) * ((w - fw + 2 * pd) // st + 1), fh * fw * c, cout, where)
+        for (h, w, c, fh, fw, st, pd, cout), where in convs.items()
+    ] + [(1, k, n, where) for k, n, where in fcs]
+    gemm_worst = (0.0, 0.0, "")
+    for m, k, n, where in gemm_shapes:
+        a = torch.randn(m, k, device=dev, generator=gen)
+        wt = torch.randn(k, n, device=dev, generator=gen) * (1.0 / k) ** 0.5
+        err, ratio = tol_ok(ops.gemm(a, wt), G.gemm_ref(a, wt))
+        if ratio >= gemm_worst[1]:
+            gemm_worst = (err, ratio, where)
+    qconv_bad = []
+    for (h, w, c, fh, fw, st, pd, cout), where in convs.items():
+        x = torch.randn(1, h, w, c, device=dev, generator=gen)
+        wt = torch.randn(fh, fw, c, cout, device=dev, generator=gen) * (2.0 / (fh * fw * c)) ** 0.5
+        b = torch.randn(cout, device=dev, generator=gen) * 0.1
+        qp = Q.quantize_graph_params({"l": {"w": wt, "b": b}})["l"]
+        args = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
+        y = K.qconv2d_fused(x, *args, stride=st, pad=pd, relu=True)
+        if not torch.equal(y, K.qfused_route_ref(x, *args, stride=st, pad=pd, relu=True)):
+            qconv_bad.append(where)
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "correctness_unfused_and_quantized": {
+            "im2col": {"geometries": len(all_convs), "not_bitwise": im2col_bad},
+            "gemm": {"shapes": len(gemm_shapes), "max_abs_err": gemm_worst[0],
+                     "worst_err_over_tol": gemm_worst[1], "worst_at": gemm_worst[2]},
+            "qconv2d_fused": {"geometries": len(convs), "not_bitwise": qconv_bad},
+        }
+    }))
+    check(not im2col_bad, f"im2col differs from its plain version at {im2col_bad[:5]}")
+    check(gemm_worst[1] <= 1.0, f"gemm exceeds tolerance at {gemm_worst[2]} (err/tol {gemm_worst[1]:.3g})")
+    check(not qconv_bad, f"qconv2d_fused differs from its plain version at {qconv_bad[:5]}")
+
+    # ---------------------------------- 3b, 3d. timing, VGG-16 at batch 4
     vgg = MODELS["vgg16"]()
     shapes = vgg.infer_shapes()
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "flop_ms": 0.0, "byte_ms": 0.0, "max_abs_err": 0.0} for n in KERNELS}
+
+    def record(name, where, kern, plain, lib, y, r, op_ms, byte_ms, exact=False, **extra):
+        err, ratio = tol_ok(y, r)
+        if exact:
+            check(bool(torch.equal(y, r)), f"{name} differs from its plain version at {where}")
+        else:
+            check(ratio <= 1.0, f"{name} exceeds tolerance at {where} batch {BATCH}")
+        row = {
+            "shape": where, "kernel": name, "batch": BATCH,
+            "kernel_ms": time_ms(kern, torch), "plain_ms": time_ms(plain, torch),
+            "library_ms": None if lib is None else time_ms(lib, torch),
+            "flop_bound_ms": op_ms, "byte_bound_ms": byte_ms,
+            "max_abs_err": err, "err_over_tol": ratio,
+            "tolerance": "bitwise" if exact else f"rtol={RTOL}, atol={ATOL}*max(1,max|r|)",
+            **extra,
+        }
+        row["bound_ms"] = max(op_ms, byte_ms)
+        row["bound_by"] = "operations" if op_ms >= byte_ms else "bytes"
+        print(json.dumps(row))
+        t = totals[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["ms"] += row["kernel_ms"]
+        t["plain_ms"] += row["plain_ms"]
+        t["library_ms"] += row["library_ms"] or 0.0
+        t["bound_ms"] += row["bound_ms"]
+        t["flop_ms"] += op_ms
+        t["byte_ms"] += byte_ms
+
     for node in vgg.major_nodes():
         hin = shapes[node.inputs[0]]
         relu = node.attrs.get("act") == "relu"
+        where = f"vgg16:{node.name}"
         if node.kind == "conv":
             h, w, c = hin
             fk, st, pd, cout = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"], node.attrs["out_ch"]
             x = torch.randn(BATCH, h, w, c, device=dev, generator=gen)
             wt = torch.randn(fk, fk, c, cout, device=dev, generator=gen) * (2.0 / (fk * fk * c)) ** 0.5
             b = torch.randn(cout, device=dev, generator=gen) * 0.1
-            kern = lambda: K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu)
-            plain = lambda: K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu)
             xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
-            lib = lambda: F.conv2d(xn, wn, b, stride=st, padding=pd)
-            y = kern()
+            y = K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu)
             oh, ow = y.shape[1], y.shape[2]
-            flops = 2.0 * BATCH * oh * ow * cout * fk * fk * c
+            m, k = BATCH * oh * ow, fk * fk * c
+            flops = 2.0 * m * cout * k
             nbytes = 4.0 * (x.numel() + wt.numel() + 2 * cout + y.numel())
-            name = "conv2d_fused"
+            record(
+                "conv2d_fused", where,
+                lambda: K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu),
+                lambda: K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu),
+                lambda: F.conv2d(xn, wn, b, stride=st, padding=pd),
+                y, K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu),
+                flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3,
+            )
+            # B4: the patch matrix of this conv
+            cols = ops.im2col_batched(x, fk, fk, st, pd)
+            record(
+                "im2col", where,
+                lambda: ops.im2col_batched(x, fk, fk, st, pd),
+                lambda: I.im2col_ref(x, fk, fk, st, pd), None,
+                cols, I.im2col_ref(x, fk, fk, st, pd),
+                0.0, 4.0 * (x.numel() + cols.numel()) / bytes_peak * 1e3, exact=True,
+                library_null_reason=NO_LIBRARY["im2col"],
+            )
+            # B3: the conv's GEMM on that patch matrix
+            w2 = wt.reshape(k, cout)
+            yg = ops.gemm(cols, w2)
+            record(
+                "gemm", where,
+                lambda: ops.gemm(cols, w2), lambda: G.gemm_ref(cols, w2), lambda: torch.mm(cols, w2),
+                yg, G.gemm_ref(cols, w2),
+                flops / flops_peak * 1e3, 4.0 * (cols.numel() + w2.numel() + yg.numel()) / bytes_peak * 1e3,
+                m=m, k=k, n=cout,
+            )
+            del cols, yg
+            # B1q: the quantized conv at this geometry
+            qp = Q.quantize_graph_params({"l": {"w": wt, "b": b}})["l"]
+            qargs = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
+            yq = K.qconv2d_fused(x, *qargs, stride=st, pad=pd, relu=relu)
+            qbytes = 4.0 * (x.numel() + 3 * cout + yq.numel()) + qp["qw"].numel()
+            record(
+                "qconv2d_fused", where,
+                lambda: K.qconv2d_fused(x, *qargs, stride=st, pad=pd, relu=relu),
+                lambda: K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu), None,
+                yq, K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu),
+                flops / int_ops_peak * 1e3, qbytes / bytes_peak * 1e3, exact=True,
+                quantize_ms=time_ms(lambda: Q.quantize_tensor(x, axis=None), torch),
+                library_null_reason=NO_LIBRARY["qconv2d_fused"],
+            )
+            del yq
         else:
             k = int(np.prod(hin))
             n = node.attrs["out_features"]
             a = torch.randn(BATCH, k, device=dev, generator=gen)
             wt = torch.randn(k, n, device=dev, generator=gen) * (1.0 / k) ** 0.5
             b = torch.randn(n, device=dev, generator=gen) * 0.1
-            kern = lambda: K.matmul_fused(a, wt, b, relu=relu)
-            plain = lambda: K.matmul_fused_ref(a, wt, b, relu=relu)
-            lib = lambda: torch.addmm(b, a, wt)
-            y = kern()
+            y = K.matmul_fused(a, wt, b, relu=relu)
             flops = 2.0 * BATCH * k * n
             nbytes = 4.0 * (a.numel() + wt.numel() + 2 * n + y.numel())
-            name = "matmul_fused"
-        r = plain()
-        err, ratio = tol_ok(y, r)
-        check(ratio <= 1.0, f"{name} exceeds tolerance at vgg16:{node.name} batch {BATCH}")
-        row = {
-            "shape": f"vgg16:{node.name}", "kernel": name, "batch": BATCH,
-            "kernel_ms": time_ms(kern, torch), "plain_ms": time_ms(plain, torch),
-            "library_ms": time_ms(lib, torch),
-            "flop_bound_ms": flops / flops_peak * 1e3, "byte_bound_ms": nbytes / bytes_peak * 1e3,
-            "max_abs_err": err, "err_over_tol": ratio,
-            "tolerance": f"rtol={RTOL}, atol={ATOL}*max(1,max|r|)",
-        }
-        row["bound_ms"] = max(row["flop_bound_ms"], row["byte_bound_ms"])
-        row["bound_by"] = "operations" if row["flop_bound_ms"] >= row["byte_bound_ms"] else "bytes"
-        print(json.dumps(row))
-        t = totals[name]
-        for key in ("plain_ms", "library_ms", "bound_ms", "max_abs_err"):
-            t[key] = max(t[key], row[key]) if key == "max_abs_err" else t[key] + row[key]
-        t["ms"] += row["kernel_ms"]
-        t["flop_ms"] += row["flop_bound_ms"]
-        t["byte_ms"] += row["byte_bound_ms"]
-        del kern, plain, lib, y, r
+            record(
+                "matmul_fused", where,
+                lambda: K.matmul_fused(a, wt, b, relu=relu),
+                lambda: K.matmul_fused_ref(a, wt, b, relu=relu),
+                lambda: torch.addmm(b, a, wt),
+                y, K.matmul_fused_ref(a, wt, b, relu=relu),
+                flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3,
+            )
+            yg = ops.gemm(a, wt)
+            record(
+                "gemm", where,
+                lambda: ops.gemm(a, wt), lambda: G.gemm_ref(a, wt), lambda: torch.mm(a, wt),
+                yg, G.gemm_ref(a, wt),
+                flops / flops_peak * 1e3, 4.0 * (a.numel() + wt.numel() + yg.numel()) / bytes_peak * 1e3,
+                m=BATCH, k=k, n=n,
+            )
+        del y
 
     # ------------------------------------------------ 4. the main path
     rng = np.random.default_rng(SEED)
     images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(N_IMAGES)]
-    K.reset_launches()
-    t_build = time.perf_counter()
-    server = serve("vgg16", backend="cuda_fused", batch_size=BATCH, seed=SEED)
-    try:
-        setup_s = time.perf_counter() - t_build
-        t0 = time.perf_counter()
-        tickets = [server.submit(img) for img in images]
-        outs = [t.result(timeout=600) for t in tickets]
-        wall = time.perf_counter() - t0
-        # served rate over steady windows, each long enough that filling
-        # and draining the pipeline is a few of its 256 micro-batches
-        steady = []
-        for _ in range(STEADY_REPS):
-            t0 = time.perf_counter()
-            ts = [server.submit(images[i % N_IMAGES]) for i in range(STEADY_IMAGES)]
-            for t in ts:
-                t.result(timeout=600)
-            steady.append(STEADY_IMAGES / (time.perf_counter() - t0))
-        snap = server.metrics.snapshot()
-    finally:
-        server.stop()
-    counts = K.launch_counts()
-    stage_batches = [s["batches"] for s in snap["stages"]]
-    check(len(set(stage_batches)) == 1, f"stages saw different batch counts {stage_batches}")
-    n_batches = stage_batches[0] + 1  # + the warmup batch serve() runs
+    server, outs_cpu, counts, n_batches, report = serve_route(torch, serve, "cuda_fused", images)
     check(counts["conv2d_fused"] == 13 * n_batches,
           f"conv2d_fused launched {counts['conv2d_fused']} times, want 13 x {n_batches}")
     check(counts["matmul_fused"] == 3 * n_batches,
           f"matmul_fused launched {counts['matmul_fused']} times, want 3 x {n_batches}")
-    outs_cpu = [o.cpu() for o in outs]
-    check(all(o.shape == (1, 1000) and bool(torch.isfinite(o).all()) for o in outs_cpu),
-          "served outputs are not finite [1, 1000] rows")
-    sums = torch.cat(outs_cpu).sum(-1)
-    check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-4)), "softmax rows do not sum to 1")
-    single = SingleStageEngine(server.graph, server.params, backend="cuda_fused").run(images)
+    path_counts = {"conv2d_fused": counts["conv2d_fused"], "matmul_fused": counts["matmul_fused"]}
+    params = server.params
+    single = SingleStageEngine(server.graph, params, backend="cuda_fused", device=dev).run(images)
     bitwise = all(torch.equal(a, b.cpu()) for a, b in zip(outs_cpu, single["outputs"]))
-    plain = SingleStageEngine(server.graph, server.params, backend="torch").run(images)
+    plain = SingleStageEngine(server.graph, params, backend="torch", device=dev).run(images)
     ref = torch.cat([o.cpu() for o in plain["outputs"]])
     got = torch.cat(outs_cpu)
     close = bool(torch.allclose(got, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL))
     print(json.dumps({
         "serve": {
-            "model": "vgg16", "backend": "cuda_fused", "batch_size": BATCH,
-            "images": N_IMAGES, "plan": server.plan.notation(),
-            "setup_s": setup_s, "checked_window_s": wall,
-            "steady_images": STEADY_IMAGES, "steady_img_per_s": steady,
-            "stage_p50_ms": [s["service_p50_s"] * 1e3 for s in snap["stages"]],
-            "stage_occupancy": [s["occupancy"] for s in snap["stages"]],
-            "micro_batches": stage_batches[0], "launches": counts,
+            **report,
             "bitwise_vs_single_stage": bitwise,
             "max_abs_diff_vs_torch_route": float((got - ref).abs().max()),
             "allclose_vs_torch_route": close,
@@ -318,17 +481,103 @@ def main() -> int:
     check(bitwise, "served outputs differ from the single-stage cuda_fused engine")
     check(close, "served outputs differ from the plain torch route beyond tolerance")
 
+    # --------------------------------------- 4b. the unfused route served
+    server_u, outs_u, counts, n_batches, report = serve_route(
+        torch, serve, "cuda", images, params=params
+    )
+    check(counts["im2col"] == 13 * n_batches,
+          f"im2col launched {counts['im2col']} times, want 13 x {n_batches}")
+    check(counts["gemm"] == 16 * n_batches,
+          f"gemm launched {counts['gemm']} times, want 16 x {n_batches}")
+    check(counts["conv2d_fused"] == counts["matmul_fused"] == counts["qconv2d_fused"] == 0,
+          f"the cuda route launched a fused kernel: {counts}")
+    path_counts.update(im2col=counts["im2col"], gemm=counts["gemm"])
+    single_u = SingleStageEngine(server_u.graph, params, backend="cuda", device=dev).run(images)
+    bitwise_u = all(torch.equal(a, b.cpu()) for a, b in zip(outs_u, single_u["outputs"]))
+    got_u = torch.cat(outs_u)
+    close_u = bool(torch.allclose(got_u, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL))
+    print(json.dumps({
+        "serve": {
+            **report,
+            "bitwise_vs_single_stage": bitwise_u,
+            "max_abs_diff_vs_torch_route": float((got_u - ref).abs().max()),
+            "allclose_vs_torch_route": close_u,
+            "tolerance_vs_torch_route": f"rtol={SERVE_RTOL}, atol={SERVE_ATOL}",
+            "single_stage_img_per_s": single_u["throughput"],
+        }
+    }))
+    check(bitwise_u, "served outputs differ from the single-stage cuda engine")
+    check(close_u, "cuda-route outputs differ from the plain torch route beyond tolerance")
+
+    # ------------------------- 4c. the quantized path at VGG-16's full width
+    graph = server.graph
+    kb = resolve_backend("cuda_fused")
+    env = {"input": torch.from_numpy(np.concatenate(images[:BATCH])).to(dev)}
+    for node in graph.nodes:  # the f32 path's activations, every node kept
+        env[node.name] = graph._apply_node(node, params, env, backend=kb)
+    qparams = Q.quantize_graph_params(params)
+    conv_nodes = [nd for nd in graph.nodes if nd.kind == "conv"]
+    fns = {
+        nd.name: Q.make_quant_conv_fn(
+            qparams[nd.name], stride=nd.attrs["stride"], pad=nd.attrs["pad"],
+            relu=nd.attrs.get("act") == "relu", kernel=True,
+        )
+        for nd in conv_nodes
+    }
+    torch.cuda.synchronize()
+    K.reset_launches()
+    quant_out = {nd.name: fns[nd.name](env[nd.inputs[0]]) for nd in conv_nodes}
+    torch.cuda.synchronize()
+    path_counts["qconv2d_fused"] = K.launch_counts()["qconv2d_fused"]
+    check(path_counts["qconv2d_fused"] == len(conv_nodes),
+          f"qconv2d_fused launched {path_counts['qconv2d_fused']} times, want {len(conv_nodes)}")
+    quant_rows = []
+    for nd in conv_nodes:
+        x, yq, qp = env[nd.inputs[0]], quant_out[nd.name], qparams[nd.name]
+        relu = nd.attrs.get("act") == "relu"
+        fk, st, pd = nd.attrs["kernel"], nd.attrs["stride"], nd.attrs["pad"]
+        plain_q = K.qfused_route_ref(
+            x, qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"], stride=st, pad=pd, relu=relu
+        )
+        cols = I.im2col_ref(x, fk, fk, st, pd)
+        via_qgemm = (Q.qgemm(cols, qp["qw"], qp["scale"], qp["zp"]).reshape(yq.shape) + qp["b"])
+        del cols
+        if relu:
+            via_qgemm = torch.relu(via_qgemm)
+        diff = (yq - via_qgemm).abs()
+        tol = RTOL * via_qgemm.abs() + ATOL
+        y32 = env[nd.name]
+        quant_rows.append({
+            "node": nd.name, "shape": list(yq.shape),
+            "bitwise_vs_qfused_route_ref": bool(torch.equal(yq, plain_q)),
+            "max_abs_err_vs_im2col_qgemm": float(diff.max()),
+            "err_over_tol_vs_im2col_qgemm": float((diff / tol).max()),
+            "rel_err_vs_f32": float((yq - y32).norm() / y32.norm()),
+            "finite": bool(torch.isfinite(yq).all()),
+        })
+        del plain_q, via_qgemm, diff, tol
+    print(json.dumps({"quantized": {
+        "model": "vgg16", "batch": BATCH, "teacher_forced_from": "cuda_fused",
+        "tolerance_vs_im2col_qgemm": f"|y-r| <= {RTOL}*|r| + {ATOL}", "nodes": quant_rows,
+    }}))
+    for row in quant_rows:
+        check(row["finite"], f"quantized {row['node']} is not finite")
+        check(row["bitwise_vs_qfused_route_ref"], f"qconv2d_fused differs from qfused_route_ref at {row['node']}")
+        check(row["err_over_tol_vs_im2col_qgemm"] <= 1.0,
+              f"quantized {row['node']} differs from im2col + qgemm beyond tolerance")
+    del env, quant_out
+
     # ------------------------------------------------ 5. kernels line
     kernels = []
     for name, meta in KERNELS.items():
         t = totals[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": counts[name],
+            "replaces": meta["replaces"], "launches": path_counts[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["flop_ms"] >= t["byte_ms"] else "bytes",
-            "library_ms": t["library_ms"],
+            "library_ms": None if name in NO_LIBRARY else t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

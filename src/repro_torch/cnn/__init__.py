@@ -1,7 +1,8 @@
 """CNN substrate of the port: the graph IR, layers and six nets in PyTorch.
 
 Convolutions execute the ARM-CL way (im2col + GEMM) on the ``torch``
-route, and through the hand-written fused kernel on ``cuda_fused``; the
+route, through the hand-written patch-matrix and GEMM kernels on
+``cuda``, and through the hand-written fused kernel on ``cuda_fused``; the
 layer descriptors that drive the performance model are the same objects
 that parameterize the compute.
 """

@@ -207,19 +207,21 @@ class Graph:
         return params
 
     # ----------------------------------------------------------- execution
-    def _apply_node(self, n: Node, params, env, backend=None):
+    def _apply_node(self, n: Node, params, env, gemm_fn=None, backend=None):
         """Execute one node.  ``backend`` (a resolved
         :class:`repro_torch.kernels.backend.KernelBackend`) routes the
         major layers through the selected kernel backend and may fuse the
         node's ReLU into the kernel epilogue; ``None`` runs the plain
-        layers (the ``"torch"`` route)."""
+        layers (the ``"torch"`` route).  ``gemm_fn`` is the injection
+        point of the plain layers' GEMM (quantized closures, tests) and
+        wins over ``backend`` when both are set."""
         ins = [env[i] for i in n.inputs]
         x = ins[0]
         act_done = False
         relu = n.attrs.get("act") == "relu"
         if n.kind == "conv":
             p = params[n.name]
-            if backend is not None:
+            if backend is not None and gemm_fn is None:
                 y, act_done = backend.conv2d(
                     n.name, x, p["w"], p["b"], stride=n.attrs["stride"],
                     pad=n.attrs["pad"], groups=n.attrs.get("groups", 1),
@@ -228,11 +230,11 @@ class Graph:
             else:
                 y = L.conv2d(
                     x, p["w"], p["b"], stride=n.attrs["stride"], pad=n.attrs["pad"],
-                    groups=n.attrs.get("groups", 1),
+                    groups=n.attrs.get("groups", 1), gemm_fn=gemm_fn,
                 )
         elif n.kind == "depthwise":
             p = params[n.name]
-            if backend is not None:
+            if backend is not None and gemm_fn is None:
                 y, act_done = backend.depthwise(
                     n.name, x, p["w"], p["b"], stride=n.attrs["stride"],
                     pad=n.attrs["pad"], relu=relu,
@@ -241,10 +243,10 @@ class Graph:
                 y = L.depthwise_conv2d(x, p["w"], p["b"], stride=n.attrs["stride"], pad=n.attrs["pad"])
         elif n.kind == "fc":
             p = params[n.name]
-            if backend is not None:
+            if backend is not None and gemm_fn is None:
                 y, act_done = backend.dense(n.name, x, p["w"], p["b"], relu=relu)
             else:
-                y = L.dense(x, p["w"], p["b"])
+                y = L.dense(x, p["w"], p["b"], gemm_fn=gemm_fn)
         elif n.kind == "pool_max":
             y = L.max_pool(x, n.attrs["window"], n.attrs["stride"], n.attrs["pad"])
         elif n.kind == "pool_avg":
@@ -273,6 +275,7 @@ class Graph:
         env: Dict[str, torch.Tensor],
         start: int,
         stop: int,
+        gemm_fn=None,
         backend=None,
     ) -> Dict[str, torch.Tensor]:
         """Execute nodes[start:stop] on the live-tensor environment ``env``
@@ -288,7 +291,7 @@ class Graph:
         env = dict(env)
         for n in self.nodes[start:stop]:
             env[n.name] = self._apply_node(
-                n, params, env, backend=backend
+                n, params, env, gemm_fn=gemm_fn, backend=backend
             )
         needed = set()
         for n in self.nodes[stop:]:
@@ -299,9 +302,9 @@ class Graph:
             env = {self.nodes[-1].name: env[self.nodes[-1].name]}
         return env
 
-    def apply(self, params, x: torch.Tensor, backend=None) -> torch.Tensor:
+    def apply(self, params, x: torch.Tensor, gemm_fn=None, backend=None) -> torch.Tensor:
         env = self.apply_range(
-            params, {"input": x}, 0, len(self.nodes), backend=backend
+            params, {"input": x}, 0, len(self.nodes), gemm_fn=gemm_fn, backend=backend
         )
         return env[self.nodes[-1].name]
 

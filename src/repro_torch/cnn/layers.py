@@ -42,15 +42,20 @@ def conv2d(
     stride: int = 1,
     pad: int = 0,
     groups: int = 1,
+    gemm_fn=None,
 ) -> torch.Tensor:
-    """Convolution as im2col + GEMM.  ``w``: [FH, FW, Cin/groups, Cout]."""
+    """Convolution as im2col + GEMM.  ``w``: [FH, FW, Cin/groups, Cout].
+
+    ``gemm_fn(a, bmat)`` may be injected (a quantized closure, a kernel
+    wrapper); it defaults to matmul and runs once per group."""
+    gemm = gemm_fn or (lambda a, bm: a @ bm)
     bsz, h, wdt, c = x.shape
     fh, fw, cin_g, cout = w.shape
     oh = (h - fh + 2 * pad) // stride + 1
     ow = (wdt - fw + 2 * pad) // stride + 1
     if groups == 1:
         cols = im2col(x, fh, fw, stride, pad)
-        out = cols.reshape(-1, cols.shape[-1]) @ w.reshape(fh * fw * c, cout)
+        out = gemm(cols.reshape(-1, cols.shape[-1]), w.reshape(fh * fw * c, cout))
         out = out.reshape(bsz, oh, ow, cout)
     else:
         outs = []
@@ -58,7 +63,7 @@ def conv2d(
         for g in range(groups):
             cols = im2col(x[..., g * cin_g : (g + 1) * cin_g], fh, fw, stride, pad)
             wg = w[..., g * cout_g : (g + 1) * cout_g].reshape(fh * fw * cin_g, cout_g)
-            outs.append((cols.reshape(-1, cols.shape[-1]) @ wg).reshape(bsz, oh, ow, cout_g))
+            outs.append(gemm(cols.reshape(-1, cols.shape[-1]), wg).reshape(bsz, oh, ow, cout_g))
         out = torch.cat(outs, dim=-1)
     if b is not None:
         out = out + b
@@ -83,8 +88,11 @@ def depthwise_conv2d(
     return out
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
-    out = x.reshape(x.shape[0], -1) @ w
+def dense(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], gemm_fn=None
+) -> torch.Tensor:
+    gemm = gemm_fn or (lambda a, bm: a @ bm)
+    out = gemm(x.reshape(x.shape[0], -1), w)
     return out + b if b is not None else out
 
 

@@ -1,12 +1,21 @@
 """Kernel execution backends for the CNN serving hot path.
 
-Every conv/fc node a `Graph` executes routes through one of two
+Every conv/fc node a `Graph` executes routes through one of three
 backends, selectable per node; the counterparts of the JAX package's
-``"xla"`` and ``"pallas_fused"`` routes:
+``"xla"``, ``"pallas"`` and ``"pallas_fused"`` routes:
 
 ``"torch"``
     The plain route: explicit im2col patch matrix + matmul
     (`cnn/layers.py`).  Reference semantics and the numerical baseline.
+``"cuda"``
+    The unfused conv-as-GEMM route of paper section V-A, through the
+    hand-written kernels of `kernels/ops.py`: each conv writes its
+    explicit patch matrix with ``im2col`` (B4, batched, one launch) and
+    multiplies it with ``gemm`` (B3); fc nodes go through ``gemm``.  The
+    bias add stays outside the GEMM and the ReLU is left to
+    `finish_act`.  Grouped convs run one patch matrix and one GEMM per
+    group; depthwise convs keep their native conv.  On CPU tensors both
+    kernels take their plain versions.
 ``"cuda_fused"``
     The hand-written fused kernels (`kernels/conv_fused.py`): the
     implicit-GEMM conv and the fc GEMM, both with the epilogue (bias,
@@ -14,8 +23,6 @@ backends, selectable per node; the counterparts of the JAX package's
     CPU tensor they take their plain PyTorch versions.  Shapes
     `conv_fused.supports` rejects (grouped and depthwise convs) take the
     plain fused route and are counted in ``fallbacks``.
-
-The unfused GEMM route (``"pallas"`` in the reference) is a later slice.
 
 A backend *spec* is a backend name, a ``{node_name: name}`` mapping
 (missing nodes get ``default``), or a callable ``node_name -> name``.
@@ -32,7 +39,7 @@ import torch
 
 from .conv_fused import conv2d_fused, fused_route_ref, matmul_fused, supports
 
-BACKENDS = ("torch", "cuda_fused")
+BACKENDS = ("torch", "cuda", "cuda_fused")
 
 BackendSpec = Union[str, Mapping[str, str], Callable[[str], str], "KernelBackend"]
 
@@ -82,8 +89,11 @@ class KernelBackend:
         the ReLU into the kernel epilogue."""
         from ..cnn import layers as L
 
-        if self.for_node(name) == "torch":
+        choice = self.for_node(name)
+        if choice == "torch":
             return L.conv2d(x, w, b, stride=stride, pad=pad, groups=groups), False
+        if choice == "cuda":
+            return _unfused_conv(x, w, b, stride=stride, pad=pad, groups=groups), False
         fh, fw, _, _ = w.shape
         if not supports(fh, fw, stride, groups):
             # grouped convolution is the only shape supports() rejects today
@@ -135,11 +145,48 @@ class KernelBackend:
     ) -> Tuple[torch.Tensor, bool]:
         from ..cnn import layers as L
 
-        if self.for_node(name) == "torch":
+        choice = self.for_node(name)
+        if choice == "torch":
             return L.dense(x, w, b), False
+        if choice == "cuda":
+            from .ops import gemm
+
+            return L.dense(x, w, b, gemm_fn=gemm), False
         x2 = x.reshape(x.shape[0], -1)  # NHWC flatten: (h, w, c) order
         bias = torch.zeros(w.shape[1], device=w.device) if b is None else b
         return matmul_fused(x2, w, bias, relu=relu), True
+
+
+def _unfused_conv(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    *,
+    stride: int,
+    pad: int,
+    groups: int,
+) -> torch.Tensor:
+    """The ``"cuda"`` route's conv: per group, the batched patch matrix
+    ``[B*OH*OW, FH*FW*Cg]`` (B4), freed after its GEMM (B3) with the
+    filter reshaped to ``[FH*FW*Cg, Cout_g]``; then the bias."""
+    from .ops import gemm, im2col_batched
+
+    bsz = x.shape[0]
+    fh, fw, cin_g, cout = w.shape
+    cout_g = cout // groups
+    outs = []
+    for g in range(groups):
+        xg = x if groups == 1 else x[..., g * cin_g : (g + 1) * cin_g]
+        wg = w if groups == 1 else w[..., g * cout_g : (g + 1) * cout_g]
+        cols = im2col_batched(xg, fh, fw, stride, pad)
+        outs.append(gemm(cols, wg.reshape(fh * fw * cin_g, cout_g)))
+        del cols
+    y = outs[0] if groups == 1 else torch.cat(outs, dim=-1)
+    h, wd = x.shape[1], x.shape[2]
+    oh = (h - fh + 2 * pad) // stride + 1
+    ow = (wd - fw + 2 * pad) // stride + 1
+    y = y.reshape(bsz, oh, ow, cout)
+    return y + b if b is not None else y
 
 
 def resolve_backend(spec: Optional[BackendSpec]) -> Optional[KernelBackend]:

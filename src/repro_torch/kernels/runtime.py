@@ -1,0 +1,88 @@
+"""What every kernel wrapper shares: the ctypes binding of the built
+libraries, the launch checks, and one table of launch counts.
+
+``launches`` counts kernel launches per wrapper name: one per call that
+runs on the card, none for a call that takes the plain PyTorch route.
+A run shows that it went through a kernel by setting the counts to 0
+(:func:`reset_launches`) just before it and reading them
+(:func:`launch_counts`) just after.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict
+
+import torch
+
+from . import build
+
+KERNEL_NAMES = ("conv2d_fused", "matmul_fused", "qconv2d_fused", "gemm", "im2col")
+
+_count_lock = threading.Lock()
+launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+
+
+def count(name: str) -> None:
+    with _count_lock:  # stage workers launch from several threads
+        launches[name] += 1
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    with _count_lock:
+        return dict(launches)
+
+
+# ------------------------------------------------------------ ctypes binding
+P = ctypes.c_void_p
+I = ctypes.c_int
+_bind_lock = threading.Lock()
+_bound: Dict[str, object] = {}
+
+
+def bind(lib_name: str, sym: str, argtypes):
+    """``csrc/<lib_name>.cu``'s C function ``sym``, built and loaded on
+    first use; pointers and the stream are ``P``, ints ``I``."""
+    key = f"{lib_name}:{sym}"
+    fn = _bound.get(key)
+    if fn is None:
+        with _bind_lock:
+            fn = _bound.get(key)
+            if fn is None:
+                fn = getattr(build.load(lib_name), sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _bound[key] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def require(t: torch.Tensor, name: str, ndim: int, dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

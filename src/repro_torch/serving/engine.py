@@ -63,7 +63,7 @@ def build_stage_fns(
 
     ``backend`` selects the kernel execution backend for the stage's
     major layers (``repro_torch.kernels.backend``: "torch",
-    "cuda_fused", a per-node mapping/callable, or a resolved
+    "cuda", "cuda_fused", a per-node mapping/callable, or a resolved
     ``KernelBackend``).  The spec is resolved ONCE here so fallback
     bookkeeping is shared across stages.
     """

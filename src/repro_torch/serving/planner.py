@@ -68,7 +68,7 @@ class AutoPlanner:
         higher-throughput plan).
     source : where predicted layer times come from (see module docstring).
     backend : kernel execution backend spec for the stage functions
-        ("torch" | "cuda_fused" | per-node mapping | resolved
+        ("torch" | "cuda" | "cuda_fused" | per-node mapping | resolved
         ``KernelBackend``).
     measured : {descriptor key: seconds} measured layer times; they
         override the Eq. 5 regression in the predictor.
@@ -173,8 +173,9 @@ def serve(
 
     ``device=None`` serves on the card and raises on a host without CUDA;
     pass ``device="cpu"`` for the plain PyTorch route.  ``backend``
-    selects the kernel route for every stage ("torch" | "cuda_fused", or
-    per node — see :mod:`repro_torch.kernels.backend`).  ``params``
+    selects the kernel route for every stage ("torch" | "cuda" |
+    "cuda_fused", or per node — see :mod:`repro_torch.kernels.backend`).
+    ``params``
     (the port's tensors, e.g. from ``cnn.params.params_from_numpy``)
     default to ``Graph.init(seed)`` on the device.  ``recovery`` (a
     :class:`~repro_torch.serving.faults.RecoveryPolicy`) arms the

@@ -174,7 +174,7 @@ class PipelineServer:
         scripted service delay or fault) to run the server against known
         timings.
     backend : kernel execution backend spec for the stage functions
-        ("torch" | "cuda_fused", a per-node mapping/callable, or a
+        ("torch" | "cuda" | "cuda_fused", a per-node mapping/callable, or a
         resolved ``repro_torch.kernels.backend.KernelBackend``).  Resolved
         once and reused across plan swaps; ignored when a custom
         ``stage_fn_builder`` is injected.

@@ -194,7 +194,9 @@ def _teacher_forced(ours: Graph, ref: RefGraph, x: np.ndarray, ref_route: str, r
     return checked, kb
 
 
-@pytest.mark.parametrize("routes", [("xla", "torch"), ("pallas_fused", "cuda_fused")])
+@pytest.mark.parametrize(
+    "routes", [("xla", "torch"), ("pallas_fused", "cuda_fused"), ("pallas", "cuda")]
+)
 def test_tiny_graph_teacher_forced_parity(routes):
     ours, ref = tiny_graphs()
     x = _np(np.random.default_rng(0), 2, *ours.input_shape)
@@ -207,7 +209,9 @@ def test_tiny_graph_teacher_forced_parity(routes):
         assert kb.fallbacks == {"dw": "depthwise"}
 
 
-@pytest.mark.parametrize("routes", [("xla", "torch"), ("pallas_fused", "cuda_fused")])
+@pytest.mark.parametrize(
+    "routes", [("xla", "torch"), ("pallas_fused", "cuda_fused"), ("pallas", "cuda")]
+)
 def test_vgg16_teacher_forced_parity(routes):
     ours, ref = MODELS["vgg16"](), REF_MODELS["vgg16"]()
     x = _np(np.random.default_rng(1), 1, *ours.input_shape)
@@ -216,7 +220,7 @@ def test_vgg16_teacher_forced_parity(routes):
     assert kb.fallbacks == {}
 
 
-@pytest.mark.parametrize("route", ["torch", "cuda_fused"])
+@pytest.mark.parametrize("route", ["torch", "cuda_fused", "cuda"])
 def test_apply_range_prunes_to_the_stage_boundary(route):
     g = MODELS["vgg16"]()
     small = Graph("vgg_small", (32, 32, 3), nodes=list(g.nodes))

@@ -8,7 +8,9 @@ Tolerance: kernel vs its plain PyTorch version on the same inputs,
 ``RTOL, ATOL = 1e-4, 1e-5`` (the reference's bar, tests/
 test_conv_fused.py); both are IEEE f32 (TF32 off) summed in different
 orders at small K.  Batch invariance is bitwise: the kernels sum every
-output in a fixed order whatever the batch.
+output in a fixed order whatever the batch.  The patch matrix (a copy)
+and the quantized conv (an exact int32 sum, then the same two f32
+roundings as its plain version) are held bitwise.
 """
 from __future__ import annotations
 
@@ -16,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cnn import quant as Q
 from repro_torch.cnn.graph import Graph
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import conv_fused as K
+from repro_torch.kernels import gemm as G
+from repro_torch.kernels import im2col as I
 from repro_torch.serving import SingleStageEngine, serve
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -119,8 +124,101 @@ def test_served_outputs_bitwise_equal_single_stage(cuda):
     finally:
         server.stop()
     counts = K.launch_counts()
-    assert counts == {"conv2d_fused": 3 * batches, "matmul_fused": 2 * batches}
+    assert counts == {"conv2d_fused": 3 * batches, "matmul_fused": 2 * batches,
+                      "qconv2d_fused": 0, "gemm": 0, "im2col": 0}
     single = SingleStageEngine(g, server.params, backend="cuda_fused").run(images)["outputs"]
+    for a, b in zip(outs, single):
+        assert torch.equal(a, b.cpu())
+    plain = SingleStageEngine(g, server.params, backend="torch").run(images)["outputs"]
+    for a, b in zip(outs, plain):
+        np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------- the unfused route (B3, B4)
+# (M, K, N): skinny (M <= 8, split K) and tiled, ragged everywhere
+GEMM_CASES = [(1, 27, 64), (4, 300, 130), (8, 4096, 1000), (9, 40, 24), (130, 576, 70), (784, 4608, 512)]
+
+
+@pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_gemm_kernel_matches_plain(cuda, case):
+    m, k, n = case
+    rng = np.random.default_rng(m * k + n)
+    a, b = _on(cuda, rng, m, k), _on(cuda, rng, k, n, scale=k ** -0.5)
+    before = K.launch_counts()["gemm"]
+    y = ops.gemm(a, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["gemm"] == before + 1
+    ref = G.gemm_ref(a, b)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    # each row's sum order is fixed by (K, N): the same bits alone, in a
+    # skinny batch and in a tiled one
+    assert torch.equal(ops.gemm(a[:1].contiguous(), b)[0], y[0])
+    tall = torch.cat([a, a.new_zeros(20, k)])
+    assert torch.equal(ops.gemm(tall, b)[:m], y)
+
+
+@pytest.mark.parametrize("case", [(1, 9, 8, 3, 1, 0), (2, 9, 8, 3, 1, 1), (2, 13, 13, 3, 2, 2),
+                                  (1, 23, 23, 3, 4, 0), (2, 7, 7, 70, 1, 1), (1, 6, 7, 5, 2, 0)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_im2col_kernel_matches_plain_bitwise(cuda, case):
+    b, h, w, c, stride, pad = case
+    rng = np.random.default_rng(sum(case))
+    x = _on(cuda, rng, b, h, w, c)
+    for f in (1, 3, 5):
+        if (h - f + 2 * pad) // stride + 1 < 1:
+            continue
+        before = K.launch_counts()["im2col"]
+        cols = ops.im2col_batched(x, f, f, stride, pad)
+        assert K.launch_counts()["im2col"] == before + 1
+        assert torch.equal(cols, I.im2col_ref(x, f, f, stride, pad))
+        assert torch.equal(ops.im2col(x[0], f, f, stride, pad), I.im2col_ref(x[:1], f, f, stride, pad))
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_qconv_kernel_matches_plain_bitwise(cuda, case):
+    b, h, w, c, f, cout, stride, pad, relu = case
+    rng = np.random.default_rng(sum(case))
+    x, wt, bias = _on(cuda, rng, b, h, w, c), _on(cuda, rng, f, f, c, cout, scale=0.3), _on(cuda, rng, cout)
+    qp = Q.quantize_graph_params({"l": {"w": wt, "b": bias}})["l"]
+    args = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
+    before = K.launch_counts()["qconv2d_fused"]
+    y = K.qconv2d_fused(x, *args, stride=stride, pad=pad, relu=relu)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["qconv2d_fused"] == before + 1
+    assert torch.equal(y, K.qfused_route_ref(x, *args, stride=stride, pad=pad, relu=relu))
+
+
+def test_unfused_kernels_refuse_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError):
+        ops.gemm(torch.zeros(2, 3, device=cuda, dtype=torch.float64), torch.zeros(3, 4, device=cuda))
+    with pytest.raises(ValueError):
+        ops.gemm(torch.zeros(2, 3, device=cuda), torch.zeros(4, 5, device=cuda))
+    with pytest.raises(ValueError):
+        ops.gemm(torch.zeros(2, 3, device=cuda), torch.zeros(3, 5))  # b on the CPU
+    with pytest.raises(TypeError):
+        ops.im2col_batched(torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.float16), 3, 3)
+    with pytest.raises(TypeError):
+        K.qconv2d_fused(torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.float64),
+                        torch.zeros(18, 2, device=cuda, dtype=torch.uint8),
+                        torch.ones(1, 2, device=cuda), torch.zeros(1, 2, device=cuda),
+                        None, (3, 3, 2, 2), pad=1)
+
+
+def test_cuda_route_served_bitwise_equal_single_stage(cuda):
+    g = _tiny()
+    rng = np.random.default_rng(2)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    K.reset_launches()
+    server = serve(g, backend="cuda", batch_size=4, warmup=False, seed=1)
+    try:
+        outs = [o.cpu() for o in server.run(images)["outputs"]]
+        batches = server.metrics.stages[0].snapshot()["batches"]
+    finally:
+        server.stop()
+    counts = K.launch_counts()
+    assert counts == {"conv2d_fused": 0, "matmul_fused": 0, "qconv2d_fused": 0,
+                      "im2col": 3 * batches, "gemm": 5 * batches}
+    single = SingleStageEngine(g, server.params, backend="cuda").run(images)["outputs"]
     for a, b in zip(outs, single):
         assert torch.equal(a, b.cpu())
     plain = SingleStageEngine(g, server.params, backend="torch").run(images)["outputs"]

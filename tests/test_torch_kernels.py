@@ -91,7 +91,7 @@ def test_matmul_fused_ref_matches_reference_kernel(case):
 
 # -------------------------------------------------------------- backend
 def test_backend_routes_and_records_fallbacks():
-    assert BACKENDS == ("torch", "cuda_fused")
+    assert BACKENDS == ("torch", "cuda", "cuda_fused")
     with pytest.raises(ValueError):
         KernelBackend(spec="pallas_fused")
     kb = resolve_backend({"c1": "cuda_fused"})

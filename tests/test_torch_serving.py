@@ -133,6 +133,29 @@ def test_serve_tiny_matches_reference_and_single_stage(setup):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
 
 
+def test_serve_tiny_cuda_route_matches_reference_pallas_route(setup):
+    """The unfused route served: the port's ``"cuda"`` against the
+    reference's ``"pallas"`` on the same weights (batch_size=1, as above)."""
+    g, params, ref_g, ref_params, images, _ = setup
+    before = K.launch_counts()
+    server = serve(g, device="cpu", backend="cuda", params=params, batch_size=1)
+    try:
+        outs = server.run(images)["outputs"]
+    finally:
+        server.stop()
+    assert K.launch_counts() == before  # the CPU route launches no kernel
+    single = SingleStageEngine(g, params, backend="cuda", device="cpu").run(images)
+    for a, b in zip(outs, single["outputs"]):
+        assert torch.equal(a, b)
+    ref = ref_serve(ref_g, params=ref_params, backend="pallas", batch_size=4)
+    try:
+        want = ref.run([jax.numpy.asarray(i) for i in images])["outputs"]
+    finally:
+        ref.stop()
+    for a, b in zip(outs, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
+
+
 def test_serve_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the no-CUDA refusal cannot be shown")
@@ -164,7 +187,7 @@ def test_serve_refuses_a_model_dict():
         serve({"a": "vgg16", "b": "alexnet"}, device="cpu")
 
 
-@pytest.mark.parametrize("route", ["torch", "cuda_fused"])
+@pytest.mark.parametrize("route", ["torch", "cuda_fused", "cuda"])
 def test_pipelined_engine_matches_single_stage(setup, route):
     g, params, _, _, images, plan = setup
     single = SingleStageEngine(g, params, backend=route, device="cpu").run(images)
