@@ -32,8 +32,27 @@ Phases (any failure exits non-zero):
    (teacher-forced from a ``cuda_fused`` forward), bitwise equal to
    ``qfused_route_ref`` and close to ``im2col`` + ``qgemm``, with each
    node's relative error against its f32 output printed (paper Fig. 13);
-5. print ``{"kernels": [...]}`` with each kernel's numbers, then the
-   ``{"ok": true, ...}`` line last.
+6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
+   kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
+   S in {1, 300, 1024}, a valid prefix of 1, a ragged value and S, batch 4
+   with 5 KV heads, f32 and bf16; 6b the SSD scan (B6) at Hymba's 50 heads
+   of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
+   f32 and bf16; 6c serves Hymba-1.5B at full width (32 layers, random
+   weights from seed 0) through ``repro_torch.launch.serve.generate``, the
+   CLI's own loop: batch 4, a 768-token prompt (896 with the meta tokens),
+   128 greedy steps.  The launch counters must show exactly 32 SSD and no
+   other launch in the prefill and exactly 32 flash-decode launches and no
+   other in each decode step.  A second run repeats every B5 and B6 call
+   of the prefill and 8 decode steps through the plain version on the
+   same activations; the prefill's last hidden state and the logits of 8
+   teacher-forced decode steps are compared with the plain route's, gated
+   in f32 and printed in bf16; a profiler trace of 3 decode steps gives
+   the device's busy and idle share.  6d times B5 at the served shape and
+   at ``decode_32k``'s (batch 16, 32768 slots) and B6 at the served
+   prefill's, each beside its plain version, its bound and, for B5,
+   ``F.scaled_dot_product_attention`` with a length mask;
+7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
+   the five above and B5, B6), then the ``{"ok": true, ...}`` line last.
 
 Tolerances: kernel vs plain version ``|y - r| <= RTOL*|r| + ATOL*max(1, max|r|)``
 with ``RTOL, ATOL = 1e-4, 1e-5`` (the reference's bar, its absolute floor
@@ -46,6 +65,19 @@ the same two f32 roundings as its plain version, so both are held
 bitwise (``torch.equal``); the quantized conv against ``im2col`` +
 ``qgemm``, whose requant rounds in another order, is held to the
 reference's flat bar ``rtol=1e-4, atol=1e-5``.
+
+B5 and B6 in f32 are held to ``rtol = atol = 2e-4``, the reference's bar
+for its flash-decode and SSD kernels.  With bf16 operands B5's output
+must lie within one bf16 ulp of the plain version computed in f32 (the
+ulp taken no finer than at 2^-8 of the largest output: an output that
+cancels to near 0 is rounded from terms as large as the others), and B6
+within the reference's bf16 bar ``5e-2``.  The served model's kernel
+route against its plain route, end to end, is gated at ``rtol = atol =
+3e-2`` (the reference's bar for lossy decode paths) in f32.  In bf16 the
+same comparison is printed, not gated: a rounding flip in one kernel's
+bf16 output grows through 32 random-weight layers past any fixed bar, so
+in bf16 the kernels are held at each call on the served activations
+instead.
 """
 from __future__ import annotations
 
@@ -97,10 +129,30 @@ KERNELS = {
         "replaces": "src/repro/kernels/im2col.py:24",
     },
 }
+# the transformer slice's kernels, timed and counted by hymba_phases()
+LM_KERNELS = {
+    "flash_decode": {
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:38",
+    },
+    "ssd": {
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:32",
+    },
+}
 NO_LIBRARY = {
     "qconv2d_fused": "no PyTorch call computes an int32 conv on CUDA",
     "im2col": "F.unfold gives another layout ([B, C*FH*FW, L]) and feature order",
+    "ssd": "no PyTorch call computes the SSD chunked scan",
 }
+# Hymba-1.5B served at full width: batch 4, a 768-token prompt (896 with the
+# 128 meta tokens), 128 greedy steps, so max_len = 1024 = the window
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "hymba-1.5b", 4, 768, 128
+LM_CHECK_STEPS = 8  # decode steps held against the plain route
+LM_PROFILE_STEPS = 3  # decode steps traced for the busy/idle split
+LM_RTOL = LM_ATOL = 3e-2  # the reference's bar for lossy decode paths
+FD_TOL = 2e-4  # f32 bar of the reference's flash-decode and SSD kernel tests
+SSD_BF16_TOL = 5e-2  # the reference's bf16 bar for the SSD kernel
 
 
 class SmokeFailure(RuntimeError):
@@ -144,6 +196,364 @@ def time_ms(fn, torch):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def device_ms(fn, torch, target_ms=20.0):
+    """Device time of one call: a run of calls sized to about ``target_ms``
+    of device work, enqueued behind a sleep kernel long enough that the
+    host has queued them all before the first starts, so the CUDA events
+    around them time the device and not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    n = int(min(200, max(5, target_ms / max(s.elapsed_time(e), 1e-3))))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_s * 2.0e9) + 1_000_000)  # >= 2x the host's time at <= 2 GHz
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def bf16_ulp(torch, r):
+    """Spacing of bf16 numbers (8 significant bits) at |r|, taken no finer
+    than at 2^-8 of the largest |r|: an output that cancels to near 0 is
+    rounded from a sum of terms as large as the others, whose f32 rounding
+    error does not shrink with it."""
+    _, e = torch.frexp(torch.maximum(r.abs(), r.abs().max() * 2.0 ** -8))
+    return torch.ldexp(torch.ones_like(r), e - 8)
+
+
+def hymba_phases(torch, dev, flops_peak, bytes_peak):
+    """Phases 6a-6d: B5 and B6 against their plain versions, Hymba-1.5B
+    served at full width through them, and their timing.  Returns the
+    kernels-line rows of both kernels."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.model import N_META_TOKENS
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    err = {"flash_decode": 0.0, "ssd": 0.0}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+    # ---------------------------- 6a. B5 against its plain version
+    fd_cases, fd_worst = 0, {"float32": (0.0, ""), "bfloat16": (0.0, "")}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for g in (1, 5):
+            for d in (64, 128):
+                for s_len in (1, 300, 1024):
+                    for length in sorted({1, (2 * s_len) // 3 + 1, s_len}):
+                        b, hkv = 4, 5
+                        q = randn(b, hkv, g, d, scale=0.5, dtype=dtype)
+                        k = randn(b, s_len, hkv, d, scale=0.5, dtype=dtype)
+                        v = randn(b, s_len, hkv, d, dtype=dtype)
+                        y = OPS.flash_decode(q, k, v, length)
+                        where = f"G{g} D{d} S{s_len} len{length} {dname}"
+                        if dtype == torch.float32:
+                            r = OPS.flash_decode(q, k, v, length, backend="torch")
+                            ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
+                        else:
+                            r = OPS.flash_decode(q.float(), k.float(), v.float(), length, backend="torch")
+                            ratio = float(((y.float() - r).abs() / bf16_ulp(torch, r)).max())
+                        err["flash_decode"] = max(err["flash_decode"], float((y.float() - r).abs().max()))
+                        check(bool(torch.isfinite(y).all()), f"flash_decode non-finite at {where}")
+                        if ratio >= fd_worst[dname][0]:
+                            fd_worst[dname] = (ratio, where)
+                        fd_cases += 1
+
+    # ---------------------------- 6b. B6 against its plain version
+    ssd_cases, ssd_worst = [], 0.0
+    # (B, S, H, P, N, chunk, nonzero h0, head-stride-0 B/C): Hymba's heads
+    for (b, s_len, h, p, n, chunk, h0_on, shared) in (
+        (2, 896, 50, 64, 16, 64, False, True), (2, 896, 50, 64, 16, 64, True, True),
+        (2, 512, 50, 64, 16, 128, True, False),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(b, s_len, h, p, dtype=dtype)
+            la = (-randn(b, s_len, h).abs() * 0.3).to(dtype)
+            if shared:
+                B = randn(b, s_len, 1, n, scale=0.4, dtype=dtype).expand(b, s_len, h, n)
+                C = randn(b, s_len, 1, n, scale=0.4, dtype=dtype).expand(b, s_len, h, n)
+            else:
+                B, C = randn(b, s_len, h, n, scale=0.4, dtype=dtype), randn(b, s_len, h, n, scale=0.4, dtype=dtype)
+            h0 = randn(b, h, n, p) if h0_on else None
+            y, hf = OPS.ssd(x, la, B, C, h0=h0, chunk=chunk)
+            ry, rh = OPS.ssd(x, la, B, C, h0=h0, chunk=chunk, backend="torch")
+            tol = FD_TOL if dtype == torch.float32 else SSD_BF16_TOL
+            ratio = max(float(((y.float() - ry.float()).abs() / (tol + tol * ry.float().abs())).max()),
+                        float(((hf - rh).abs() / (tol + tol * rh.abs())).max()))
+            err["ssd"] = max(err["ssd"], float((y.float() - ry.float()).abs().max()), float((hf - rh).abs().max()))
+            ssd_cases.append({"B": b, "S": s_len, "H": h, "P": p, "N": n, "chunk": chunk, "h0": h0_on,
+                              "head_stride_0": shared, "dtype": str(dtype).split(".")[-1],
+                              "err_over_tol": ratio, "finite": bool(torch.isfinite(y).all())})
+            ssd_worst = max(ssd_worst, ratio)
+    torch.cuda.synchronize()
+    print(json.dumps({"correctness_lm_kernels": {
+        "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
+                         "worst_at": {k: v[1] for k, v in fd_worst.items()},
+                         "tolerance": {"float32": f"|y-r| <= {FD_TOL} + {FD_TOL}*|r|",
+                                       "bfloat16": "|y - r_f32| <= 1 bf16 ulp of r_f32 (no finer than at 2^-8 max|r_f32|)"}},
+        "ssd": {"cases": ssd_cases, "tolerance": {"float32": f"rtol=atol={FD_TOL}",
+                                                  "bfloat16": f"rtol=atol={SSD_BF16_TOL}"}},
+    }}))
+    for dname, (ratio, where) in fd_worst.items():
+        check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
+    check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
+    check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
+
+    # ----------------- 6c. Hymba-1.5B served at full width through B5, B6
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device=dev)
+    model.compute_blocks(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+    generate(cfg, model, prompt[:, :64], 2)  # warm-up: cuBLAS handles, first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_step = []
+
+    def hook(phase, i):
+        per_step.append((phase, runtime.launch_counts()))
+        runtime.reset_launches()
+
+    runtime.reset_launches()
+    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_CHECK_STEPS, step_hook=hook)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_layers = cfg.n_layers
+    others = [k for k in runtime.KERNEL_NAMES if k not in LM_KERNELS]
+    phase0, prefill_counts = per_step[0]
+    check(phase0 == "prefill" and prefill_counts["ssd"] == n_layers
+          and prefill_counts["flash_decode"] == 0 and not any(prefill_counts[k] for k in others),
+          f"prefill launched {prefill_counts}, want {n_layers} ssd and nothing else")
+    decode_counts = [c for ph, c in per_step[1:]]
+    check(len(decode_counts) == LM_GEN, f"{len(decode_counts)} decode steps, want {LM_GEN}")
+    for i, c in enumerate(decode_counts):
+        check(c["flash_decode"] == n_layers and c["ssd"] == 0 and not any(c[k] for k in others),
+              f"decode step {i} launched {c}, want {n_layers} flash_decode and nothing else")
+    tokens = out["tokens"]
+    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "generated tokens out of range")
+    check(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]), "served logits are not finite")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), "prefill hidden state is not finite")
+    launches = {"flash_decode": sum(c["flash_decode"] for c in decode_counts), "ssd": prefill_counts["ssd"]}
+
+    # kernel-level parity on the served activations: every B5 and B6 call
+    # of a prefill and LM_CHECK_STEPS decode steps is repeated through the
+    # plain version on the same inputs (teacher forcing at the kernel)
+    served = {"flash_decode": [0, 0.0, 0.0], "ssd": [0, 0.0, 0.0]}  # calls, worst ratio, max abs
+    orig_fd, orig_ssd = OPS.flash_decode, OPS.ssd
+
+    def fd_checked(q, k, v, length, backend=None):
+        y = orig_fd(q, k, v, length, backend=backend)
+        r = orig_fd(q.float(), k.float(), v.float(), length, backend="torch")
+        d = (y.float() - r).abs()
+        rec = served["flash_decode"]
+        rec[0] += 1
+        rec[1] = max(rec[1], float((d / bf16_ulp(torch, r)).max()))
+        rec[2] = max(rec[2], float(d.max()))
+        return y
+
+    def ssd_checked(x, log_a, B, C, h0=None, chunk=128, backend=None):
+        y, hf = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend=backend)
+        ry, rh = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend="torch")
+        d = (y.float() - ry.float()).abs()
+        rec = served["ssd"]
+        rec[0] += 1
+        rec[1] = max(rec[1], float((d / (SSD_BF16_TOL + SSD_BF16_TOL * ry.float().abs())).max()),
+                     float(((hf - rh).abs() / (SSD_BF16_TOL + SSD_BF16_TOL * rh.abs())).max()))
+        rec[2] = max(rec[2], float(d.max()))
+        return y, hf
+
+    OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
+    try:
+        checked = generate(cfg, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS)
+    finally:
+        OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
+    repeatable = all(torch.equal(a, b) for a, b in zip(checked["logits"], out["logits"]))
+    for name in LM_KERNELS:
+        err[name] = max(err[name], served[name][2])
+
+    # end-to-end, teacher-forced: the served token stream through the
+    # kernel route and the plain route, compared in f32 (gated) and bf16
+    stream = out["tokens"]
+
+    def forced(cfg_, backend):
+        caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
+        last = make_prefill_step(cfg_, backend)(model, {"tokens": prompt}, caches)
+        step = make_serve_step(cfg_, backend)
+        tok, logits = prompt[:, -1:], []
+        for i in range(LM_CHECK_STEPS):
+            logits.append(step(model, caches, tok, LM_PROMPT + N_META_TOKENS + i))
+            tok = stream[:, i:i + 1]
+        del caches
+        return [last.float()] + logits
+
+    def compare(a, b):
+        worst, mx = 0.0, 0.0
+        for x, r in zip(a, b):
+            d = (x - r).abs()
+            worst = max(worst, float((d / (LM_ATOL + LM_RTOL * r.abs())).max()))
+            mx = max(mx, float(d.max()))
+        return worst, mx
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32_worst, f32_max = compare(forced(cfg32, None), forced(cfg32, "torch"))
+    bf16_worst, bf16_max = compare([out["last_hidden"].float()] + out["logits"], forced(cfg, "torch"))
+    torch.cuda.synchronize()
+    report = {
+        "model": LM_ARCH, "params": n_params, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "meta_tokens": N_META_TOKENS, "gen": LM_GEN, "max_len": out["max_len"],
+        "compute_dtype": cfg.compute_dtype, "init_and_cast_s": init_s,
+        "prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms"],
+        "decode_tok_per_s": out["decode_tok_per_s"], "decode_ms_per_step": out["decode_ms"] / LM_GEN,
+        "timer": out["timer"], "peak_memory_gb": peak_gb,
+        "launches": {"prefill": {k: prefill_counts[k] for k in LM_KERNELS},
+                     "per_decode_step": {k: decode_counts[0][k] for k in LM_KERNELS}},
+        "kernel_parity_on_served_activations": {
+            name: {"calls": served[name][0], "worst_err_over_tol": served[name][1],
+                   "max_abs_err": served[name][2]} for name in LM_KERNELS},
+        "checked_run_bitwise_equal_served_logits": repeatable,
+        "teacher_forced_vs_plain_route": {
+            "float32": {"worst_err_over_tol": f32_worst, "max_abs_err": f32_max},
+            "bfloat16": {"worst_err_over_tol": bf16_worst, "max_abs_err": bf16_max},
+            "compared": f"prefill last hidden state + logits of {LM_CHECK_STEPS} decode steps",
+            "tolerance": f"rtol={LM_RTOL}, atol={LM_ATOL}; gated in float32",
+        },
+        "sample_tokens": tokens[0, :8].tolist(),
+    }
+    print(json.dumps({"serve_lm": report}))
+    check(served["flash_decode"][0] == n_layers * LM_CHECK_STEPS and served["ssd"][0] == n_layers,
+          f"kernel parity saw {served['flash_decode'][0]} flash_decode and {served['ssd'][0]} ssd calls")
+    check(served["flash_decode"][1] <= 1.0, f"flash_decode on served activations exceeds 1 bf16 ulp "
+                                           f"({served['flash_decode'][1]:.3g})")
+    check(served["ssd"][1] <= 1.0, f"ssd on served activations exceeds its bf16 bar ({served['ssd'][1]:.3g})")
+    check(f32_worst <= 1.0, f"float32 kernel route differs from the plain route (err/tol {f32_worst:.3g})")
+    del checked
+
+    # where a decode step's time goes: device busy time of a few steps
+    # (profiler, kernels summed) against the served run's step time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_serve_step(cfg)
+    tok, pos0 = out["tokens"][:, -1:], out["max_len"]
+    step(model, out["caches"], tok, pos0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILE_STEPS):
+            step(model, out["caches"], tok, pos0 + 1 + i)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / LM_PROFILE_STEPS
+    step_ms = out["decode_ms"] / LM_GEN
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    print(json.dumps({"decode_step_breakdown": {
+        "steps_profiled": LM_PROFILE_STEPS, "served_step_ms": step_ms,
+        "device_busy_ms_per_step": busy_ms if dev_events else None,
+        "device_idle_share": (1.0 - busy_ms / step_ms) if dev_events else None,
+        "device_kernels_per_step": sum(e.count for e in dev_events) / LM_PROFILE_STEPS,
+        "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS for e in top},
+        "source": "torch.profiler over steps after the served run; step time from the served run",
+    }}))
+
+    # ---------------------------- 6d. timing of B5 and B6
+    rows = {}
+
+    def timed(name, where, kern, plain, lib, op_count, op_peak, nbytes, **extra):
+        op_ms, byte_ms = op_count / op_peak * 1e3, nbytes / bytes_peak * 1e3
+        row = {"shape": where, "kernel": name, "kernel_ms": device_ms(kern, torch),
+               "plain_ms": device_ms(plain, torch),
+               "library_ms": None if lib is None else device_ms(lib, torch),
+               "host_paced_kernel_ms": time_ms(kern, torch),
+               "flop_bound_ms": op_ms, "byte_bound_ms": byte_ms, "bound_ms": max(op_ms, byte_ms),
+               "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+               "timer": "cuda events behind a sleep kernel (device time)", **extra}
+        print(json.dumps(row))
+        return row
+
+    hkv, g, d = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
+    for label, b, w, length in (("served", LM_BATCH, out["max_len"], out["max_len"]),
+                                ("decode_32k", 16, SHAPES["decode_32k"].seq_len, SHAPES["decode_32k"].seq_len)):
+        q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
+        k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
+        v = randn(b, w, hkv, d, dtype=torch.bfloat16)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, W, D] views
+        q4 = q.reshape(b, hkv * g, 1, d)
+        mask = (torch.arange(w, device=dev) < length)[None, None, None, :]
+        y = OPS.flash_decode(q, k, v, length)
+        lib_y = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib_y.reshape(q.shape).float() - y.float()).abs().max())
+        rows[label] = timed(
+            "flash_decode", f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} len{length} bf16",
+            lambda: OPS.flash_decode(q, k, v, length),
+            lambda: OPS.flash_decode(q, k, v, length, backend="torch"),
+            lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True),
+            4.0 * b * hkv * g * length * d, flops_peak,
+            2.0 * (2 * q.numel() + 2 * b * length * hkv * d),
+            library_max_abs_diff=lib_err,
+        )
+        del q, k, v, kt, vt, y, lib_y
+
+    # B6 at the served prefill shape: Hymba's mamba heads over 896 tokens
+    s_len, h, p, n, chunk = LM_PROMPT + N_META_TOKENS, cfg.d_inner // 64, 64, cfg.ssm_state, cfg.ssd_chunk
+    b = LM_BATCH
+    x = randn(b, s_len, h, p, dtype=torch.bfloat16)
+    la = (-randn(b, s_len, h).abs() * 0.3).to(torch.bfloat16)
+    B = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
+    C = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
+    n_chunks = b * h * (-(-s_len // chunk))
+    # the causal half of the Q x Q products and the two N x P terms, per chunk
+    causal = chunk * (chunk + 1) // 2
+    ssd_flops = 2.0 * n_chunks * (causal * n + causal * p + 2 * chunk * n * p)
+    ssd_bytes = 2.0 * (2 * x.numel() + la.numel() + 2 * b * s_len * n) + 4.0 * b * h * n * p
+    rows["ssd"] = timed(
+        "ssd", f"served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, B/C head stride 0",
+        lambda: OPS.ssd(x, la, B, C, chunk=chunk),
+        lambda: OPS.ssd(x, la, B, C, chunk=chunk, backend="torch"),
+        None, ssd_flops, flops_peak, ssd_bytes,
+        dense_form_flop_bound_ms=2.0 * n_chunks * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p)
+        / flops_peak * 1e3,
+        library_null_reason=NO_LIBRARY["ssd"],
+    )
+    del x, la, B, C, model, out
+
+    kernels = []
+    for name, meta in LM_KERNELS.items():
+        row = rows["served"] if name == "flash_decode" else rows["ssd"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
+            "launches": launches[name], "max_abs_err": err[name], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    return kernels
 
 
 def serve_route(torch, serve, backend, images, **kw):
@@ -219,6 +629,11 @@ def main() -> int:
     from repro_torch.kernels.backend import resolve_backend
     from repro_torch.serving import SingleStageEngine, serve
 
+    t_start = time.perf_counter()
+
+    def mark(phase):  # wall time so far, to keep the run inside its limit
+        print(json.dumps({"phase_done": phase, "elapsed_s": time.perf_counter() - t_start}))
+
     # ---------------------------------------------------------- 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -241,6 +656,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build_s={time.perf_counter() - t0:.3f} libs={[os.path.basename(p) for p in libs]}")
+
+    mark("2")
 
     # ------------------------------------------- 3a. correctness, all nets
     convs, fcs, all_convs = {}, [], {}
@@ -291,6 +708,8 @@ def main() -> int:
     for name, (_, ratio, where) in worst.items():
         check(ratio <= 1.0, f"{name} exceeds tolerance at {where} (err/tol {ratio:.3g})")
 
+    mark("3a")
+
     # --------------------------- 3c. correctness of B4, B3, B1q, all nets
     im2col_bad = []
     for (h, w, c, fh, fw, st, pd), where in all_convs.items():
@@ -330,6 +749,8 @@ def main() -> int:
     check(not im2col_bad, f"im2col differs from its plain version at {im2col_bad[:5]}")
     check(gemm_worst[1] <= 1.0, f"gemm exceeds tolerance at {gemm_worst[2]} (err/tol {gemm_worst[1]:.3g})")
     check(not qconv_bad, f"qconv2d_fused differs from its plain version at {qconv_bad[:5]}")
+
+    mark("3c")
 
     # ---------------------------------- 3b, 3d. timing, VGG-16 at batch 4
     vgg = MODELS["vgg16"]()
@@ -451,6 +872,8 @@ def main() -> int:
             )
         del y
 
+    mark("3b,3d")
+
     # ------------------------------------------------ 4. the main path
     rng = np.random.default_rng(SEED)
     images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(N_IMAGES)]
@@ -481,6 +904,8 @@ def main() -> int:
     check(bitwise, "served outputs differ from the single-stage cuda_fused engine")
     check(close, "served outputs differ from the plain torch route beyond tolerance")
 
+    mark("4")
+
     # --------------------------------------- 4b. the unfused route served
     server_u, outs_u, counts, n_batches, report = serve_route(
         torch, serve, "cuda", images, params=params
@@ -508,6 +933,8 @@ def main() -> int:
     }))
     check(bitwise_u, "served outputs differ from the single-stage cuda engine")
     check(close_u, "cuda-route outputs differ from the plain torch route beyond tolerance")
+
+    mark("4b")
 
     # ------------------------- 4c. the quantized path at VGG-16's full width
     graph = server.graph
@@ -566,8 +993,13 @@ def main() -> int:
         check(row["err_over_tol_vs_im2col_qgemm"] <= 1.0,
               f"quantized {row['node']} differs from im2col + qgemm beyond tolerance")
     del env, quant_out
+    mark("4c")
 
-    # ------------------------------------------------ 5. kernels line
+    # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
+    lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)
+    mark("6")
+
+    # ------------------------------------------------ 7. kernels line
     kernels = []
     for name, meta in KERNELS.items():
         t = totals[name]
@@ -579,6 +1011,7 @@ def main() -> int:
             "bound_by": "operations" if t["flop_ms"] >= t["byte_ms"] else "bytes",
             "library_ms": None if name in NO_LIBRARY else t["library_ms"],
         })
+    kernels += lm_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

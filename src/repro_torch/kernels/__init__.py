@@ -1,4 +1,4 @@
-# Serving hot-path kernels and the backend that routes graph nodes to them:
+# Hot-path kernels and the backend that routes CNN graph nodes to them:
 #
 #   csrc/*.cu        hand-written CUDA C++ for sm_90a (plain C interface)
 #   build.py         nvcc at first use into _build/, loaded with ctypes
@@ -6,7 +6,9 @@
 #   conv_fused.py    fused conv (f32, int32) and fc wrappers + plain versions
 #   gemm.py          the unfused route's GEMM wrapper + plain version
 #   im2col.py        the unfused route's patch-matrix wrapper + plain version
-#   ops.py           entry points of the unfused kernels (mirrors repro's ops.py)
+#   flash_decode.py  decode attention over a KV cache (B5) + plain version
+#   ssd.py           SSD chunked scan (B6) + plain version (the port's ssd_scan)
+#   ops.py           entry points of the other kernels (mirrors repro's ops.py)
 #   backend.py       per-node route selection (torch | cuda | cuda_fused)
 #   config.py        device resolution
 #   autotune.py      descriptor cache keys (the tuner itself comes later)

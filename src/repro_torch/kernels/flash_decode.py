@@ -1,0 +1,122 @@
+"""Decode attention over a KV cache (B5), with its plain PyTorch version.
+
+``flash_decode`` replaces the Pallas kernel
+``repro/kernels/flash_decode.py::_flash_decode_kernel``: one new query
+token attends to the valid prefix of a cache with an online softmax,
+scale ``1/sqrt(D)``, operands read as f32, output ``acc / max(l, 1e-30)``
+in q's type.  The TPU kernel handles one KV head and is vmapped over
+(batch, KV head); this one takes the batched, GQA-grouped form the model
+holds: q ``[B, Hkv, G, D]`` (a view of ``[B, H, D]``), caches
+``[B, W, Hkv, D]`` as ``models/blocks.py::_ring_write`` leaves them, and
+one host-side ``length``.  ``csrc/flash_decode.cu`` runs one block per
+(batch, KV head), one launch per layer per decode step.
+
+**A prefix stands for the reference's position mask.**
+``repro.models.attention.decode_attention`` masks each slot by the
+position it holds: ``pos >= 0``, ``pos < length`` and, on a window layer,
+``pos >= length - window``.  This kernel masks a prefix of slots.  Called
+with ``min(length, W)``, where ``W`` is the layer's cache size
+(``models/model.py::init_cache``), the two select the same keys:
+
+- a full-attention layer has ``W = max_len >= length`` and slot ``i``
+  holds position ``i``, so the valid slots are ``[0, length)``;
+- a window layer has ``W = min(max_len, window)``.  Before the ring
+  wraps, slot ``i`` holds position ``i`` and the first ``length`` slots
+  are valid (all of them inside the window, since ``length <= W <=
+  window``).  Once it has wrapped, the W slots hold positions ``length -
+  W .. length - 1`` (the port's ``_ring_write`` keeps the last W positions
+  of a long prefill), all of which are ``>= length - window``: every slot
+  is valid, and ``min(length, W) = W``.
+
+Which slot holds which position does not matter to the softmax, so the
+prefix is exact.  ``tests/test_torch_flash_decode.py`` holds this against
+``decode_attention`` with positions on a wrapped ring buffer.
+
+The plain version keeps the softmax weights in f32 for the PV product, as
+the TPU kernel does; ``decode_attention`` casts them to the cache's type
+first, so in bf16 the two differ by about one bf16 rounding of the
+weights.
+
+A CPU tensor takes :func:`flash_decode_ref`; a CUDA tensor launches the
+kernel or raises.  Each launch counts once under ``"flash_decode"`` in
+``kernels/runtime.py``'s ``launches``.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import runtime as R
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> int:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_decode: want q [B,Hkv,G,D] and k/v [B,W,Hkv,D], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, hkv, _, d = q.shape
+    if k.shape[0] != b or k.shape[2] != hkv or k.shape[3] != d:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
+    length = int(length)
+    if not 1 <= length <= k.shape[1]:
+        raise ValueError(f"flash_decode: length {length} outside [1, {k.shape[1]}]")
+    return length
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain version: ``softmax(q k^T / sqrt(D)) v`` over slots
+    ``[0, length)``, in f32, cast to q's type.  q ``[B,Hkv,G,D]``, k/v
+    ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``."""
+    length = _check(q, k, v, length)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    kf = k[:, :length].float()  # the masked slots weigh exp(-inf) = 0
+    vf = v[:, :length].float()
+    logits = torch.einsum("bkgd,bskd->bkgs", q.float(), kf) * scale
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", w, vf).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _limits():
+    max_gd = R.bind("flash_decode", "flash_decode_max_gd", [])()
+    max_d = R.bind("flash_decode", "flash_decode_max_d", [])()
+    return max_gd, max_d
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> torch.Tensor:
+    """Decode attention over the first ``length`` cache slots; launches
+    ``csrc/flash_decode.cu`` on the current stream for CUDA tensors."""
+    if not R.on_card(q, "flash_decode"):
+        return flash_decode_ref(q, k, v, length)
+    R.require(q, "q", 4, DTYPES)
+    length = _check(q, k, v, length)
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"flash_decode: k and v must be on {dev}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, hkv, g, d = q.shape
+    max_gd, max_d = _limits()
+    vec = 16 // q.element_size()
+    if d % vec or d > max_d or g * d > max_gd:
+        raise ValueError(
+            f"flash_decode: head_dim {d} must be a multiple of {vec} and <= {max_d}, "
+            f"and G*D = {g * d} <= {max_gd}"
+        )
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: q, k, v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 4 + [R.I] * 7 + [R.F, R.P])
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, hkv, g, d, k.shape[1], length,
+        1.0 / d ** 0.5, R.stream(dev),
+    )
+    R.check(err, "flash_decode_fwd")
+    R.count("flash_decode")
+    return out

@@ -1,20 +1,34 @@
-"""Entry points of the unfused conv-as-GEMM kernels, mirroring
-``repro/kernels/ops.py``.
+"""Entry points of the hand-written kernels outside the fused conv route,
+mirroring ``repro/kernels/ops.py``.
 
-Routing is by the tensor's device alone, as for ``conv2d_fused``: a CPU
-tensor takes the plain PyTorch version, a CUDA tensor launches the
-hand-written kernel (``csrc/gemm.cu``, ``csrc/im2col.cu``) or raises.
-There is no backend argument: the reference's ``"jnp"`` and
-``"interpret"`` choices have no counterpart on the card.
+Routing of ``gemm`` and ``im2col`` is by the tensor's device alone, as
+for ``conv2d_fused``: a CPU tensor takes the plain PyTorch version, a
+CUDA tensor launches the hand-written kernel (``csrc/gemm.cu``,
+``csrc/im2col.cu``) or raises.
+
+``flash_decode`` and ``ssd`` take a ``backend``: ``None`` launches the
+kernel (``csrc/flash_decode.cu``, ``csrc/ssd.cu``) for a CUDA tensor and
+takes the plain version for a CPU tensor; ``"torch"`` asks for the plain
+version on any device, which only the tests and ``chip_smoke.py`` do, to
+hold the kernels' path against the plain one on the card.  The
+reference's ``"jnp"`` and ``"interpret"`` choices have no counterpart
+here.
 """
 from __future__ import annotations
 
-import torch
+from typing import Optional, Tuple
 
+import torch
+import torch.nn.functional as F
+
+from . import flash_decode as FD
+from . import ssd as SSD
 from .gemm import gemm
 from .im2col import im2col as im2col_batched
 
-__all__ = ["gemm", "im2col", "im2col_batched"]
+__all__ = ["gemm", "im2col", "im2col_batched", "flash_decode", "ssd", "BACKENDS"]
+
+BACKENDS = (None, "torch")
 
 
 def im2col(x: torch.Tensor, fh: int, fw: int, stride: int = 1, pad: int = 0) -> torch.Tensor:
@@ -22,3 +36,59 @@ def im2col(x: torch.Tensor, fh: int, fw: int, stride: int = 1, pad: int = 0) -> 
     ``"cuda"`` route calls :func:`im2col_batched` (``[B,H,W,C] ->
     [B*OH*OW, FH*FW*C]``) instead."""
     return im2col_batched(x[None], fh, fw, stride, pad)
+
+
+def _check_backend(backend: Optional[str]) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def flash_decode(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Decode attention of q ``[B,Hkv,G,D]`` over cache slots ``[0,
+    length)`` of k/v ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``.  The reference's
+    single-head call ``flash_decode(q [G,D], k [S,D], v, length)`` is
+    ``flash_decode(q[None, None], k[None, :, None], v[None, :, None],
+    length)[0, 0]`` here."""
+    _check_backend(backend)
+    if backend == "torch":
+        return FD.flash_decode_ref(q, k, v, length)
+    return FD.flash_decode(q, k, v, length)
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad dim 1 (S) by ``pad``, keeping a broadcast (stride-0) head
+    dim broadcast instead of materialising it."""
+    if t.dim() == 4 and t.stride(2) == 0 and t.shape[2] > 1:
+        return F.pad(t[:, :, :1], (0, 0, 0, 0, 0, pad)).expand(-1, -1, t.shape[2], -1)
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def ssd(
+    x: torch.Tensor,
+    log_a: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked selective scan, batched: x ``[B,S,H,P]``, log_a ``[B,S,H]``,
+    B/C ``[B,S,H,N]`` (a head stride of 0 is kept), h0 ``[B,H,N,P]`` or
+    ``None`` for zeros -> (y ``[B,S,H,P]``, h_final ``[B,H,N,P]`` f32).
+    The reference's single-sequence ``ssd`` vmaps over the batch instead.
+
+    A ragged S is padded to a chunk multiple with ``log_a = 0`` (a = 1)
+    and ``B = 0`` (no input), which leaves y and the state exact, and y is
+    sliced back, as ``ssd_scan`` does."""
+    _check_backend(backend)
+    s = x.shape[1]
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        x, log_a, B, C = (_pad_seq(t, pad) for t in (x, log_a, B, C))
+    run = SSD.ssd if backend is None else SSD.ssd_ref
+    y, h_final = run(x, log_a, B, C, h0=h0, chunk=q)
+    return (y[:, :s] if pad else y), h_final

@@ -17,7 +17,9 @@ import torch
 
 from . import build
 
-KERNEL_NAMES = ("conv2d_fused", "matmul_fused", "qconv2d_fused", "gemm", "im2col")
+KERNEL_NAMES = (
+    "conv2d_fused", "matmul_fused", "qconv2d_fused", "gemm", "im2col", "flash_decode", "ssd",
+)
 
 _count_lock = threading.Lock()
 launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
@@ -42,13 +44,16 @@ def launch_counts() -> Dict[str, int]:
 # ------------------------------------------------------------ ctypes binding
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
+F = ctypes.c_float
 _bind_lock = threading.Lock()
 _bound: Dict[str, object] = {}
 
 
 def bind(lib_name: str, sym: str, argtypes):
     """``csrc/<lib_name>.cu``'s C function ``sym``, built and loaded on
-    first use; pointers and the stream are ``P``, ints ``I``."""
+    first use; pointers and the stream are ``P``, ints ``I``, 64-bit ints
+    (strides) ``L``, floats ``F``."""
     key = f"{lib_name}:{sym}"
     fn = _bound.get(key)
     if fn is None:
@@ -68,8 +73,11 @@ def check(err: int, what: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, ndim: int, dtype=torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    """Raise unless ``t`` has ``ndim`` dims and ``dtype`` (one dtype, or a
+    tuple of those the kernel takes)."""
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} must be {' or '.join(map(str, allowed))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
 

@@ -1,0 +1,182 @@
+"""SSD chunked selective scan (B6), with its plain PyTorch version.
+
+``ssd`` replaces the Pallas kernel ``repro/kernels/ssd.py::_ssd_kernel``:
+the Mamba-2 dual form of ``h_t = a_t h_{t-1} + B_t x_t^T, y_t = C_t h_t``,
+computed per chunk of Q steps as a causal ``Q x Q`` product plus the
+carried ``[N, P]`` state.  The TPU kernel's grid is (head, chunk) and the
+reference vmaps it over the batch; ``csrc/ssd.cu`` runs one block per
+(batch, head) with the chunks as a loop inside it, the state in shared
+memory, f32 arithmetic, y in x's type and h_final in f32.
+
+B and C are read through strides: Hymba computes one B and one C per
+token and broadcasts them to every head (``repro/models/ssm.py:180-181``),
+so ``mamba_mix`` passes ``expand``ed views with head stride 0 and the
+kernel reads 1/H of the bytes a materialised copy would cost.
+
+:func:`ssd_ref` is the plain version and the port of
+``repro.models.ssm.ssd_scan`` (the reference's oracle for the kernel),
+normalizer channel included; ``models/ssm.py`` re-exports it under that
+name.  The kernel takes S a multiple of the chunk, as the TPU kernel
+does; ``kernels/ops.py::ssd`` pads a ragged S (``log_a = 0, B = 0`` is
+exact) and slices the result back.
+
+A CPU tensor takes :func:`ssd_ref`; a CUDA tensor launches the kernel or
+raises.  Each launch counts once under ``"ssd"`` in
+``kernels/runtime.py``'s ``launches``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import runtime as R
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_SMEM = 232_448  # bytes of shared memory a block may use on sm_90
+
+
+def ssd_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    log_a: torch.Tensor,  # [B, S, H]  log decay, <= 0
+    B: torch.Tensor,  # [B, S, H, N]
+    C: torch.Tensor,  # [B, S, H, N]
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,  # [B, H, N, P]
+    normalizer: bool = False,
+    n0: Optional[torch.Tensor] = None,  # [B, H, N] normalizer state
+) -> Tuple[torch.Tensor, ...]:
+    """Chunked selective scan, the reference's ``ssd_scan`` step for step.
+
+    Returns (y [B,S,H,P] in x's type, h_final [B,H,N,P] f32); with
+    ``normalizer=True`` also (den [B,S,H], n_final [B,H,N]): the mLSTM
+    normalizer ``n_t = a_t n_{t-1} + B_t``, ``den_t = C_t . n_t`` from the
+    same scores and decay."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        log_a = F.pad(log_a, (0, 0, 0, pad))  # log a = 0 -> a = 1
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))  # B = 0: no input
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // q
+
+    xc = x.reshape(b, nc, q, h, p).float()
+    lac = log_a.reshape(b, nc, q, h).float()
+    Bc = B.reshape(b, nc, q, h, n).float()
+    Cc = C.reshape(b, nc, q, h, n).float()
+
+    L = torch.cumsum(lac, dim=2)  # [B, NC, Q, H] inclusive cumulative log-decay
+    L_end = L[:, :, -1:, :]
+
+    # intra-chunk: causal (C_t . B_s) exp(L_t - L_s), clamped at 0 so the
+    # masked anti-causal region cannot make inf * 0
+    scores = torch.einsum("bcqhn,bcshn->bchqs", Cc, Bc)
+    Lt = L.permute(0, 1, 3, 2)  # [B, NC, H, Q]
+    decay = torch.exp(torch.clamp(Lt[..., :, None] - Lt[..., None, :], max=0.0))
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    scores = torch.where(causal, scores * decay, 0.0)
+    y_intra = torch.einsum("bchqs,bcshp->bcqhp", scores, xc)
+
+    # chunk summary H_c = sum_s exp(L_end - L_s) B_s x_s^T, chunk decay A_c
+    w = torch.exp(L_end - L)  # [B, NC, Q, H]
+    Hc = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", w, Bc, xc)
+    Ac = torch.exp(L_end[:, :, 0, :])  # [B, NC, H]
+
+    # inter-chunk state scan: the state before each chunk
+    hprev = h0.float() if h0 is not None else x.new_zeros((b, h, n, p), dtype=torch.float32)
+    befores = []
+    for c in range(nc):
+        befores.append(hprev)
+        hprev = Ac[:, c, :, None, None] * hprev + Hc[:, c]
+    h_final = hprev
+    h_befores = torch.stack(befores, dim=1)  # [B, NC, H, N, P]
+
+    y_inter = torch.einsum("bcqh,bcqhn,bchnp->bcqhp", torch.exp(L), Cc, h_befores)
+    y = (y_intra + y_inter).reshape(b, nc * q, h, p)[:, :s]
+    if not normalizer:
+        return y.to(x.dtype), h_final
+
+    den_intra = scores.sum(-1).permute(0, 1, 3, 2)  # [B, NC, Q, H]
+    Nc = torch.einsum("bcqh,bcqhn->bchn", w, Bc)
+    nprev = n0.float() if n0 is not None else x.new_zeros((b, h, n), dtype=torch.float32)
+    n_befores = []
+    for c in range(nc):
+        n_befores.append(nprev)
+        nprev = Ac[:, c, :, None] * nprev + Nc[:, c]
+    den_inter = torch.einsum(
+        "bcqh,bcqhn,bchn->bcqh", torch.exp(L), Cc, torch.stack(n_befores, dim=1)
+    )
+    den = (den_intra + den_inter).reshape(b, nc * q, h)[:, :s]
+    return y.to(x.dtype), h_final, den, nprev
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(q: int, p: int, n: int) -> int:
+    return R.bind("ssd", "ssd_smem_bytes", [R.I, R.I, R.I])(q, p, n)
+
+
+def _strides(t: torch.Tensor, ndim: int):
+    return [t.stride(i) for i in range(ndim)]
+
+
+def ssd(
+    x: torch.Tensor,
+    log_a: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched SSD over S a multiple of ``min(chunk, S)``: returns
+    (y [B,S,H,P] in x's type, h_final [B,H,N,P] f32); launches
+    ``csrc/ssd.cu`` on the current stream for CUDA tensors.  ``h0=None``
+    means a zero state."""
+    if x.dim() != 4 or log_a.dim() != 3 or B.dim() != 4 or C.shape != B.shape:
+        raise ValueError(
+            f"ssd: want x [B,S,H,P], log_a [B,S,H], B/C [B,S,H,N], got {tuple(x.shape)}, "
+            f"{tuple(log_a.shape)}, {tuple(B.shape)}, {tuple(C.shape)}"
+        )
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if tuple(log_a.shape) != (b, s, h) or tuple(B.shape[:3]) != (b, s, h):
+        raise ValueError(f"ssd: shapes disagree: {tuple(x.shape)}, {tuple(log_a.shape)}, {tuple(B.shape)}")
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd: pad S = {s} to a multiple of the chunk {q} (kernels/ops.py::ssd does)")
+    if h0 is not None and tuple(h0.shape) != (b, h, n, p):
+        raise ValueError(f"ssd: h0 must be {(b, h, n, p)}, got {tuple(h0.shape)}")
+    if not R.on_card(x, "ssd"):
+        return ssd_ref(x, log_a, B, C, chunk=q, h0=h0)
+    R.require(x, "x", 4, DTYPES)
+    R.require(log_a, "log_a", 3, DTYPES)
+    dev = x.device
+    if any(t.device != dev for t in (log_a, B, C)) or (h0 is not None and h0.device != dev):
+        raise ValueError(f"ssd: every operand must be on {dev}")
+    if B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd: x, B, C must share a dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
+    if p % 4:
+        raise ValueError(f"ssd: P = {p} must be a multiple of 4")
+    if _smem_bytes(q, p, n) > MAX_SMEM:
+        raise ValueError(f"ssd: chunk {q} with P = {p}, N = {n} needs more shared memory than a block has")
+    # the last dim must be contiguous; every other stride is passed (0 is fine)
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    h0c = None if h0 is None else h0.float().contiguous()
+    y = torch.empty((b, s, h, p), device=dev, dtype=x.dtype)
+    h_out = torch.empty((b, h, n, p), device=dev, dtype=torch.float32)
+    fn = R.bind("ssd", "ssd_fwd", [R.P] * 7 + [R.I] * 8 + [R.L] * 12 + [R.P])
+    err = fn(
+        x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(),
+        None if h0c is None else h0c.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(log_a.dtype == torch.bfloat16),
+        b, s, h, p, n, q,
+        *_strides(x, 3), *_strides(log_a, 3), *_strides(B, 3), *_strides(C, 3),
+        R.stream(dev),
+    )
+    R.check(err, "ssd_fwd")
+    R.count("ssd")
+    return y, h_out

@@ -1,0 +1,149 @@
+"""Serving launcher: batched prefill + greedy decode loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
+
+Port of ``repro/launch/serve.py``: random weights from a seed, a random
+prompt batch, one prefill that fills the caches, then ``--gen`` greedy
+decode steps (the first one re-feeds the prompt's last token, as the
+reference does).  On the card the prefill runs the SSD kernel (B6) in
+every layer and each decode step the flash-decode kernel (B5) in every
+layer; times are CUDA-event times taken after a device sync.  With
+``--device cpu`` the kernels' plain versions run and the times are host
+clock times of the CPU, not of any device.  Only ``block_kind="hymba"``
+runs; other architectures raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..configs import get_config
+from ..kernels.config import resolve_device
+from ..models import ModelConfig, init_cache, init_params
+from ..models.model import N_META_TOKENS, check_supported
+from .steps import make_prefill_step, make_serve_step
+
+
+class _Timer:
+    """CUDA events on the card (after a sync), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.kind = "cuda_events" if self.cuda else "host_clock"
+
+    def start(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            self._s = torch.cuda.Event(enable_timing=True)
+            self._e = torch.cuda.Event(enable_timing=True)
+            self._s.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        """Milliseconds since :meth:`start`, the device's work included."""
+        if self.cuda:
+            self._e.record()
+            self._e.synchronize()
+            return self._s.elapsed_time(self._e)
+        return (time.perf_counter() - self._t0) * 1e3
+
+
+def generate(
+    cfg: ModelConfig,
+    params,
+    prompt: torch.Tensor,
+    gen: int,
+    backend: Optional[str] = None,
+    keep_logits: int = 0,
+    step_hook: Optional[Callable[[str, int], None]] = None,
+) -> Dict[str, object]:
+    """Prefill ``prompt`` [B, S] and decode ``gen`` greedy tokens.
+
+    ``step_hook(phase, i)`` is called on the host after the prefill
+    (``"prefill", 0``) and after each decode step (``"decode", i``), before
+    anything waits for the device.  The weights' copy in the compute dtype
+    is made before the timers start.  Returns the generated tokens [B, gen],
+    the prefill's last hidden state, the logits of the first
+    ``keep_logits`` decode steps, and the prefill and decode times."""
+    dev = prompt.device
+    b, s = prompt.shape
+    extra = N_META_TOKENS
+    caches = init_cache(cfg, b, max_len=s + extra + gen, device=dev)
+    prefill_step = make_prefill_step(cfg, backend)
+    step = make_serve_step(cfg, backend)
+    timer = _Timer(dev)
+    params.compute_blocks(getattr(torch, cfg.compute_dtype))  # set-up, not prefill time
+
+    timer.start()
+    last_hidden = prefill_step(params, {"tokens": prompt}, caches)
+    if step_hook is not None:
+        step_hook("prefill", 0)
+    prefill_ms = timer.stop()
+
+    tok = prompt[:, -1:]
+    generated: List[torch.Tensor] = []
+    kept: List[torch.Tensor] = []
+    timer.start()
+    for i in range(gen):
+        logits = step(params, caches, tok, s + extra + i)
+        if step_hook is not None:
+            step_hook("decode", i)
+        if i < keep_logits:
+            kept.append(logits)
+        nxt = logits.argmax(dim=-1)
+        tok = nxt[:, None]
+        generated.append(nxt)
+    decode_ms = timer.stop()
+    return {
+        "tokens": torch.stack(generated, dim=1) if generated else prompt.new_zeros((b, 0)),
+        "last_hidden": last_hidden,
+        "logits": kept,
+        "caches": caches,
+        "prefill_ms": prefill_ms,
+        "decode_ms": decode_ms,
+        "decode_tok_per_s": gen * b / (decode_ms / 1e3) if gen else 0.0,
+        "timer": timer.kind,
+        "max_len": s + extra + gen,
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None, help="default: the CUDA card (raises without one)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    check_supported(cfg)
+    dev = resolve_device(args.device)
+    params = init_params(cfg, seed=args.seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g, device=dev
+    )
+    out = generate(cfg, params, prompt, args.gen)
+    clock = "CUDA events" if out["timer"] == "cuda_events" else "host clock, CPU"
+    print(f"prefill: {args.batch}x{args.prompt_len} (+{N_META_TOKENS} meta tokens) "
+          f"in {out['prefill_ms']:.3f} ms ({clock})")
+    print(f"decode: {args.gen} steps x batch {args.batch} = {args.gen * args.batch} tokens "
+          f"in {out['decode_ms']:.3f} ms -> {out['decode_tok_per_s']:,.1f} tok/s ({clock})")
+    print("sample token ids:", out["tokens"][0, :8].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,271 @@
+"""CausalLM assembly: embeddings -> layer groups -> final norm -> head.
+
+Port of ``repro/models/model.py`` for the blocks ported so far (Hymba).
+A model is a sequence of *layer groups*, each a homogeneous run of blocks
+(Hymba's are grouped by attention window).  The reference stacks a
+group's parameters and ``lax.scan``s over them; here each layer is its own
+module and a Python loop walks them.  The parameters are held in
+``param_dtype`` (f32); the blocks run on a copy in ``compute_dtype``
+(bf16 for the served configs), made once at first use, which is the
+reference's per-block ``astype`` done ahead of time.  The embedding,
+final norm and LM head are read from the f32 parameters, as in the
+reference.
+
+Every entry point takes an explicit ``device`` (``None`` means the card,
+and a host without one raises) and random weights come from a
+``torch.Generator`` seeded by the caller.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.config import DeviceLike, resolve_device
+from .blocks import HymbaBlock, Norm, hymba_block_apply, init_hymba_block, init_norm, norm_apply
+from .config import ModelConfig
+from .ssm import HEAD_P
+
+N_META_TOKENS = 128  # hymba learnable meta tokens
+NOT_PORTED = "ROADMAP.md queue 1 item 13"
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    kind: str  # hymba (dense | moe | mlstm | slstm in the reference)
+    n: int
+    window: int = 0  # 0 = full attention
+    layer_offset: int = 0  # index of first layer in the whole model
+
+
+def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
+    """Hymba's groups: runs of layers with the same attention window (the
+    full-attention layers apart).  The other block kinds' grouping comes
+    with their blocks."""
+    check_supported(cfg)
+    full = set(cfg.full_attn_layers)
+    groups = []
+    start = 0
+    for i in range(1, cfg.n_layers + 1):
+        boundary = i == cfg.n_layers or ((i in full) != (start in full))
+        if boundary:
+            win = 0 if start in full else cfg.sliding_window
+            groups.append(GroupSpec("hymba", i - start, window=win, layer_offset=start))
+            start = i
+    return groups
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if cfg.block_kind != "hymba":
+        raise NotImplementedError(
+            f"{cfg.name}: block_kind {cfg.block_kind!r} is not ported yet ({NOT_PORTED}); "
+            "only 'hymba' runs"
+        )
+    for field, what in (("kv_quant", "the int8 KV cache"), ("n_patches", "the vision prefix"),
+                        ("n_codebooks", "the multi-codebook audio head")):
+        if getattr(cfg, field):
+            raise NotImplementedError(f"{cfg.name}: {field} ({what}) is not ported yet ({NOT_PORTED})")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ------------------------------------------------------------------ model
+class CausalLM(nn.Module):
+    """The parameters, named as the reference's pytree: ``embed``,
+    ``meta_tokens``, ``groups.{g}.{i}.<block keys>`` (layer ``i`` of group
+    ``g``; the reference stacks it as ``groups[g][...][i]``),
+    ``final_norm``, ``lm_head``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dt = _dtype(cfg.param_dtype)
+        kw = dict(dtype=dt, device=device)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw), requires_grad=False)
+        self.meta_tokens = nn.Parameter(
+            torch.empty(N_META_TOKENS, cfg.d_model, **kw), requires_grad=False
+        )
+        self.groups = nn.ModuleList(
+            nn.ModuleList(HymbaBlock(cfg, dt, device) for _ in range(spec.n))
+            for spec in layer_groups(cfg)
+        )
+        self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
+        self.register_parameter(
+            "lm_head",
+            None if cfg.tie_embeddings else nn.Parameter(
+                torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False
+            ),
+        )
+        self._compute: Dict[torch.dtype, List[List[HymbaBlock]]] = {}
+
+    def compute_blocks(self, dtype: torch.dtype) -> List[List[HymbaBlock]]:
+        """The blocks in ``dtype`` (the config's ``compute_dtype``), copied
+        from the parameters at first use, or the parameter modules
+        themselves when the dtypes agree.  Weights changed after the first
+        forward are not seen: the port only serves."""
+        if dtype not in self._compute:
+            groups = []
+            for grp in self.groups:
+                blocks = []
+                for blk in grp:
+                    if blk.ln1.scale.dtype == dtype:
+                        blocks.append(blk)
+                        continue
+                    cast = HymbaBlock(self.cfg, dtype, blk.ln1.scale.device)
+                    cast.load_state_dict(blk.state_dict())  # copies, casting to dtype
+                    blocks.append(cast)
+                groups.append(blocks)
+            self._compute[dtype] = groups
+        return self._compute[dtype]
+
+
+@torch.no_grad()
+def _init_weights(model: CausalLM, gen: torch.Generator) -> None:
+    cfg = model.cfg
+    model.embed.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    model.meta_tokens.normal_(0.0, 0.02, generator=gen)
+    for grp in model.groups:
+        for blk in grp:
+            init_hymba_block(blk, gen)
+    init_norm(model.final_norm)
+    if model.lm_head is not None:
+        model.lm_head.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> CausalLM:
+    """Random weights with the reference's shapes and scales, drawn from
+    ``torch.Generator(device).manual_seed(seed)`` (not the reference's
+    numbers: ``jax.random`` and torch differ)."""
+    dev = resolve_device(device)
+    model = CausalLM(cfg, dev)
+    _init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def abstract_params(cfg: ModelConfig) -> CausalLM:
+    """The model on the ``meta`` device: shapes and dtypes, no storage."""
+    return CausalLM(cfg, torch.device("meta"))
+
+
+# ------------------------------------------------------------------ caches
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None) -> List[Any]:
+    """Per-group decode caches, as the reference lays them out (layer
+    first): ``{"attn": {"k", "v": [n, B, W, Hkv, dh], "pos": [n, W]},
+    "ssm": (conv [n, B, K-1, dI], h [n, B, H, N, 64] f32)}``.  W is
+    ``max_len`` on full-attention layers and ``min(max_len, window)`` on
+    window layers.  max_len includes the meta tokens."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg.compute_dtype)
+    dh = cfg.resolved_head_dim
+    caches: List[Any] = []
+    for spec in layer_groups(cfg):
+        w = min(max_len, spec.window) if spec.window else max_len
+        nh = cfg.d_inner // HEAD_P
+        caches.append({
+            "attn": {
+                "k": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
+                "v": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
+                "pos": torch.full((spec.n, w), -1, dtype=torch.int32, device=dev),
+            },
+            "ssm": (
+                torch.zeros((spec.n, batch, cfg.conv_kernel - 1, cfg.d_inner), dtype=dt, device=dev),
+                torch.zeros((spec.n, batch, nh, cfg.ssm_state, HEAD_P), dtype=torch.float32, device=dev),
+            ),
+        })
+    return caches
+
+
+def _layer_cache(cache: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s views into a group's cache."""
+    return {
+        "attn": {key: t[i] for key, t in cache["attn"].items()},
+        "ssm": tuple(t[i] for t in cache["ssm"]),
+    }
+
+
+# ----------------------------------------------------------------- forward
+def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cache, mode: str,
+                 positions: torch.Tensor, start_pos: int, backend: Optional[str]) -> torch.Tensor:
+    cdt = _dtype(cfg.compute_dtype)
+    for i, blk in enumerate(blocks):
+        c = None if cache is None else _layer_cache(cache, i)
+        x = hymba_block_apply(
+            cfg, blk, x.to(cdt), c, mode, positions, start_pos, spec.window, backend
+        ).to(cdt)
+    return x
+
+
+def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
+                 start_pos: int = 0, mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Assemble the input sequence.  Returns (x [B,S',D], positions [S']
+    int32, n_prefix_tokens); in decode mode the meta tokens are skipped
+    (they live in the cache from prefill).  The reference's prefix-LM
+    length is 0 without the vision prefix, which is not ported."""
+    tokens = batch["tokens"]
+    dt = _dtype(cfg.compute_dtype)
+    x = params.embed[tokens].to(dt)
+    n_prefix = 0
+    if mode != "decode":
+        b = tokens.shape[0]
+        meta = params.meta_tokens[None].to(dt).expand(b, N_META_TOKENS, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+        n_prefix = N_META_TOKENS
+    positions = torch.arange(
+        start_pos, start_pos + x.shape[1], dtype=torch.int32, device=x.device
+    )
+    return x, positions, n_prefix
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
+            caches: Optional[List[Any]] = None, mode: str = "train", start_pos: int = 0,
+            backend: Optional[str] = None) -> torch.Tensor:
+    """Hidden states [B,S,D] after the final norm (meta tokens dropped
+    outside decode).  With ``mode`` "prefill" or "decode" the caches are
+    updated in place; ``start_pos`` is the host-side position of the first
+    token."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    if (caches is None) != (mode == "train"):
+        raise ValueError(f"mode {mode!r} {'needs' if mode != 'train' else 'takes no'} caches")
+    x, positions, n_prefix = embed_inputs(cfg, params, batch, start_pos, mode)
+    blocks_by_group = params.compute_blocks(_dtype(cfg.compute_dtype))
+    for gi, (spec, blocks) in enumerate(zip(layer_groups(cfg), blocks_by_group)):
+        gc = None if caches is None else caches[gi]
+        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, start_pos, backend)
+    x = norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return x
+
+
+def _head_matrix(cfg: ModelConfig, params: CausalLM) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params.embed.T
+    return params.lm_head
+
+
+# -------------------------------------------------------------- serve step
+@torch.no_grad()
+def serve_step(cfg: ModelConfig, params: CausalLM, caches: List[Any], tokens: torch.Tensor,
+               pos: int, backend: Optional[str] = None) -> torch.Tensor:
+    """One decode step of tokens [B, 1] at host-side position ``pos``;
+    returns logits [B, vocab] in f32 and updates ``caches`` in place."""
+    hidden = forward(cfg, params, {"tokens": tokens}, caches=caches, mode="decode",
+                     start_pos=pos, backend=backend)
+    return hidden[:, -1].float() @ _head_matrix(cfg, params).float()
+
+
+def prefill(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
+            caches: List[Any], backend: Optional[str] = None) -> torch.Tensor:
+    """Run the prompt through the model filling ``caches`` in place;
+    returns the last hidden state [B, D]."""
+    hidden = forward(cfg, params, batch, caches=caches, mode="prefill", backend=backend)
+    return hidden[:, -1]

@@ -1,0 +1,52 @@
+"""Carry parameters across from the JAX package.
+
+``init_params`` in the two packages draws different random numbers from
+the same seed, so parity runs take the reference's parameter pytree,
+converted to numpy by the caller (``jax.tree.map(np.asarray, params)``),
+and load it into the port's modules here.  Layouts are the same
+(``[d, h, dh]`` projections, ``[in, out]`` matrices), so nothing is
+transposed; the reference stacks each layer group's parameters ``[n,
+...]``, and layer ``i`` of group ``g`` is ``groups.{g}.{i}`` here.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.config import DeviceLike, resolve_device
+from .config import ModelConfig
+from .model import CausalLM
+
+
+def tree_leaf(tree: Mapping[str, Any], name: str) -> Tuple[Any, Optional[int]]:
+    """The reference pytree's leaf for the port's parameter ``name`` (the
+    whole stack for a layer parameter) and the index into its layer axis,
+    or None: ``groups.0.3.attn.wq`` -> (``tree["groups"][0]["attn"]["wq"]``,
+    3)."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "groups":
+        keys, layer = ("groups", int(parts[1]), *parts[3:]), int(parts[2])
+    else:
+        keys = tuple(parts)
+    node: Any = tree
+    for k in keys:
+        node = node[k]
+    return node, layer
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceLike = None) -> CausalLM:
+    """The reference's parameters as numpy arrays -> a :class:`CausalLM` on
+    ``device`` (``None`` means the card) holding the same values."""
+    dev = resolve_device(device)
+    model = CausalLM(cfg, dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf, layer = tree_leaf(tree, name)
+            arr = np.asarray(leaf if layer is None else leaf[layer])
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{name}: reference shape {arr.shape}, port {tuple(p.shape)}")
+            p.copy_(torch.tensor(arr, dtype=p.dtype))
+    return model

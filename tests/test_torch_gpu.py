@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and served path on a card.
+"""The port's CUDA kernels and served paths on a card.
 
 Imports only ``repro_torch`` (no JAX), so it runs on a CUDA host that has
 no JAX:  ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``.
@@ -10,7 +10,12 @@ test_conv_fused.py); both are IEEE f32 (TF32 off) summed in different
 orders at small K.  Batch invariance is bitwise: the kernels sum every
 output in a fixed order whatever the batch.  The patch matrix (a copy)
 and the quantized conv (an exact int32 sum, then the same two f32
-roundings as its plain version) are held bitwise.
+roundings as its plain version) are held bitwise.  Decode attention (B5)
+and the SSD scan (B6) are held at the reference's ``2e-4`` in f32
+(tests/test_kernels.py, tests/test_kernels_ssd.py); with bf16 operands B5
+within one bf16 ulp of its plain version computed in f32 (the ulp taken
+no finer than at 2^-8 of the largest output), B6 at the reference's bf16
+bar ``5e-2``.
 """
 from __future__ import annotations
 
@@ -20,10 +25,17 @@ import torch
 
 from repro_torch.cnn import quant as Q
 from repro_torch.cnn.graph import Graph
+import dataclasses
+
+from repro_torch.configs import get_config
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import conv_fused as K
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import im2col as I
+from repro_torch.launch.serve import generate
+from repro_torch.models import init_params
 from repro_torch.serving import SingleStageEngine, serve
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -125,7 +137,7 @@ def test_served_outputs_bitwise_equal_single_stage(cuda):
         server.stop()
     counts = K.launch_counts()
     assert counts == {"conv2d_fused": 3 * batches, "matmul_fused": 2 * batches,
-                      "qconv2d_fused": 0, "gemm": 0, "im2col": 0}
+                      "qconv2d_fused": 0, "gemm": 0, "im2col": 0, "flash_decode": 0, "ssd": 0}
     single = SingleStageEngine(g, server.params, backend="cuda_fused").run(images)["outputs"]
     for a, b in zip(outs, single):
         assert torch.equal(a, b.cpu())
@@ -217,10 +229,154 @@ def test_cuda_route_served_bitwise_equal_single_stage(cuda):
         server.stop()
     counts = K.launch_counts()
     assert counts == {"conv2d_fused": 0, "matmul_fused": 0, "qconv2d_fused": 0,
-                      "im2col": 3 * batches, "gemm": 5 * batches}
+                      "im2col": 3 * batches, "gemm": 5 * batches, "flash_decode": 0, "ssd": 0}
     single = SingleStageEngine(g, server.params, backend="cuda").run(images)["outputs"]
     for a, b in zip(outs, single):
         assert torch.equal(a, b.cpu())
     plain = SingleStageEngine(g, server.params, backend="torch").run(images)["outputs"]
     for a, b in zip(outs, plain):
         np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------- decode attention (B5)
+# (B, Hkv, G, D, W, length): Hymba's served shape, other G and D, ragged
+FD_CASES = [(4, 5, 5, 64, 1024, 1), (4, 5, 5, 64, 1024, 777), (4, 5, 5, 64, 1024, 1024),
+            (2, 3, 1, 128, 300, 300), (1, 2, 5, 128, 300, 129), (2, 5, 5, 64, 1, 1)]
+
+
+def _bf16_ulp(r):
+    """Spacing of bf16 numbers (8 significant bits) at |r|, taken no finer
+    than at 2^-8 of the largest |r|: an output that cancels to near 0 is
+    rounded from a sum of terms as large as the others."""
+    _, e = torch.frexp(torch.maximum(r.abs(), r.abs().max() * 2.0 ** -8))
+    return torch.ldexp(torch.ones_like(r), e - 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_kernel_matches_plain(cuda, case, dtype):
+    b, hkv, g, d, w, length = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(case))
+    q = _on(cuda, rng, b, hkv, g, d, scale=0.5).to(dt)
+    k, v = _on(cuda, rng, b, w, hkv, d, scale=0.5).to(dt), _on(cuda, rng, b, w, hkv, d).to(dt)
+    before = K.launch_counts()["flash_decode"]
+    y = ops.flash_decode(q, k, v, length)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_decode"] == before + 1
+    assert y.dtype == dt and y.shape == q.shape
+    if dtype == "float32":
+        ref = FD.flash_decode_ref(q, k, v, length)
+        np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    else:
+        r32 = FD.flash_decode_ref(q.float(), k.float(), v.float(), length)
+        assert bool(((y.float() - r32).abs() <= _bf16_ulp(r32)).all())
+
+
+# ------------------------------------------------------------- SSD (B6)
+# (B, S, H, P, N, chunk, nonzero h0, head-stride-0 B/C)
+SSD_CASES = [(2, 128, 50, 64, 16, 64, False, True), (1, 256, 4, 64, 16, 128, True, False),
+             (2, 64, 3, 8, 4, 16, True, True)]
+
+
+def _ssd_inputs(cuda, rng, b, s, h, p, n, h0, shared, dt):
+    x = _on(cuda, rng, b, s, h, p).to(dt)
+    la = -_on(cuda, rng, b, s, h).abs() * 0.3
+    if shared:
+        B = (_on(cuda, rng, b, s, 1, n) * 0.4).to(dt).expand(b, s, h, n)
+        C = (_on(cuda, rng, b, s, 1, n) * 0.4).to(dt).expand(b, s, h, n)
+    else:
+        B, C = (_on(cuda, rng, b, s, h, n) * 0.4).to(dt), (_on(cuda, rng, b, s, h, n) * 0.4).to(dt)
+    return x, la.to(dt), B, C, (_on(cuda, rng, b, h, n, p) if h0 else None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    b, s, h, p, n, chunk, h0, shared = case
+    rng = np.random.default_rng(s + h)
+    x, la, B, C, h0t = _ssd_inputs(cuda, rng, b, s, h, p, n, h0, shared, getattr(torch, dtype))
+    before = K.launch_counts()["ssd"]
+    y, hf = ops.ssd(x, la, B, C, h0=h0t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ssd"] == before + 1
+    ry, rh = SSD.ssd_ref(x, la, B, C, chunk=chunk, h0=h0t)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(), ry.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(hf.cpu().numpy(), rh.cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_ssd_ragged_sequence_through_ops(cuda):
+    rng = np.random.default_rng(149)
+    x, la, B, C, _ = _ssd_inputs(cuda, rng, 2, 149, 4, 64, 16, False, True, torch.float32)
+    y, hf = ops.ssd(x, la, B, C, chunk=64)
+    assert y.shape == x.shape
+    ry, rh = SSD.ssd_ref(x, la, B, C, chunk=64)
+    np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(hf.cpu().numpy(), rh.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(FD, "flash_decode_ref", refuse)
+    monkeypatch.setattr(SSD, "ssd_ref", refuse)
+    rng = np.random.default_rng(0)
+    before = K.launch_counts()
+    ops.flash_decode(_on(cuda, rng, 1, 2, 2, 64), _on(cuda, rng, 1, 8, 2, 64), _on(cuda, rng, 1, 8, 2, 64), 5)
+    x, la, B, C, _ = _ssd_inputs(cuda, rng, 1, 70, 2, 64, 16, False, True, torch.float32)
+    ops.ssd(x, la, B, C, chunk=64)  # ragged: padded, then the kernel
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["flash_decode"] == before["flash_decode"] + 1 and after["ssd"] == before["ssd"] + 1
+
+
+def test_decode_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
+    z = torch.zeros(1, 2, 2, 64, device=cuda)
+    cache = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_decode(z.half(), cache.half(), cache.half(), 3)
+    with pytest.raises(TypeError):
+        ops.flash_decode(z, cache.bfloat16(), cache, 3)
+    with pytest.raises(ValueError):
+        ops.flash_decode(z, cache, cache, 0)
+    for d in (62, 256):  # not a multiple of a 16-byte vector of f32, too wide
+        with pytest.raises(ValueError):
+            ops.flash_decode(torch.zeros(1, 2, 2, d, device=cuda), torch.zeros(1, 8, 2, d, device=cuda),
+                             torch.zeros(1, 8, 2, d, device=cuda), 3)
+    x = torch.zeros(1, 70, 2, 64, device=cuda)
+    la, bc = torch.zeros(1, 70, 2, device=cuda), torch.zeros(1, 70, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        SSD.ssd(x, la, bc, bc, chunk=64)  # S not a chunk multiple
+    with pytest.raises(ValueError):
+        SSD.ssd(torch.zeros(1, 64, 2, 6, device=cuda), la[:, :64], bc[:, :64], bc[:, :64], chunk=64)
+    with pytest.raises(TypeError):
+        SSD.ssd(x[:, :64].double(), la[:, :64], bc[:, :64].double(), bc[:, :64].double(), chunk=64)
+
+
+def test_reduced_hymba_served_through_both_kernels(cuda):
+    """A reduced Hymba (2 layers) served on the card: 2 SSD launches in the
+    prefill and 2 flash-decode launches in each decode step, none of the
+    other; in f32 its logits match the plain route's."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), compute_dtype="float32")
+    model = init_params(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    per_phase = []
+
+    def hook(phase, i):
+        per_phase.append((phase, K.launch_counts()))
+        K.reset_launches()
+
+    K.reset_launches()
+    out = generate(cfg, model, prompt, 4, keep_logits=4, step_hook=hook)
+    assert per_phase[0][0] == "prefill"
+    assert per_phase[0][1]["ssd"] == 2 and per_phase[0][1]["flash_decode"] == 0
+    for phase, counts in per_phase[1:]:
+        assert phase == "decode" and counts["flash_decode"] == 2 and counts["ssd"] == 0
+    plain = generate(cfg, model, prompt, 4, backend="torch", keep_logits=4)
+    np.testing.assert_allclose(out["last_hidden"].cpu().numpy(), plain["last_hidden"].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(out["logits"], plain["logits"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4, atol=1e-4)

@@ -1,0 +1,151 @@
+"""The port's SSD chunked scan (B6) against the JAX package's.
+
+On the CPU, ``ops.ssd`` takes the plain version of the CUDA kernel
+(``kernels/ssd.py::ssd_ref``, the port of ``repro.models.ssm.ssd_scan``),
+which must match the reference's Pallas kernel run in interpret mode and
+its jnp oracle ``ssd_scan``; the CUDA kernel itself runs only on a card
+(tests/test_torch_gpu.py).  ``ops.ssd`` pads a ragged S to a chunk
+multiple and keeps a head stride of 0 on B and C (Hymba broadcasts one B
+and one C to every head), so both are covered here.
+
+Tolerances: ``2e-4`` in f32, the reference's bar
+(tests/test_kernels_ssd.py); ``5e-2`` for bf16 operands, its
+test_ssd_kernel_dtypes bar.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd import ssd as ref_ssd_kernel
+from repro.models.ssm import ssd_scan as ref_ssd_scan
+from repro_torch.kernels import ops, runtime
+from repro_torch.models.ssm import ssd_scan
+
+# one intra-op thread: these tests share the CPU with the other test workers
+torch.set_num_threads(1)
+
+TOL = 2e-4
+
+
+def _inputs(rng, b, s, h, p, n):
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    la = (-np.abs(rng.standard_normal((b, s, h))) * 0.3).astype(np.float32)
+    B = (rng.standard_normal((b, s, h, n)) * 0.4).astype(np.float32)
+    C = (rng.standard_normal((b, s, h, n)) * 0.4).astype(np.float32)
+    return x, la, B, C
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# (s, h, p, n, chunk): the reference's kernel test shapes
+CASES = [(32, 2, 8, 4, 8), (64, 1, 16, 8, 16), (128, 3, 4, 2, 32), (16, 2, 8, 4, 16)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plain_route_matches_reference_kernel_and_oracle(case):
+    s, h, p, n, chunk = case
+    rng = np.random.default_rng(s * h + p)
+    x, la, B, C = _inputs(rng, 1, s, h, p, n)
+    h0 = np.zeros((h, n, p), np.float32)
+    y_k, hf_k = ref_ssd_kernel(x[0], la[0], B[0], C[0], h0, chunk=chunk, interpret=True)
+    y_o, hf_o = ref_ssd_scan(x, la, B, C, chunk=chunk)
+    before = runtime.launch_counts()
+    y, hf = ops.ssd(*_t(x, la, B, C), chunk=chunk)
+    assert runtime.launch_counts() == before  # the CPU route launches nothing
+    assert y.dtype == torch.float32 and hf.dtype == torch.float32
+    for got, want in ((y[0], y_k), (hf[0], hf_k), (y, y_o), (hf, hf_o)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_batched_nonzero_state_matches_vmapped_reference_kernel():
+    rng = np.random.default_rng(5)
+    b, s, h, p, n, chunk = 3, 32, 2, 8, 4, 8
+    x, la, B, C = _inputs(rng, b, s, h, p, n)
+    h0 = rng.standard_normal((b, h, n, p)).astype(np.float32)
+    y_k, hf_k = jax.vmap(lambda *a: ref_ssd_kernel(*a, chunk=chunk, interpret=True))(x, la, B, C, h0)
+    y, hf = ops.ssd(*_t(x, la, B, C, h0), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_k), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hf_k), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(45, 16), (149, 64), (7, 64)])
+def test_ragged_sequence_is_padded_exactly(s, chunk):
+    rng = np.random.default_rng(s)
+    x, la, B, C = _inputs(rng, 2, s, 3, 8, 4)
+    h0 = rng.standard_normal((2, 3, 4, 8)).astype(np.float32)
+    y_o, hf_o = ref_ssd_scan(x, la, B, C, chunk=chunk, h0=h0)
+    y, hf = ops.ssd(*_t(x, la, B, C, h0), chunk=chunk)
+    assert tuple(y.shape) == (2, s, 3, 8)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_o), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hf_o), rtol=TOL, atol=TOL)
+    # the kernel's route refuses a ragged S itself: the padding is ops.ssd's
+    from repro_torch.kernels import ssd as SSD
+    if s % min(chunk, s):
+        with pytest.raises(ValueError):
+            SSD.ssd(*_t(x, la, B, C), chunk=chunk)
+
+
+def test_head_stride_zero_b_and_c_match_materialised_copies():
+    """Hymba's B/C: one per token, broadcast to every head (stride 0),
+    through a ragged S whose padding must keep them broadcast."""
+    rng = np.random.default_rng(9)
+    b, s, h, p, n, chunk = 2, 70, 5, 8, 4, 16
+    x, la, _, _ = _inputs(rng, b, s, h, p, n)
+    Bm = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    Cm = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    Bt, Ct = torch.from_numpy(Bm)[:, :, None].expand(b, s, h, n), torch.from_numpy(Cm)[:, :, None].expand(b, s, h, n)
+    assert Bt.stride(2) == 0
+    assert ops._pad_seq(Bt, 10).stride(2) == 0
+    y, hf = ops.ssd(*_t(x, la), Bt, Ct, chunk=chunk)
+    Bf = np.broadcast_to(Bm[:, :, None], (b, s, h, n)).copy()
+    Cf = np.broadcast_to(Cm[:, :, None], (b, s, h, n)).copy()
+    y_m, hf_m = ops.ssd(*_t(x, la, Bf, Cf), chunk=chunk)
+    assert torch.equal(y, y_m) and torch.equal(hf, hf_m)
+    y_o, hf_o = ref_ssd_scan(x, la, Bf, Cf, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_o), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hf_o), rtol=TOL, atol=TOL)
+
+
+def test_normalizer_channel_matches_reference():
+    """``ssd_scan(normalizer=True)`` (the mLSTM form) is the same function."""
+    rng = np.random.default_rng(13)
+    x, la, B, C = _inputs(rng, 2, 40, 2, 8, 4)
+    h0 = rng.standard_normal((2, 2, 4, 8)).astype(np.float32)
+    n0 = rng.standard_normal((2, 2, 4)).astype(np.float32)
+    want = ref_ssd_scan(x, la, B, C, chunk=16, h0=h0, normalizer=True, n0=n0)
+    got = ssd_scan(*_t(x, la, B, C), chunk=16, h0=torch.from_numpy(h0), normalizer=True,
+                   n0=torch.from_numpy(n0))
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_operand_dtypes_match_reference_kernel(dtype):
+    rng = np.random.default_rng(11)
+    x, la, B, C = _inputs(rng, 1, 32, 2, 8, 4)
+    jdt = jnp.dtype(dtype)
+    xj, Bj, Cj = (jnp.asarray(a[0], jdt) for a in (x, B, C))
+    y_k, _ = ref_ssd_kernel(xj, la[0], Bj, Cj, np.zeros((2, 4, 8), np.float32), chunk=8, interpret=True)
+    tdt = getattr(torch, dtype)
+    xt, Bt, Ct = (torch.tensor(np.asarray(a.astype(jnp.float32)))[None].to(tdt) for a in (xj, Bj, Cj))
+    y, hf = ops.ssd(xt, torch.from_numpy(la), Bt, Ct, chunk=8)
+    assert y.dtype == tdt and hf.dtype == torch.float32
+    tol = TOL if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(y[0].float().numpy(), np.asarray(y_k.astype(jnp.float32)), rtol=tol, atol=tol)
+
+
+def test_backend_choice_on_the_cpu():
+    rng = np.random.default_rng(2)
+    args = _t(*_inputs(rng, 1, 24, 2, 4, 3))
+    y0, h0 = ops.ssd(*args, chunk=8)
+    y1, h1 = ops.ssd(*args, chunk=8, backend="torch")
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    with pytest.raises(ValueError):
+        ops.ssd(*args, chunk=8, backend="interpret")
