@@ -1,0 +1,301 @@
+#!/usr/bin/env python3
+"""Sweep build-time variants of the port's B5 (flash-decode) and B3 (GEMM)
+kernels on one NVIDIA card, beside the library call each one is held to.
+
+    python3 benchmarks/port_kernel_variants.py [--out FILE]   # from the repo root
+
+Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with some
+of its constants (B5) or tile definitions (B3) replaced, built by nvcc
+into a temporary directory (all builds at once) and loaded with ctypes;
+the variant named ``built`` is the source as it stands.  Prints one JSON
+object per line and, with ``--out``, writes them all to FILE:
+
+* ``flash_decode``: at Hymba-1.5B's served shape (batch 4, 5 KV heads,
+  G 5, D 64, 1024 slots, bf16) and at ``decode_32k``'s (batch 16, 32768
+  slots): each variant's device time and its error in bf16 ulps of the
+  plain version in f32, ``F.scaled_dot_product_attention``'s time, and
+  the time of a copy-only kernel that moves the same cache rows through
+  the same cp.async pattern (what the memory system allows);
+* ``registers``: each kernel's registers a thread as ptxas reports them;
+* ``gemm``: at each distinct conv GEMM of VGG-16 at batch 4, each
+  variant's time for each of its tile variants (``gemm_f32_tiled``;
+  ``registers`` swaps where the slice totals live), all of which must
+  give the same bits, beside ``torch.mm`` (TF32 off);
+* ``gemm_fc``: the built kernel's skinny path at the three fc GEMMs.
+
+Times are device times: a run of calls queued behind a sleep kernel,
+between two CUDA events.  Nothing here runs without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+FD_VARIANTS = {
+    "built": {},
+    "warps4": {"WARPS": "4"},
+    "warps1": {"WARPS": "1"},
+    "stages4": {"NSTAGE": "4"},
+    "rows2": {"U": "2"},
+    "rows8": {"U": "8"},
+}
+GEMM_VARIANTS = {
+    "built": {},
+    "stages4": {0: "<128, 64, 8, 8, 16, 4>", 1: "<64, 128, 8, 8, 16, 4, true, 3>",
+                2: "<64, 64, 8, 4, 32, 4, false, 3>"},
+    "registers": {0: "<128, 64, 8, 8, 16, 3, true, 3>", 1: "<64, 128, 8, 8, 16, 3>",
+                  2: "<64, 64, 8, 8, 16, 3, true, 3>"},
+    "bk16": {2: "<64, 64, 8, 4, 16, 3, false, 3>", 3: "<32, 64, 8, 4, 16, 3>"},
+    "wide": {1: "<128, 128, 8, 8, 16, 3>", 3: "<64, 32, 8, 4, 32, 3>"},
+}
+COPY_ONLY = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// The cache rows of flash_decode.cu's first pass (bf16, D = 64: 8 lanes a
+// row, 16 rows a warp step, 3 stages, 2 warps, heads fastest), copied
+// into shared memory and folded into one word a thread.
+__global__ void copy_only(const uint4* k, const uint4* v, unsigned* out, int hkv, int W, int split) {
+  extern __shared__ uint4 sm[];
+  const int h = blockIdx.x, s_idx = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, r = lane / 8, piece = lane % 8;
+  const int per_warp = split / 2, w0 = s_idx * split + warp * per_warp, n_steps = per_warp / 16;
+  uint4* ring = sm + warp * 3 * 256;
+  const int64_t rs = (int64_t)hkv * 8, base = ((int64_t)b * W * hkv + h) * 8 + piece;
+  unsigned x = 0;
+  auto issue = [&](int st) {
+    if (st < n_steps) {
+      uint4* sk = ring + (st % 3) * 256;
+      for (int u = 0; u < 4; ++u) {
+        const int j = u * 4 + r;
+        const int64_t slot = w0 + st * 16 + j;
+        unsigned d0 = (unsigned)__cvta_generic_to_shared(sk + j * 8 + piece);
+        unsigned d1 = (unsigned)__cvta_generic_to_shared(sk + 128 + j * 8 + piece);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d0), "l"(k + base + slot * rs) : "memory");
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d1), "l"(v + base + slot * rs) : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  issue(0);
+  issue(1);
+  for (int st = 0; st < n_steps; ++st) {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    const uint4* sk = ring + (st % 3) * 256;
+    for (int u = 0; u < 4; ++u) {
+      const int j = u * 4 + r;
+      const uint4 a = sk[j * 8 + piece], c = sk[128 + j * 8 + piece];
+      x ^= a.x ^ a.y ^ a.z ^ a.w ^ c.x ^ c.y ^ c.z ^ c.w;
+    }
+    issue(st + 2);
+  }
+  out[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 64 + threadIdx.x] = x;
+}
+extern "C" int copy_only_launch(const void* k, const void* v, void* out, int B, int hkv, int W,
+                                int split, void* stream) {
+  copy_only<<<dim3(hkv, W / split, B), 64, 2 * 3 * 256 * 16, (cudaStream_t)stream>>>(
+      (const uint4*)k, (const uint4*)v, (unsigned*)out, hkv, W, split);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _variant_sources(name, variants):
+    from repro_torch.kernels import build
+
+    src = open(os.path.join(build.CSRC, f"{name}.cu")).read()
+    out = {}
+    for vname, subs in variants.items():
+        text = src
+        for key, val in subs.items():
+            if isinstance(key, int):
+                pat, rep = rf"using Tile{key} = Tile<[^>]*>;", f"using Tile{key} = Tile{val};"
+            else:
+                pat, rep = rf"constexpr int {key} = [^;]+;", f"constexpr int {key} = {val};"
+            text, n = re.subn(pat, rep, text)
+            if n != 1:
+                raise SystemExit(f"{name}: variant {vname} matches {pat!r} {n} times")
+        out[f"{name}_{vname}"] = text
+    return out
+
+
+def _build(sources, tmp):
+    from repro_torch.kernels import build
+
+    nvcc = build.nvcc_path()
+    jobs = {}
+    for name, text in sources.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", path[:-3] + ".so", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, registers = {}, {}
+    for name, proc in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        libs[name] = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
+        # ptxas: "Compiling entry function '<mangled>'" then "Used N registers"
+        kernels = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", log, re.S)
+        registers[name] = {_short(k): int(r) for k, r in kernels}
+    return libs, registers
+
+
+def _short(mangled: str) -> str:
+    """``fd_split_kernel<bf16, 5, 8>``-like name of a mangled kernel."""
+    m = re.search(r"(fd_split_kernel|fd_combine_kernel|gemm_tiled_kernel_bounded|gemm_tiled_kernel"
+                  r"|gemm_skinny_kernel|gemm_finish_kernel)(I.*)?E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|I(f)E|Lb([01])E", m.group(2) or "")
+    flat = ["bf16" if b else "f32" if f else f"{'true' if t == '1' else 'false'}" if t else i
+            for i, b, f, t in args]
+    return f"{m.group(1)}<{', '.join(flat)}>"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the JSON lines to this file")
+    args = ap.parse_args()
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("port_kernel_variants: needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import runtime as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+
+    def emit(obj):
+        print(json.dumps(obj))
+        lines.append(obj)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    emit({"card": smi.stdout.strip(), "device": torch.cuda.get_device_name(0)})
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+    def device_ms(fn, n=30):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # the host queues the run before it starts
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = {**_variant_sources("flash_decode", FD_VARIANTS),
+                   **_variant_sources("gemm", GEMM_VARIANTS), "copy_only": COPY_ONLY}
+        libs, registers = _build(sources, tmp)
+        emit({"registers": registers})
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+        # ------------------------------------------------ B5 flash-decode
+        def fd_call(lib, q, k, v, length):
+            b, hkv, g, d = q.shape
+            w = k.shape[1]
+            split = lib.flash_decode_split_len(w, d)
+            part = torch.empty(b * hkv * -(-w // split) * g * (d + 2), device=dev)
+            out = torch.empty_like(q)
+            fn = lib.flash_decode_fwd
+            fn.argtypes = [R.P] * 5 + [R.I] * 7 + [R.F, R.P]
+            R.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(), 1,
+                       b, hkv, g, d, w, length, 1.0 / d ** 0.5, stream()), "flash_decode_fwd")
+            return out
+
+        for label, b, w in (("served", 4, 1024), ("decode_32k", 16, 32768)):
+            hkv, g, d = 5, 5, 64
+            q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
+            k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
+            v = randn(b, w, hkv, d, dtype=torch.bfloat16)
+            r = FD.flash_decode_ref(q.float(), k.float(), v.float(), w)
+            _, ex = torch.frexp(torch.maximum(r.abs(), r.abs().max() * 2.0 ** -8))
+            ulp = torch.ldexp(torch.ones_like(r), ex - 8)
+            q4, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), v.transpose(1, 2)
+            mask = torch.ones(1, 1, 1, w, dtype=torch.bool, device=dev)  # chip_smoke.py's length mask
+            row = {"kernel": "flash_decode", "shape": f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} bf16",
+                   "sdpa_ms": device_ms(
+                       lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)),
+                   "bound_ms": 2.0 * (2 * q.numel() + 2 * b * w * hkv * d) / 3.35e12 * 1e3}
+            if w % 512 == 0:
+                sink = torch.empty(b * hkv * (w // 512) * 64, dtype=torch.int32, device=dev)
+                cp = libs["copy_only"].copy_only_launch
+                cp.argtypes = [R.P] * 3 + [R.I] * 4 + [R.P]
+                row["copy_only_ms"] = device_ms(
+                    lambda: cp(k.data_ptr(), v.data_ptr(), sink.data_ptr(), b, hkv, w, 512, stream()))
+            for name, lib in libs.items():
+                if name.startswith("flash_decode_"):
+                    lib.flash_decode_split_len.argtypes = [R.I, R.I]
+                    y = fd_call(lib, q, k, v, w)
+                    row[name[len("flash_decode_"):]] = {
+                        "ms": device_ms(lambda: fd_call(lib, q, k, v, w)),
+                        "err_bf16_ulps": float(((y.float() - r).abs() / ulp).max())}
+            emit(row)
+            del q, k, v, q4, kt, vt
+
+        # ---------------------------------------------------- B3 gemm
+        vgg = MODELS["vgg16"]()
+        shapes = vgg.infer_shapes()
+        convs, fcs = {}, []
+        for node in vgg.major_nodes():
+            hin = shapes[node.inputs[0]]
+            if node.kind == "conv":
+                hout = shapes[node.name]
+                key = (4 * hout[0] * hout[1], node.attrs["kernel"] ** 2 * hin[2], node.attrs["out_ch"])
+                convs[key] = convs.get(key, 0) + 1
+            else:
+                fcs.append((4, int(torch.tensor(hin).prod()), node.attrs["out_features"]))
+        for (m, kk, n), count in convs.items():
+            a, wt = randn(m, kk), randn(kk, n, scale=kk ** -0.5)
+            ref = G.gemm(a, wt)
+            row = {"kernel": "gemm", "m": m, "k": kk, "n": n, "layers": count,
+                   "mm_ms": device_ms(lambda: torch.mm(a, wt), 10), "built_ms": device_ms(lambda: G.gemm(a, wt), 10)}
+            for name, lib in libs.items():
+                if not name.startswith("gemm_"):
+                    continue
+                fn = lib.gemm_f32_tiled
+                fn.argtypes = [R.P] * 3 + [R.I] * 4 + [R.P]
+                for t in range(lib.gemm_tile_variants()):
+                    out = torch.empty(m, n, device=dev)
+                    call = lambda: fn(a.data_ptr(), wt.data_ptr(), out.data_ptr(), m, kk, n, t, stream())  # noqa: E731
+                    R.check(call(), "gemm_f32_tiled")
+                    row[f"{name[len('gemm_'):]}/tile{t}"] = {"ms": device_ms(call, 10),
+                                                            "bitwise": bool(torch.equal(out, ref))}
+            emit(row)
+        for m, kk, n in fcs:
+            a, wt = randn(m, kk), randn(kk, n, scale=kk ** -0.5)
+            emit({"kernel": "gemm_fc", "m": m, "k": kk, "n": n, "built_ms": device_ms(lambda: G.gemm(a, wt), 20),
+                  "mm_ms": device_ms(lambda: torch.mm(a, wt), 20), "bound_ms": 4.0 * (m * kk + kk * n + m * n) / 3.35e12 * 1e3})
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            for obj in lines:
+                f.write(json.dumps(obj) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,7 +17,9 @@ Phases (any failure exits non-zero):
    shape; the quantized conv (B1q) at every ``groups == 1`` conv
    geometry, bitwise (3c).  Then time every kernel at VGG-16's shapes at
    batch 4 beside its plain version, one library call where there is
-   one, and its bound (3b, 3d);
+   one, and its bound (3b, 3d); at each conv GEMM of 3d the first 4 rows
+   of the tiled result and every tile variant's result must be bitwise
+   equal to the served tiled result;
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
    batch_size=4)``, with 32 seeded images; the launch counters must show
    13 conv and 3 dense launches per micro-batch, the outputs must be
@@ -34,8 +36,11 @@ Phases (any failure exits non-zero):
    node's relative error against its f32 output printed (paper Fig. 13);
 6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
-   S in {1, 300, 1024}, a valid prefix of 1, a ragged value and S, batch 4
-   with 5 KV heads, f32 and bf16; 6b the SSD scan (B6) at Hymba's 50 heads
+   S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
+   side of the first split boundary, and S = 32768 with prefixes 1 and
+   777 (most splits empty), batch 4 with 5 KV heads, f32 and bf16; a row
+   at batch 1 and a second call must give the same bits; 6b the SSD scan
+   (B6) at Hymba's 50 heads
    of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
    f32 and bf16; 6c serves Hymba-1.5B at full width (32 layers, random
    weights from seed 0) through ``repro_torch.launch.serve.generate``, the
@@ -259,19 +264,29 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
 
     # ---------------------------- 6a. B5 against its plain version
+    # valid prefixes of 1, a ragged one and all slots, each side of the
+    # first split boundary, and a 32768-slot cache with most splits empty;
+    # a row at batch 1 and a repeated call must give the same bits
     fd_cases, fd_worst = 0, {"float32": (0.0, ""), "bfloat16": (0.0, "")}
+    fd_not_bitwise = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for g in (1, 5):
             for d in (64, 128):
-                for s_len in (1, 300, 1024):
-                    for length in sorted({1, (2 * s_len) // 3 + 1, s_len}):
+                for s_len in (1, 300, 1024, 32768):
+                    split = FD.split_len(s_len, d)
+                    lengths = {1, 777} if s_len == 32768 else {
+                        1, (2 * s_len) // 3 + 1, s_len, split - 1, split, split + 1}
+                    for length in sorted(n for n in lengths if 1 <= n <= s_len):
                         b, hkv = 4, 5
                         q = randn(b, hkv, g, d, scale=0.5, dtype=dtype)
                         k = randn(b, s_len, hkv, d, scale=0.5, dtype=dtype)
                         v = randn(b, s_len, hkv, d, dtype=dtype)
                         y = OPS.flash_decode(q, k, v, length)
-                        where = f"G{g} D{d} S{s_len} len{length} {dname}"
+                        where = f"G{g} D{d} S{s_len} split{split} len{length} {dname}"
+                        y1 = OPS.flash_decode(q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(), length)
+                        if not (torch.equal(y1, y[2:3]) and torch.equal(OPS.flash_decode(q, k, v, length), y)):
+                            fd_not_bitwise.append(where)
                         if dtype == torch.float32:
                             r = OPS.flash_decode(q, k, v, length, backend="torch")
                             ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
@@ -314,6 +329,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     print(json.dumps({"correctness_lm_kernels": {
         "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
                          "worst_at": {k: v[1] for k, v in fd_worst.items()},
+                         "batch1_or_repeat_not_bitwise": fd_not_bitwise,
                          "tolerance": {"float32": f"|y-r| <= {FD_TOL} + {FD_TOL}*|r|",
                                        "bfloat16": "|y - r_f32| <= 1 bf16 ulp of r_f32 (no finer than at 2^-8 max|r_f32|)"}},
         "ssd": {"cases": ssd_cases, "tolerance": {"float32": f"rtol=atol={FD_TOL}",
@@ -321,6 +337,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     }}))
     for dname, (ratio, where) in fd_worst.items():
         check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
+    check(not fd_not_bitwise, f"flash_decode rows differ at batch 1 or between calls at {fd_not_bitwise[:3]}")
     check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
 
@@ -819,9 +836,15 @@ def main() -> int:
                 0.0, 4.0 * (x.numel() + cols.numel()) / bytes_peak * 1e3, exact=True,
                 library_null_reason=NO_LIBRARY["im2col"],
             )
-            # B3: the conv's GEMM on that patch matrix
+            # B3: the conv's GEMM on that patch matrix; its first rows
+            # bitwise equal to the skinny path's, and every tile variant's
             w2 = wt.reshape(k, cout)
             yg = ops.gemm(cols, w2)
+            check(torch.equal(ops.gemm(cols[:BATCH].contiguous(), w2), yg[:BATCH]),
+                  f"gemm: tiled rows differ from the skinny path's at {where}")
+            for variant in range(G.tile_variants()):
+                check(torch.equal(G.gemm_tiled(cols, w2, variant), yg),
+                      f"gemm: tile variant {variant} differs at {where}")
             record(
                 "gemm", where,
                 lambda: ops.gemm(cols, w2), lambda: G.gemm_ref(cols, w2), lambda: torch.mm(cols, w2),

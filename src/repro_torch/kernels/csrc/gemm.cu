@@ -8,7 +8,7 @@
 //
 // What bounds it on an H100: operations for the conv GEMMs (2*K flops
 // per output, K up to 4608) at the CUDA cores' 67 TFLOP/s f32 FMA rate,
-// since this first version stays in IEEE f32 (fmaf, no TF32) to hold the
+// since it stays in IEEE f32 (fmaf, no TF32) to hold the
 // reference's tolerance; bytes for the fc GEMMs, whose M is the serving
 // micro-batch, so each weight element feeds only M multiply-adds.
 //
@@ -18,111 +18,302 @@
 // (gemm_slice_len); each slice is one fmaf chain over k ascending from 0;
 // the slice sums are added in slice order to a total that starts at 0.
 //
-//   * gemm_tiled_kernel (M > MT): one 256-thread block per 64 x 64
-//     output tile, K in steps of 16 staged in shared memory, a 4 x 4
-//     register tile per thread (the design of csrc/conv_fused.cu with
-//     the A tile read from the patch matrix).  It walks all of K itself
-//     and folds its slice accumulator into the total at every slice
-//     boundary, in registers: no partial sums leave the block.
+//   * gemm_tiled_kernel (M > MT): one block per BM x BN output tile, a
+//     TM x TN register tile per thread (8 x 8: 4 FMAs per float read from
+//     shared memory; 8 x 4: 2.7), K in steps of BK through a ring of
+//     STAGES stages in shared memory filled by cp.async, so the next
+//     tiles load while this one computes (one barrier a step).  A is
+//     stored k-major (As[k][m], rows padded to BM + 4 floats), each float
+//     copied on its own (4-byte cp.async: this transposes it, and takes
+//     K % 4 != 0, as conv1_1's K = 27); B row-major with 16-byte copies
+//     where N % 4 == 0 and the base is aligned, 4-byte ones otherwise.
+//     Ragged edges are zero-filled by the copies.  Four variants
+//     (tiled_shape picks one from M, K, N): 128 x 64 with 8 x 8 for
+//     large grids with N <= 64; 64 x 128 with 8 x 8 and its slice totals
+//     in shared memory for grids with N > 64; 64 x 64 and 32 x 64 with 8
+//     x 4 for smaller grids.  All have 128 threads but 32 x 64 (64).
+//     Registers: 233 for 128 x 64 (two sets of 64 accumulators, slice
+//     and total: two blocks an SM), 167 for 64 x 128 and 64 x 64 (three),
+//     219 for 32 x 64.
+//     The block walks all of K itself and folds its slice accumulator
+//     into the total at every slice boundary: no partial sums leave the
+//     block.
 //   * gemm_skinny_kernel + gemm_finish_kernel (M <= MT): the fc case.
 //     One thread owns 4 columns (a float4 of each weight row, coalesced
-//     along N) and all M rows, for one slice; S slices give enough
-//     blocks to keep the memory system busy.  Each slice sum goes to a
-//     partial [S, M, N]; the second pass adds the S partials in order.
-//     No atomics.
+//     along N) and all M rows, for one slice, with SK_U weight rows'
+//     loads in flight at once; S slices give enough blocks to keep the
+//     memory system busy.  Each slice sum goes to a partial [S, M, N];
+//     the second pass adds the S partials in order.  No atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int NT = 256;
-constexpr int APAD = 4;
+constexpr int SLICE_STEP = 16;     // K slices are multiples of this
+constexpr int APAD = 4;            // As rows of BM + 4 floats: BM + 4 = 4 (mod 32) banks
 
 constexpr int MT = 8;              // largest M the skinny kernel takes
 constexpr int SK_NT = 128;         // skinny threads per block
 constexpr int SK_COLS = 4 * SK_NT; // columns per skinny block
-constexpr int TARGET_BLOCKS = 4 * 132;  // four blocks per SM of an H100
+constexpr int SK_U = 8;            // weight rows a skinny thread loads at once
+constexpr int SMS = 132;           // SMs of an H100 SXM
+constexpr int TARGET_BLOCKS = 4 * SMS;  // four skinny blocks per SM
 
-__global__ void __launch_bounds__(NT)
-gemm_tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ out, int M, int K, int N, int L) {
-  __shared__ __align__(16) float As[BK][BM + APAD];
-  __shared__ __align__(16) float Bs[BK][BN];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
+// A tile variant: BM x BN outputs a block, TM x TN a thread, K in steps
+// of BK (16 or 32) through a ring of STAGES stages.  TS keeps the slice
+// totals in shared memory (laid out [TM*TN][threads], so a warp's
+// accesses hit 32 banks) instead of a second set of TM x TN registers:
+// fewer registers, so three 128-thread blocks an SM instead of two.
+// MINB is the blocks an SM the registers must allow (0: no bound).
+template <int BM_, int BN_, int TM_, int TN_, int BK_, int STAGES_, bool TS_ = false,
+          int MINB_ = 0>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool TS = TS_;
+  static constexpr int NT = (BM / TM) * (BN / TN);
+  static constexpr int AS = BM + APAD;
+  static constexpr int STAGE_FLOATS = BK * (AS + BN);
+  static constexpr size_t SMEM =
+      ((size_t)STAGES * STAGE_FLOATS + (TS ? (size_t)BM * BN : 0)) * sizeof(float);
+  static constexpr int MINB = MINB_;
+  static_assert(BK % SLICE_STEP == 0 && (BM * BK) % NT == 0 && (BK * BN / 4) % NT == 0,
+                "copies split evenly");
+  static_assert(BN / TN >= 8 && TM % 4 == 0 && TN % 4 == 0, "quarter warps share a row of A");
+  static_assert((BM + APAD) % 32 == 4, "A copies hit 32 distinct banks");
+};
+
+// Thread (ty, tx) owns TM/4 runs of 4 rows, ty*4 + {0..3} in each BM/(TM/4)
+// rows, and TN/4 runs of 4 columns likewise: each quarter warp reads 8
+// consecutive float4s of a B row, conflict-free, and broadcasts A.
+template <class TL>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ a, const float* __restrict__ b,
+                                          float* __restrict__ out, int M, int K, int N, int L,
+                                          int b_vec) {
+  constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN, BK = TL::BK;
+  constexpr int NT = TL::NT, AS = TL::AS, STAGES = TL::STAGES;
+  constexpr int PM = TM / 4, PN = TN / 4;  // runs of 4 per thread
+  extern __shared__ __align__(16) float smem[];
+  float* ts = smem + STAGES * TL::STAGE_FLOATS;  // slice totals, when TL::TS
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int ak = tid % BK;  // A loader: column ak, rows ar + 16*i
-  const int ar = tid / BK;
-  const int bn = tid % BN;  // B loader: column bn, rows bk + 4*i
-  const int bk = tid / BN;
-  const int ty = tid / 16;  // compute: rows ty*4.., cols tx*4..
-  const int tx = tid % 16;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int n_tiles = (K + BK - 1) / BK;
 
-  float acc[4][4], tot[4][4];
+  auto load_tile = [&](int t) {
+    float* As = smem + (t % STAGES) * TL::STAGE_FLOATS;
+    float* Bs = As + BK * AS;
+    const int k0 = t * BK;
+    // A: a warp copies 8 consecutive k of 4 rows (one 32-byte sector a
+    // row) into As[k][m], 32 distinct banks
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < BM * BK / NT; ++i) {
+      const int e = tid + i * NT;
+      const int oct = e / (BM * 8), rem = e % (BM * 8);
+      const int m = rem / 8, k = oct * 8 + rem % 8;
+      const bool ok = (m0 + m < M) && (k0 + k < K);
+      cp_async4(&As[k * AS + m], ok ? a + (int64_t)(m0 + m) * K + k0 + k : a, ok);
+    }
+    if (b_vec) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = tot[i][j] = 0.0f;
+      for (int i = 0; i < BK * BN / 4 / NT; ++i) {
+        const int c = tid + i * NT;
+        const int k = c / (BN / 4), n = (c % (BN / 4)) * 4;
+        const bool ok = (k0 + k < K) && (n0 + n < N);
+        cp_async16(&Bs[k * BN + n], ok ? b + (int64_t)(k0 + k) * N + n0 + n : b, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * BN / NT; ++i) {
+        const int e = tid + i * NT;
+        const int k = e / BN, n = e % BN;
+        const bool ok = (k0 + k < K) && (n0 + n < N);
+        cp_async4(&Bs[k * BN + n], ok ? b + (int64_t)(k0 + k) * N + n0 + n : b, ok);
+      }
+    }
+  };
 
+  float acc[TM][TN], tot[TL::TS ? 1 : TM][TL::TS ? 1 : TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = 0.0f;
+      if constexpr (TL::TS) ts[(i * TN + j) * NT + tid] = 0.0f;
+      else tot[i][j] = 0.0f;
+    }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
+  }
   int fold_at = L;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + ak;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ar + 16 * i;
-      As[ak][ar + 16 * i] = (m < M && k < K) ? a[(int64_t)m * K + k] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = k0 + bk + 4 * i;
-      const int n = n0 + bn;
-      Bs[bk + 4 * i][bn] = (kk < K && n < N) ? b[(int64_t)kk * N + n] : 0.0f;
-    }
-    __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; and tile t - 1 is read
+    if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1);
+    cp_async_commit();
+    const float* As = smem + (t % STAGES) * TL::STAGE_FLOATS;
+    const float* Bs = As + BK * AS;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 av4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
-      const float bw[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
+      float av[TM], bw[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int p = 0; p < PM; ++p) {
+        const float4 x = *reinterpret_cast<const float4*>(&As[kk * AS + p * (BM / PM) + ty * 4]);
+        av[4 * p] = x.x; av[4 * p + 1] = x.y; av[4 * p + 2] = x.z; av[4 * p + 3] = x.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (k0 + BK >= fold_at || k0 + BK >= K) {  // end of a slice (L % BK == 0)
+      for (int p = 0; p < PN; ++p) {
+        const float4 x = *reinterpret_cast<const float4*>(&Bs[kk * BN + p * (BN / PN) + tx * 4]);
+        bw[4 * p] = x.x; bw[4 * p + 1] = x.y; bw[4 * p + 2] = x.z; bw[4 * p + 3] = x.w;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          tot[i][j] = tot[i][j] + acc[i][j];
-          acc[i][j] = 0.0f;
-        }
-      fold_at += L;
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+      const int k_end = t * BK + kk + 1;
+      if ((kk + 1) % SLICE_STEP == 0 && k_end - SLICE_STEP < K &&
+          (k_end >= fold_at || k_end >= K)) {
+        // end of a slice (L % SLICE_STEP == 0): fold it into the total
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            if constexpr (TL::TS) {
+              float& x = ts[(i * TN + j) * NT + tid];
+              x = x + acc[i][j];
+            } else {
+              tot[i][j] = tot[i][j] + acc[i][j];
+            }
+            acc[i][j] = 0.0f;
+          }
+        fold_at += L;
+      }
     }
   }
+  cp_async_wait<0>();
 
+  const bool vec_out = (N % 4) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + (i / 4) * (BM / PM) + ty * 4 + i % 4;
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(int64_t)m * N + n] = tot[i][j];
+    for (int p = 0; p < PN; ++p) {
+      const int n = n0 + p * (BN / PN) + tx * 4;
+      float r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (TL::TS) r[j] = ts[(i * TN + 4 * p + j) * NT + tid];
+        else r[j] = tot[i][4 * p + j];
+      }
+      float* o = out + (int64_t)m * N + n;
+      if (vec_out && n + 3 < N) {
+        *reinterpret_cast<float4*>(o) = make_float4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) o[j] = r[j];
+      }
     }
+  }
+}
+
+// __launch_bounds__ with a minimum of 1 block allocates registers
+// differently from none at all (more of them, for the 64 x 64 tile), so
+// the bound is given only where a tile asks for one.
+template <class TL>
+__global__ void __launch_bounds__(TL::NT) gemm_tiled_kernel(const float* __restrict__ a,
+                                                            const float* __restrict__ b,
+                                                            float* __restrict__ out, int M, int K,
+                                                            int N, int L, int b_vec) {
+  gemm_tile<TL>(a, b, out, M, K, N, L, b_vec);
+}
+template <class TL>
+__global__ void __launch_bounds__(TL::NT, TL::MINB > 0 ? TL::MINB : 1)
+gemm_tiled_kernel_bounded(const float* __restrict__ a, const float* __restrict__ b,
+                          float* __restrict__ out, int M, int K, int N, int L, int b_vec) {
+  gemm_tile<TL>(a, b, out, M, K, N, L, b_vec);
+}
+
+template <class TL>
+int launch_tiled(const float* A, const float* B, float* O, int M, int K, int N, int L,
+                 int b_vec, cudaStream_t st) {
+  auto kern = [] {
+    if constexpr (TL::MINB > 0) return gemm_tiled_kernel_bounded<TL>;
+    else return gemm_tiled_kernel<TL>;
+  }();
+  if (TL::SMEM > 48 * 1024) {
+    static bool raised = false;  // benign race: the attribute is idempotent
+    if (!raised) {
+      cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)TL::SMEM);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      raised = true;
+    }
+  }
+  dim3 grid((M + TL::BM - 1) / TL::BM, (N + TL::BN - 1) / TL::BN);
+  kern<<<grid, TL::NT, TL::SMEM, st>>>(A, B, O, M, K, N, L, b_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile variants, largest first (Tile3 has 64 threads, the rest 128).
+using Tile0 = Tile<128, 64, 8, 8, 16, 3>;
+using Tile1 = Tile<64, 128, 8, 8, 16, 3, true, 3>;
+using Tile2 = Tile<64, 64, 8, 4, 32, 3, false, 3>;
+using Tile3 = Tile<32, 64, 8, 4, 32, 3>;
+constexpr int N_TILES = 4;
+
+int64_t tiles(int M, int N, int bm, int bn) {
+  return (int64_t)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+}
+
+// 8 x 8 tiles where K is long enough to pay for them: 128 x 64 where N
+// <= 64 and the grid is at least four blocks an SM; 64 x 128, totals in
+// shared memory, where N > 64 and the grid is at least two blocks an SM
+// (three fit on an SM).  Else 64 x 64 where that grid is at least two
+// blocks an SM, else 32 x 64.
+int tiled_shape(int M, int K, int N) {
+  if (K >= 256 && N <= 64 && tiles(M, N, 128, 64) >= 4 * SMS) return 0;
+  if (K >= 256 && N > 64 && tiles(M, N, 64, 128) >= 2 * SMS) return 1;
+  if (tiles(M, N, 64, 64) >= 2 * SMS) return 2;
+  return 3;
+}
+
+int launch_shape(int shape, const float* A, const float* B, float* O, int M, int K, int N,
+                 int L, int b_vec, cudaStream_t st) {
+  switch (shape) {
+    case 0: return launch_tiled<Tile0>(A, B, O, M, K, N, L, b_vec, st);
+    case 1: return launch_tiled<Tile1>(A, B, O, M, K, N, L, b_vec, st);
+    case 2: return launch_tiled<Tile2>(A, B, O, M, K, N, L, b_vec, st);
+    case 3: return launch_tiled<Tile3>(A, B, O, M, K, N, L, b_vec, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 __global__ void __launch_bounds__(SK_NT)
 gemm_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ part, int M, int K, int N, int L,
-                   int vec4) {
+                   int vec4, int a_vec4) {
   const int s = blockIdx.y;
   const int n = blockIdx.x * SK_COLS + threadIdx.x * 4;
   if (n >= N) return;
@@ -134,10 +325,8 @@ gemm_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-#pragma unroll 4
-  for (int k = kb; k < ke; ++k) {
+  auto load_row = [&](int k, float* bw) {
     const float* br = b + (int64_t)k * N;
-    float bw[4];
     if (vec4) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(br + n));
       bw[0] = t.x; bw[1] = t.y; bw[2] = t.z; bw[3] = t.w;
@@ -145,14 +334,42 @@ gemm_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
       for (int j = 0; j < 4; ++j) bw[j] = (n + j < N) ? __ldg(br + n + j) : 0.0f;
     }
+  };
+  auto fma_row = [&](int i, float av, const float* bw) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, bw[j], acc[i][j]);
+  };
+
+  int k = kb;
+  for (; k + SK_U <= ke; k += SK_U) {  // SK_U independent weight loads, then their FMAs
+    float bw[SK_U][4];
+#pragma unroll
+    for (int u = 0; u < SK_U; ++u) load_row(k + u, bw[u]);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      if (i < M) {
-        const float av = __ldg(a + (int64_t)i * K + k);
+      if (i >= M) continue;
+      float av[SK_U];
+      const float* ar = a + (int64_t)i * K + k;
+      if (a_vec4) {  // k and K are multiples of 4: aligned float4s of the row
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, bw[j], acc[i][j]);
+        for (int u = 0; u < SK_U; u += 4) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(ar + u));
+          av[u] = t.x; av[u + 1] = t.y; av[u + 2] = t.z; av[u + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < SK_U; ++u) av[u] = __ldg(ar + u);
       }
+#pragma unroll
+      for (int u = 0; u < SK_U; ++u) fma_row(i, av[u], bw[u]);
     }
+  }
+  for (; k < ke; ++k) {
+    float bw[4];
+    load_row(k, bw);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i < M) fma_row(i, __ldg(a + (int64_t)i * K + k), bw);
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -184,8 +401,8 @@ extern "C" int gemm_slice_len(int K, int N) {
   const int max_s = K / 64 > 1 ? K / 64 : 1;
   if (s > max_s) s = max_s;
   int L = (K + s - 1) / s;
-  L = (L + BK - 1) / BK * BK;
-  return L < BK ? BK : L;
+  L = (L + SLICE_STEP - 1) / SLICE_STEP * SLICE_STEP;
+  return L < SLICE_STEP ? SLICE_STEP : L;
 }
 
 // The largest M the skinny path takes; the wrapper sizes its partial
@@ -205,9 +422,8 @@ extern "C" int gemm_f32(const void* a, const void* b, void* out, void* part,
   const float* B = static_cast<const float*>(b);
   float* O = static_cast<float*>(out);
   if (M > MT) {
-    dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    gemm_tiled_kernel<<<grid, NT, 0, st>>>(A, B, O, M, K, N, L);
-    return static_cast<int>(cudaGetLastError());
+    const int b_vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
+    return launch_shape(tiled_shape(M, K, N), A, B, O, M, K, N, L, b_vec, st);
   }
   const int S = K > 0 ? (K + L - 1) / L : 0;
   if (S == 0) {  // empty sum: zeros
@@ -218,7 +434,9 @@ extern "C" int gemm_f32(const void* a, const void* b, void* out, void* part,
   const int vec4 = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
   float* P = static_cast<float*>(part);
   dim3 grid1((N + SK_COLS - 1) / SK_COLS, S);
-  gemm_skinny_kernel<<<grid1, SK_NT, 0, st>>>(A, B, P, M, K, N, L, vec4);
+  // and float4 activation loads K % 4 == 0 (slices start at multiples of 16)
+  const int a_vec4 = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
+  gemm_skinny_kernel<<<grid1, SK_NT, 0, st>>>(A, B, P, M, K, N, L, vec4, a_vec4);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t total = (int64_t)M * N;
@@ -226,4 +444,17 @@ extern "C" int gemm_f32(const void* a, const void* b, void* out, void* part,
   const int blocks = (int)((total + threads - 1) / threads);
   gemm_finish_kernel<<<blocks, threads, 0, st>>>(P, O, total, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled path forced onto tile variant ``shape`` (0 .. gemm_tile_variants()
+// - 1), any M >= 1: each variant sums every output in the same order, so
+// all give the same bits (chip_smoke.py holds them to each other).
+extern "C" int gemm_tile_variants() { return N_TILES; }
+extern "C" int gemm_f32_tiled(const void* a, const void* b, void* out, int M, int K, int N,
+                              int shape, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const int b_vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
+  return launch_shape(shape, static_cast<const float*>(a), static_cast<const float*>(b),
+                      static_cast<float*>(out), M, K, N, gemm_slice_len(K, N), b_vec,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -8,8 +8,13 @@ in q's type.  The TPU kernel handles one KV head and is vmapped over
 (batch, KV head); this one takes the batched, GQA-grouped form the model
 holds: q ``[B, Hkv, G, D]`` (a view of ``[B, H, D]``), caches
 ``[B, W, Hkv, D]`` as ``models/blocks.py::_ring_write`` leaves them, and
-one host-side ``length``.  ``csrc/flash_decode.cu`` runs one block per
-(batch, KV head), one launch per layer per decode step.
+one host-side ``length``.  ``csrc/flash_decode.cu`` cuts the cache into
+splits of :func:`split_len` slots (a function of W and D alone), runs one
+block per (split, KV head, batch) that leaves a partial softmax state in
+f32 scratch, and adds the partials in split order in a second pass: two
+kernels behind one C call and one count, one call per layer per decode
+step.  Since the split length does not depend on the batch or on
+``length``, a row's output is bitwise the same at any batch size.
 
 **A prefix stands for the reference's position mask.**
 ``repro.models.attention.decode_attention`` masks each slot by the
@@ -81,6 +86,13 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: 
 
 
 @functools.lru_cache(maxsize=None)
+def split_len(w: int, d: int) -> int:
+    """Cache slots per split of the kernel's first pass at cache size
+    ``w`` and head dim ``d`` (``flash_decode_split_len``)."""
+    return R.bind("flash_decode", "flash_decode_split_len", [R.I, R.I])(w, d)
+
+
+@functools.lru_cache(maxsize=None)
 def _limits():
     max_gd = R.bind("flash_decode", "flash_decode_max_gd", [])()
     max_d = R.bind("flash_decode", "flash_decode_max_d", [])()
@@ -110,11 +122,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_decode: q, k, v must be 16-byte aligned")
+    w = k.shape[1]
     out = torch.empty_like(q)
-    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 4 + [R.I] * 7 + [R.F, R.P])
+    n_split = -(-w // split_len(w, d))
+    part = torch.empty(b * hkv * n_split * g * (d + 2), device=dev, dtype=torch.float32)
+    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 5 + [R.I] * 7 + [R.F, R.P])
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hkv, g, d, k.shape[1], length,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, hkv, g, d, w, length,
         1.0 / d ** 0.5, R.stream(dev),
     )
     R.check(err, "flash_decode_fwd")

@@ -6,9 +6,14 @@ under the conv-as-GEMM route of paper section V-A (``"pallas"`` in the
 reference, ``"cuda"`` here).  ``csrc/gemm.cu`` accumulates in IEEE f32 on
 the CUDA cores (no TF32), so it holds the reference's tolerance; the
 conv GEMMs are bound by operations, the fc GEMMs at the serving
-micro-batch by the bytes of the weights.  Each output is summed in an
+micro-batch by the bytes of the weights.  M > 8 takes a tiled kernel
+(register tiles of 8 x 8 or 8 x 4 outputs a thread, a cp.async ring of
+shared-memory stages; the tile variant is chosen from (M, K, N)), M <= 8
+a split-K kernel and a fixed second pass.  Each output is summed in an
 order fixed by (K, N) alone, so a row's result does not depend on M,
-the batch it rides in.
+the batch it rides in, nor on the tile variant: :func:`gemm_tiled` runs
+a chosen variant, so that checks can hold every variant to the same
+bits.
 
 A CPU tensor takes :func:`gemm_ref`; a CUDA tensor launches the kernel
 or raises.  Each launch counts once under ``"gemm"`` in
@@ -38,21 +43,48 @@ def _skinny_max_m() -> int:
     return R.bind("gemm", "gemm_skinny_max_m", [])()
 
 
+@functools.lru_cache(maxsize=None)
+def tile_variants() -> int:
+    """How many tile variants the tiled kernel has."""
+    return R.bind("gemm", "gemm_tile_variants", [])()
+
+
+def _operands(a: torch.Tensor, b: torch.Tensor):
+    R.require(a, "a", 2)
+    R.require(b, "b", 2)
+    if b.shape[0] != a.shape[1]:
+        raise ValueError(f"gemm: inner dims differ ({a.shape[1]} vs {b.shape[0]})")
+    if b.device != a.device:
+        raise ValueError(f"gemm: b must be on {a.device}")
+    return a.contiguous(), b.contiguous()
+
+
+def gemm_tiled(a: torch.Tensor, b: torch.Tensor, variant: int) -> torch.Tensor:
+    """``a @ b`` through the tiled kernel's tile variant ``variant`` (0 ..
+    ``tile_variants() - 1``) at any M, on CUDA tensors only: for checks
+    that every variant, and the skinny path, give the same bits.  Counts
+    no launch (the main path never calls it)."""
+    if not R.on_card(a, "gemm_tiled"):
+        raise ValueError("gemm_tiled runs on the card only")
+    a, b = _operands(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    fn = R.bind("gemm", "gemm_f32_tiled", [R.P] * 3 + [R.I] * 4 + [R.P])
+    R.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, int(variant),
+               R.stream(a.device)), "gemm_f32_tiled")
+    return out
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``[M,K] @ [K,N] -> [M,N]`` f32; launches ``csrc/gemm.cu`` on the
     current stream for CUDA tensors."""
     if not R.on_card(a, "gemm"):
         return gemm_ref(a, b)
-    R.require(a, "a", 2)
-    R.require(b, "b", 2)
+    a, b = _operands(a, b)
     m, k = a.shape
-    kb, n = b.shape
-    if kb != k:
-        raise ValueError(f"gemm: inner dims differ ({k} vs {kb})")
+    n = b.shape[1]
     dev = a.device
-    if b.device != dev:
-        raise ValueError(f"gemm: b must be on {dev}")
-    a, b = a.contiguous(), b.contiguous()
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
     part = None
     if 0 < m <= _skinny_max_m() and k > 0:

@@ -9,6 +9,12 @@ slots where the model's reference decode masks by *position*; the last
 tests hold the two equal on ring buffers before and after they wrap, and
 the port's ring write equal to the reference's beyond the window.
 
+The CUDA kernel cuts the cache into splits, leaves a partial softmax
+state for each and adds the partials in split order; a few-line
+emulation of that algorithm (``_split_kv``) is held here against the
+plain version and the reference kernel, with empty splits and a split
+cut by the valid prefix.
+
 Tolerances: ``2e-4`` in f32, the reference's own bar
 (tests/test_kernels.py::test_flash_decode_matches_ref); ``3e-2`` in bf16,
 its bar for bf16 operands (test_flash_decode_dtypes).
@@ -93,6 +99,67 @@ def test_refuses_length_outside_the_cache():
             ops.flash_decode(q, k, k, bad)
     with pytest.raises(ValueError):
         ops.flash_decode(q, k, k, 3, backend="jnp")
+
+
+# ------------------------------------------- the split-KV algorithm (B5)
+def _split_kv(q, k, v, length, split):
+    """Decode attention as ``csrc/flash_decode.cu`` computes it: one partial
+    ``(m, l, acc)`` per split of ``split`` cache slots (an empty one, m =
+    -1e30 and l = acc = 0, for a split wholly past ``length``; a split cut
+    by ``length`` holds only its valid slots), then the partials added in
+    split order: ``M = max m_s``, ``L = sum l_s exp(m_s - M)``, ``out = sum
+    acc_s exp(m_s - M) / max(L, 1e-30)``."""
+    b, hkv, g, d = q.shape
+    parts = []
+    for s0 in range(0, k.shape[1], split):
+        n = min(s0 + split, length) - s0
+        if n <= 0:
+            parts.append((torch.full((b, hkv, g), -1e30), torch.zeros(b, hkv, g), torch.zeros(b, hkv, g, d)))
+            continue
+        logits = torch.einsum("bkgd,bskd->bkgs", q, k[:, s0:s0 + n]) / d ** 0.5
+        m = logits.max(-1).values
+        p = torch.exp(logits - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bkgs,bskd->bkgd", p, v[:, s0:s0 + n])))
+    big_m = torch.stack([m for m, _, _ in parts]).max(0).values
+    big_l, acc = torch.zeros_like(big_m), torch.zeros_like(q)
+    for m, l, a in parts:  # in split order
+        w = torch.exp(m - big_m)
+        big_l = big_l + l * w
+        acc = acc + a * w[..., None]
+    return acc / torch.clamp(big_l, min=1e-30)[..., None]
+
+
+# (b, hkv, g, d, w, length, split): ragged prefixes, a prefix ending on and
+# either side of a split boundary, most splits empty, one split in all
+SPLIT_CASES = [
+    (2, 2, 5, 64, 300, 177, 64), (2, 2, 5, 64, 300, 63, 64), (2, 2, 5, 64, 300, 64, 64),
+    (2, 2, 5, 64, 300, 65, 64), (1, 3, 2, 32, 1000, 1, 128), (1, 3, 2, 32, 1000, 777, 256),
+    (2, 1, 4, 16, 130, 130, 512),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_split_kv_matches_plain_version_and_reference_kernel(case):
+    b, hkv, g, d, w, length, split = case
+    rng = np.random.default_rng(w + length + split)
+    q, k, v = _np(rng, b, hkv, g, d, scale=0.5), _np(rng, b, w, hkv, d, scale=0.5), _np(rng, b, w, hkv, d)
+    got = _split_kv(*(torch.from_numpy(a) for a in (q, k, v)), length, split)
+    plain = FD.flash_decode_ref(*(torch.from_numpy(a) for a in (q, k, v)), length)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL, atol=TOL)
+    per_head = jax.vmap(jax.vmap(
+        lambda qq, kk, vv: ref_flash_decode(qq, kk, vv, jnp.int32(length), block_s=64, interpret=True)
+    ))
+    want = np.asarray(per_head(q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_empty_splits_change_no_bit():
+    """Splits wholly past the prefix weigh exp(-1e30 - M) = 0: the result
+    is bitwise the same as with the cache cut after the prefix's splits."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(_np(rng, *sh)) for sh in ((2, 2, 3, 32), (2, 640, 2, 32), (2, 640, 2, 32)))
+    full = _split_kv(q, k, v, 150, 64)
+    assert torch.equal(full, _split_kv(q, k[:, :192], v[:, :192], 150, 64))
 
 
 # ------------------------------------- a prefix stands for the position mask

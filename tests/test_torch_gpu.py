@@ -147,8 +147,12 @@ def test_served_outputs_bitwise_equal_single_stage(cuda):
 
 
 # ------------------------------------------------- the unfused route (B3, B4)
-# (M, K, N): skinny (M <= 8, split K) and tiled, ragged everywhere
-GEMM_CASES = [(1, 27, 64), (4, 300, 130), (8, 4096, 1000), (9, 40, 24), (130, 576, 70), (784, 4608, 512)]
+# (M, K, N): skinny (M <= 8, split K) and tiled, ragged everywhere; the
+# tiled path picks each of its tile variants at one of these: 32 x 64
+# (conv5's 784 rows and the small cases), 64 x 64 (K = 27 as conv1_1, and
+# conv4), 128 x 64 (N = 64, M not a tile multiple), 64 x 128 (conv2, conv3)
+GEMM_CASES = [(1, 27, 64), (4, 300, 130), (8, 4096, 1000), (9, 40, 24), (130, 576, 70), (784, 4608, 512),
+              (200704, 27, 64), (3136, 4608, 512), (67650, 576, 64), (50176, 576, 128), (12544, 1152, 256)]
 
 
 @pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: "x".join(map(str, c)))
@@ -163,10 +167,13 @@ def test_gemm_kernel_matches_plain(cuda, case):
     ref = G.gemm_ref(a, b)
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
     # each row's sum order is fixed by (K, N): the same bits alone, in a
-    # skinny batch and in a tiled one
+    # skinny batch, in a tiled one and through every tile variant
     assert torch.equal(ops.gemm(a[:1].contiguous(), b)[0], y[0])
+    assert torch.equal(ops.gemm(a[:4].contiguous(), b), y[:4])
     tall = torch.cat([a, a.new_zeros(20, k)])
     assert torch.equal(ops.gemm(tall, b)[:m], y)
+    for variant in range(G.tile_variants()):
+        assert torch.equal(G.gemm_tiled(a, b, variant), y)
 
 
 @pytest.mark.parametrize("case", [(1, 9, 8, 3, 1, 0), (2, 9, 8, 3, 1, 1), (2, 13, 13, 3, 2, 2),
@@ -239,9 +246,13 @@ def test_cuda_route_served_bitwise_equal_single_stage(cuda):
 
 
 # --------------------------------------------------- decode attention (B5)
-# (B, Hkv, G, D, W, length): Hymba's served shape, other G and D, ragged
+# (B, Hkv, G, D, W, length): Hymba's served shape, other G and D, ragged;
+# each side of the first split boundary (64 slots at these W and D); a
+# 32768-slot cache whose splits past the prefix are empty; G over 8
 FD_CASES = [(4, 5, 5, 64, 1024, 1), (4, 5, 5, 64, 1024, 777), (4, 5, 5, 64, 1024, 1024),
-            (2, 3, 1, 128, 300, 300), (1, 2, 5, 128, 300, 129), (2, 5, 5, 64, 1, 1)]
+            (2, 3, 1, 128, 300, 300), (1, 2, 5, 128, 300, 129), (2, 5, 5, 64, 1, 1),
+            (4, 5, 5, 64, 1024, 63), (4, 5, 5, 64, 1024, 64), (4, 5, 5, 64, 1024, 65),
+            (4, 5, 5, 64, 32768, 1), (4, 5, 5, 64, 32768, 777), (2, 2, 13, 64, 300, 200)]
 
 
 def _bf16_ulp(r):
@@ -271,6 +282,13 @@ def test_flash_decode_kernel_matches_plain(cuda, case, dtype):
     else:
         r32 = FD.flash_decode_ref(q.float(), k.float(), v.float(), length)
         assert bool(((y.float() - r32).abs() <= _bf16_ulp(r32)).all())
+    # the split length depends on (W, D) alone: a row's bits do not depend
+    # on the batch it rides in, nor on the call
+    row = b - 1
+    y1 = ops.flash_decode(q[row:row + 1].contiguous(), k[row:row + 1].contiguous(),
+                          v[row:row + 1].contiguous(), length)
+    assert torch.equal(y1, y[row:row + 1])
+    assert torch.equal(ops.flash_decode(q, k, v, length), y)
 
 
 # ------------------------------------------------------------- SSD (B6)
