@@ -1,8 +1,14 @@
 #!/usr/bin/env python3
 """Sweep build-time variants of the port's B5 (flash-decode) and B3 (GEMM)
-kernels on one NVIDIA card, beside the library call each one is held to.
+kernels, and of B1 (fused conv) and B2 (fused fc GEMM), which share B3's
+source, on one NVIDIA card, beside the library call each one is held to.
 
-    python3 benchmarks/port_kernel_variants.py [--out FILE]   # from the repo root
+    python3 benchmarks/port_kernel_variants.py [--out FILE] [--only SECTIONS] [--old DIR]
+
+from the repo root.  ``--old DIR`` names the ``csrc`` directory of an
+earlier tree whose ``conv_fused.cu`` has the f32 entry and which has a
+``matmul_fused.cu`` (the first versions of B1 and B2): they are built and
+timed beside the built ones, in the same process.
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with some
 of its constants (B5) or tile definitions (B3) replaced, built by nvcc
@@ -21,7 +27,13 @@ object per line and, with ``--out``, writes them all to FILE:
   variant's time for each of its tile variants (``gemm_f32_tiled``;
   ``registers`` swaps where the slice totals live), all of which must
   give the same bits, beside ``torch.mm`` (TF32 off);
-* ``gemm_fc``: the built kernel's skinny path at the three fc GEMMs.
+* ``gemm_fc``: the built kernel's skinny path at the three fc GEMMs;
+* ``conv``: B1 at each distinct conv of VGG-16 at batch 4, each variant
+  for each of its tile variants (``conv_fused_f32``'s ``shape``), all of
+  which must give the same bits, beside the old kernel (``--old``) and
+  ``F.conv2d`` (TF32 off);
+* ``fc``: B2 at the three fc layers at batch 4 (the built kernel, the old
+  one, ``torch.addmm``).
 
 Times are device times: a run of calls queued behind a sleep kernel,
 between two CUDA events.  Nothing here runs without a card.
@@ -152,21 +164,31 @@ def _build(sources, tmp):
 
 
 def _short(mangled: str) -> str:
-    """``fd_split_kernel<bf16, 5, 8>``-like name of a mangled kernel."""
-    m = re.search(r"(fd_split_kernel|fd_combine_kernel|gemm_tiled_kernel_bounded|gemm_tiled_kernel"
-                  r"|gemm_skinny_kernel|gemm_finish_kernel)(I.*)?E", mangled)
-    if not m:
+    """``gemm_tiled_kernel<Tile<128, 64, ...>, PatchA, NoEpi>``-like name of
+    a mangled kernel (c++filt where the toolkit's host has it)."""
+    try:
+        name = subprocess.run(["c++filt"], input=mangled, capture_output=True, text=True,
+                              timeout=10).stdout.strip() or mangled
+    except OSError:
         return mangled
-    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|I(f)E|Lb([01])E", m.group(2) or "")
-    flat = ["bf16" if b else "f32" if f else f"{'true' if t == '1' else 'false'}" if t else i
-            for i, b, f, t in args]
-    return f"{m.group(1)}<{', '.join(flat)}>"
+    name = name.replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(name):  # drop the parameter list
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            return name[:i].replace("void ", "", 1)
+    return name
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
+    ap.add_argument("--only", default="flash_decode,gemm,conv,fc",
+                    help="comma-separated sections: flash_decode, gemm, conv, fc")
+    ap.add_argument("--old", help="csrc directory holding the first versions of B1 and B2")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     import torch
     import torch.nn.functional as F
 
@@ -179,6 +201,7 @@ def main() -> int:
     from repro_torch.kernels import runtime as R
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     lines = []
@@ -207,8 +230,15 @@ def main() -> int:
         return s.elapsed_time(e) / n
 
     with tempfile.TemporaryDirectory() as tmp:
-        sources = {**_variant_sources("flash_decode", FD_VARIANTS),
-                   **_variant_sources("gemm", GEMM_VARIANTS), "copy_only": COPY_ONLY}
+        sources = {}
+        if "flash_decode" in only:
+            sources.update(_variant_sources("flash_decode", FD_VARIANTS), copy_only=COPY_ONLY)
+        if only & {"gemm", "conv", "fc"}:
+            sources.update(_variant_sources("gemm", GEMM_VARIANTS))
+        if args.old and only & {"gemm", "conv", "fc"}:
+            for name in ("conv_fused", "matmul_fused", "gemm"):
+                with open(os.path.join(args.old, f"{name}.cu")) as f:
+                    sources[f"{name}_old"] = f.read()
         libs, registers = _build(sources, tmp)
         emit({"registers": registers})
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -226,7 +256,7 @@ def main() -> int:
                        b, hkv, g, d, w, length, 1.0 / d ** 0.5, stream()), "flash_decode_fwd")
             return out
 
-        for label, b, w in (("served", 4, 1024), ("decode_32k", 16, 32768)):
+        for label, b, w in (("served", 4, 1024), ("decode_32k", 16, 32768)) if "flash_decode" in only else ():
             hkv, g, d = 5, 5, 64
             q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
             k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
@@ -268,7 +298,7 @@ def main() -> int:
                 convs[key] = convs.get(key, 0) + 1
             else:
                 fcs.append((4, int(torch.tensor(hin).prod()), node.attrs["out_features"]))
-        for (m, kk, n), count in convs.items():
+        for (m, kk, n), count in convs.items() if "gemm" in only else ():
             a, wt = randn(m, kk), randn(kk, n, scale=kk ** -0.5)
             ref = G.gemm(a, wt)
             row = {"kernel": "gemm", "m": m, "k": kk, "n": n, "layers": count,
@@ -285,10 +315,82 @@ def main() -> int:
                     row[f"{name[len('gemm_'):]}/tile{t}"] = {"ms": device_ms(call, 10),
                                                             "bitwise": bool(torch.equal(out, ref))}
             emit(row)
-        for m, kk, n in fcs:
+        for m, kk, n in fcs if "gemm" in only else ():
             a, wt = randn(m, kk), randn(kk, n, scale=kk ** -0.5)
             emit({"kernel": "gemm_fc", "m": m, "k": kk, "n": n, "built_ms": device_ms(lambda: G.gemm(a, wt), 20),
                   "mm_ms": device_ms(lambda: torch.mm(a, wt), 20), "bound_ms": 4.0 * (m * kk + kk * n + m * n) / 3.35e12 * 1e3})
+        # ------------------------------------------------ B1 fused conv
+        gemm_libs = {name[len("gemm_"):]: lib for name, lib in libs.items()
+                     if name.startswith("gemm_") and hasattr(lib, "conv_fused_f32")}
+        for lib in gemm_libs.values():
+            lib.conv_fused_f32.argtypes = [R.P] * 4 + [R.I] * 13 + [R.P]
+            lib.matmul_fused_f32.argtypes = [R.P] * 5 + [R.I] * 4 + [R.P]
+            lib.gemm_slice_len.argtypes = [R.I, R.I]
+        old = {n: libs.get(f"{n}_old") for n in ("conv_fused", "matmul_fused")}
+        if old["conv_fused"] is not None:
+            old["conv_fused"].conv_fused_f32.argtypes = [R.P] * 5 + [R.I] * 12 + [R.P]
+        if old["matmul_fused"] is not None:
+            old["matmul_fused"].matmul_fused_f32.argtypes = [R.P] * 6 + [R.I] * 4 + [R.P]
+            old["matmul_fused"].matmul_fused_splits.argtypes = [R.I, R.I]
+        layers = {}
+        for node in vgg.major_nodes() if "conv" in only else ():
+            if node.kind != "conv":
+                continue
+            h, w, c = shapes[node.inputs[0]]
+            key = (h, w, c, node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"], node.attrs["out_ch"])
+            layers.setdefault(key, []).append(node.name)
+        for (h, w, c, fk, st, pd, cout), names in layers.items():
+            b = 4
+            x = randn(b, h, w, c)
+            wt, bias = randn(fk, fk, c, cout, scale=(2.0 / (fk * fk * c)) ** 0.5), randn(cout, scale=0.1)
+            oh, ow = (h - fk + 2 * pd) // st + 1, (w - fk + 2 * pd) // st + 1
+            geo = (b, h, w, c, fk, fk, cout, st, pd, oh, ow, 1)
+            ref = torch.empty(b, oh, ow, cout, device=dev)
+            R.check(gemm_libs["built"].conv_fused_f32(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), ref.data_ptr(),
+                                                       *geo, -1, stream()), "conv_fused_f32")
+            xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+            row = {"kernel": "conv2d_fused", "layers": names, "m": b * oh * ow, "k": fk * fk * c, "n": cout,
+                   "conv2d_ms": device_ms(lambda: F.conv2d(xn, wn, bias, stride=st, padding=pd), 10),
+                   "bound_ms": 2.0 * b * oh * ow * cout * fk * fk * c / 67e12 * 1e3}
+            if old["conv_fused"] is not None:
+                ones, y_old = torch.ones(cout, device=dev), torch.empty_like(ref)
+                call = lambda: old["conv_fused"].conv_fused_f32(  # noqa: E731
+                    x.data_ptr(), wt.data_ptr(), ones.data_ptr(), bias.data_ptr(), y_old.data_ptr(), *geo, stream())
+                R.check(call(), "old conv_fused_f32")
+                row["old"] = {"ms": device_ms(call, 10), "max_abs_diff": float((y_old - ref).abs().max())}
+            for name, lib in gemm_libs.items():
+                for t in range(-1, lib.gemm_tile_variants()):
+                    out = torch.empty_like(ref)
+                    call = lambda: lib.conv_fused_f32(  # noqa: E731
+                        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), *geo, t, stream())
+                    R.check(call(), "conv_fused_f32")
+                    row[f"{name}/{'auto' if t < 0 else f'tile{t}'}"] = {
+                        "ms": device_ms(call, 10), "bitwise": bool(torch.equal(out, ref))}
+            emit(row)
+            del x, ref
+
+        # ------------------------------------------------ B2 fused fc
+        for m, kk, n in fcs if "fc" in only else ():
+            a, wt, bias = randn(m, kk), randn(kk, n, scale=kk ** -0.5), randn(n, scale=0.1)
+            out = torch.empty(m, n, device=dev)
+            lib = gemm_libs["built"]
+            part = torch.empty(-(-kk // lib.gemm_slice_len(kk, n)) * m * n, device=dev)
+            call = lambda: lib.matmul_fused_f32(  # noqa: E731
+                a.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(), m, kk, n, 1, stream())
+            R.check(call(), "matmul_fused_f32")
+            row = {"kernel": "matmul_fused", "m": m, "k": kk, "n": n, "built_ms": device_ms(call, 20),
+                   "addmm_ms": device_ms(lambda: torch.addmm(bias, a, wt), 20),
+                   "bound_ms": 4.0 * (m * kk + kk * n + 2 * n + m * n) / 3.35e12 * 1e3}
+            if old["matmul_fused"] is not None:
+                olib = old["matmul_fused"]
+                ones, y_old = torch.ones(n, device=dev), torch.empty_like(out)
+                opart = torch.empty(olib.matmul_fused_splits(kk, n) * m * n, device=dev)
+                ocall = lambda: olib.matmul_fused_f32(  # noqa: E731
+                    a.data_ptr(), wt.data_ptr(), ones.data_ptr(), bias.data_ptr(), y_old.data_ptr(),
+                    opart.data_ptr(), m, kk, n, 1, stream())
+                R.check(ocall(), "old matmul_fused_f32")
+                row["old"] = {"ms": device_ms(ocall, 20), "max_abs_diff": float((y_old - out).abs().max())}
+            emit(row)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

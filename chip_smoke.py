@@ -17,9 +17,15 @@ Phases (any failure exits non-zero):
    shape; the quantized conv (B1q) at every ``groups == 1`` conv
    geometry, bitwise (3c).  Then time every kernel at VGG-16's shapes at
    batch 4 beside its plain version, one library call where there is
-   one, and its bound (3b, 3d); at each conv GEMM of 3d the first 4 rows
-   of the tiled result and every tile variant's result must be bitwise
-   equal to the served tiled result;
+   one, and its bound (3b, 3d), as device time (a run of calls queued
+   behind a sleep kernel, ``device_ms``), with the host-paced time
+   (``time_ms``) beside it.  3d also holds bits: at each VGG-16 conv the
+   fused conv's image 0 alone equals image 0 of the batch of 4, every
+   tile variant gives the same output, and the output equals
+   ``relu(gemm(im2col(x)) + b)``; at each fc the fused GEMM's rows at M =
+   1, 4, 8 and 16 are equal, and equal ``relu(gemm(a, w) + b)``; at each
+   conv GEMM the first 4 rows of the tiled result and every tile
+   variant's result equal the served tiled result;
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
    batch_size=4)``, with 32 seeded images; the launch counters must show
    13 conv and 3 dense launches per micro-batch, the outputs must be
@@ -28,8 +34,9 @@ Phases (any failure exits non-zero):
    steady windows of 1024 images each.  4b: the same for the unfused
    route, ``serve("vgg16", backend="cuda", ...)`` on the same weights:
    13 im2col and 16 GEMM launches per micro-batch and no fused one,
-   bitwise equal to the single-stage ``cuda`` engine.  4c: the quantized
-   path at full width: each of the served VGG-16's 13 conv nodes through
+   bitwise equal to the single-stage ``cuda`` engine and to the served
+   ``cuda_fused`` outputs (the fused kernels sum in the GEMM's order).
+   4c: the quantized path at full width: each of the served VGG-16's 13 conv nodes through
    ``make_quant_conv_fn(..., kernel=True)`` on its real batch-4 input
    (teacher-forced from a ``cuda_fused`` forward), bitwise equal to
    ``qfused_route_ref`` and close to ``im2col`` + ``qgemm``, with each
@@ -114,11 +121,11 @@ PEAKS = {
 }
 KERNELS = {
     "conv2d_fused": {
-        "source": "src/repro_torch/kernels/csrc/conv_fused.cu",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/conv_fused.py:53",
     },
     "matmul_fused": {
-        "source": "src/repro_torch/kernels/csrc/matmul_fused.cu",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/conv_fused.py:260",
     },
     "qconv2d_fused": {
@@ -772,8 +779,9 @@ def main() -> int:
     # ---------------------------------- 3b, 3d. timing, VGG-16 at batch 4
     vgg = MODELS["vgg16"]()
     shapes = vgg.infer_shapes()
-    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+    totals = {n: {"ms": 0.0, "host_paced_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "flop_ms": 0.0, "byte_ms": 0.0, "max_abs_err": 0.0} for n in KERNELS}
+    not_bitwise = []  # 3d's bitwise checks of B1, B2, B3
 
     def record(name, where, kern, plain, lib, y, r, op_ms, byte_ms, exact=False, **extra):
         err, ratio = tol_ok(y, r)
@@ -782,9 +790,11 @@ def main() -> int:
         else:
             check(ratio <= 1.0, f"{name} exceeds tolerance at {where} batch {BATCH}")
         row = {
-            "shape": where, "kernel": name, "batch": BATCH,
-            "kernel_ms": time_ms(kern, torch), "plain_ms": time_ms(plain, torch),
-            "library_ms": None if lib is None else time_ms(lib, torch),
+            "shape": where, "kernel": name, "batch": BATCH, "timer": "device_ms",
+            "kernel_ms": device_ms(kern, torch), "plain_ms": device_ms(plain, torch),
+            "library_ms": None if lib is None else device_ms(lib, torch),
+            "host_paced_ms": {"kernel": time_ms(kern, torch), "plain": time_ms(plain, torch),
+                              "library": None if lib is None else time_ms(lib, torch)},
             "flop_bound_ms": op_ms, "byte_bound_ms": byte_ms,
             "max_abs_err": err, "err_over_tol": ratio,
             "tolerance": "bitwise" if exact else f"rtol={RTOL}, atol={ATOL}*max(1,max|r|)",
@@ -796,6 +806,7 @@ def main() -> int:
         t = totals[name]
         t["max_abs_err"] = max(t["max_abs_err"], err)
         t["ms"] += row["kernel_ms"]
+        t["host_paced_ms"] += row["host_paced_ms"]["kernel"]
         t["plain_ms"] += row["plain_ms"]
         t["library_ms"] += row["library_ms"] or 0.0
         t["bound_ms"] += row["bound_ms"]
@@ -814,6 +825,13 @@ def main() -> int:
             b = torch.randn(cout, device=dev, generator=gen) * 0.1
             xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
             y = K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu)
+            # B1: image 0 alone gives the bits it has in the batch of 4, and
+            # so does every tile variant
+            if not torch.equal(K.conv2d_fused(x[:1].contiguous(), wt, b, stride=st, pad=pd, relu=relu), y[:1]):
+                not_bitwise.append(f"conv2d_fused batch 1 vs {BATCH} at {where}")
+            for variant in range(G.tile_variants()):
+                if not torch.equal(K.conv2d_fused_tiled(x, wt, b, variant, stride=st, pad=pd, relu=relu), y):
+                    not_bitwise.append(f"conv2d_fused tile variant {variant} at {where}")
             oh, ow = y.shape[1], y.shape[2]
             m, k = BATCH * oh * ow, fk * fk * c
             flops = 2.0 * m * cout * k
@@ -840,11 +858,16 @@ def main() -> int:
             # bitwise equal to the skinny path's, and every tile variant's
             w2 = wt.reshape(k, cout)
             yg = ops.gemm(cols, w2)
-            check(torch.equal(ops.gemm(cols[:BATCH].contiguous(), w2), yg[:BATCH]),
-                  f"gemm: tiled rows differ from the skinny path's at {where}")
+            if not torch.equal(ops.gemm(cols[:BATCH].contiguous(), w2), yg[:BATCH]):
+                not_bitwise.append(f"gemm tiled rows vs the skinny path's at {where}")
             for variant in range(G.tile_variants()):
-                check(torch.equal(G.gemm_tiled(cols, w2, variant), yg),
-                      f"gemm: tile variant {variant} differs at {where}")
+                if not torch.equal(G.gemm_tiled(cols, w2, variant), yg):
+                    not_bitwise.append(f"gemm tile variant {variant} at {where}")
+            # B1 = the unfused route: relu(gemm(patch matrix) + b), bitwise
+            unfused = yg.reshape(y.shape) + b
+            if not torch.equal(torch.relu(unfused) if relu else unfused, y):
+                not_bitwise.append(f"conv2d_fused vs relu(gemm(im2col) + b) at {where}")
+            del unfused
             record(
                 "gemm", where,
                 lambda: ops.gemm(cols, w2), lambda: G.gemm_ref(cols, w2), lambda: torch.mm(cols, w2),
@@ -864,7 +887,7 @@ def main() -> int:
                 lambda: K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu), None,
                 yq, K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu),
                 flops / int_ops_peak * 1e3, qbytes / bytes_peak * 1e3, exact=True,
-                quantize_ms=time_ms(lambda: Q.quantize_tensor(x, axis=None), torch),
+                quantize_ms=device_ms(lambda: Q.quantize_tensor(x, axis=None), torch),
                 library_null_reason=NO_LIBRARY["qconv2d_fused"],
             )
             del yq
@@ -875,6 +898,18 @@ def main() -> int:
             wt = torch.randn(k, n, device=dev, generator=gen) * (1.0 / k) ** 0.5
             b = torch.randn(n, device=dev, generator=gen) * 0.1
             y = K.matmul_fused(a, wt, b, relu=relu)
+            # B2: a row's bits at M = 1, 4, 8 (split K) and 16 (tiled), and
+            # those of relu(gemm(a, w) + b)
+            a16 = torch.cat([a, torch.randn(16 - BATCH, k, device=dev, generator=gen)])
+            y16 = K.matmul_fused(a16, wt, b, relu=relu)
+            for mm in (1, 4, 8):
+                if not torch.equal(K.matmul_fused(a16[:mm].contiguous(), wt, b, relu=relu), y16[:mm]):
+                    not_bitwise.append(f"matmul_fused M={mm} vs M=16 at {where}")
+            for mm in (BATCH, 16):
+                unfused = ops.gemm(a16[:mm].contiguous(), wt) + b
+                if not torch.equal(torch.relu(unfused) if relu else unfused, y16[:mm]):
+                    not_bitwise.append(f"matmul_fused M={mm} vs relu(gemm + b) at {where}")
+            del a16, y16, unfused
             flops = 2.0 * BATCH * k * n
             nbytes = 4.0 * (a.numel() + wt.numel() + 2 * n + y.numel())
             record(
@@ -894,6 +929,17 @@ def main() -> int:
                 m=BATCH, k=k, n=n,
             )
         del y
+
+    print(json.dumps({"bitwise_3d": {
+        "checks": "B1 batch 1 = batch 4 and every tile variant, B1 = relu(gemm(im2col) + b); "
+                  "B2 rows at M = 1, 4, 8, 16 and = relu(gemm + b); B3 tiled = skinny rows, every tile variant",
+        "not_bitwise": not_bitwise}}))
+    check(not not_bitwise, f"bitwise checks failed: {not_bitwise[:5]}")
+    print(json.dumps({"kernel_totals_3d": {
+        n: {"device_ms": t["ms"], "host_paced_ms": t["host_paced_ms"], "plain_device_ms": t["plain_ms"],
+            "library_device_ms": None if n in NO_LIBRARY else t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_share": t["bound_ms"] / t["ms"] if t["ms"] else None}
+        for n, t in totals.items()}}))
 
     mark("3b,3d")
 
@@ -943,11 +989,14 @@ def main() -> int:
     single_u = SingleStageEngine(server_u.graph, params, backend="cuda", device=dev).run(images)
     bitwise_u = all(torch.equal(a, b.cpu()) for a, b in zip(outs_u, single_u["outputs"]))
     got_u = torch.cat(outs_u)
+    # the fused kernels sum in the unfused GEMM's order: the same bits
+    bitwise_routes = all(torch.equal(a, b) for a, b in zip(outs_cpu, outs_u))
     close_u = bool(torch.allclose(got_u, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL))
     print(json.dumps({
         "serve": {
             **report,
             "bitwise_vs_single_stage": bitwise_u,
+            "bitwise_vs_served_cuda_fused": bitwise_routes,
             "max_abs_diff_vs_torch_route": float((got_u - ref).abs().max()),
             "allclose_vs_torch_route": close_u,
             "tolerance_vs_torch_route": f"rtol={SERVE_RTOL}, atol={SERVE_ATOL}",
@@ -955,6 +1004,7 @@ def main() -> int:
         }
     }))
     check(bitwise_u, "served outputs differ from the single-stage cuda engine")
+    check(bitwise_routes, "served cuda_fused outputs differ from the served cuda route's")
     check(close_u, "cuda-route outputs differ from the plain torch route beyond tolerance")
 
     mark("4b")

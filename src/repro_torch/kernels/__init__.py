@@ -4,6 +4,7 @@
 #   build.py         nvcc at first use into _build/, loaded with ctypes
 #   runtime.py       ctypes binding, launch checks, the shared launch counts
 #   conv_fused.py    fused conv (f32, int32) and fc wrappers + plain versions
+#                    (the f32 conv and the fc GEMM are entries of csrc/gemm.cu)
 #   gemm.py          the unfused route's GEMM wrapper + plain version
 #   im2col.py        the unfused route's patch-matrix wrapper + plain version
 #   flash_decode.py  decode attention over a KV cache (B5) + plain version

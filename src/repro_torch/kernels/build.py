@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("conv_fused", "matmul_fused", "gemm", "im2col", "flash_decode", "ssd")
+SOURCES = ("gemm", "conv_fused", "im2col", "flash_decode", "ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

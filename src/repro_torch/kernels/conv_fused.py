@@ -3,25 +3,39 @@ PyTorch versions and launch counts.
 
 ``conv2d_fused`` replaces the Pallas kernel
 ``repro/kernels/conv_fused.py::_conv_fused_kernel`` (f32 instantiation,
-launched by ``_conv_fused_call``): an implicit-GEMM conv with the scale,
-bias and ReLU epilogue fused into the flush.  On an H100 it is bound by
-operations (18*C flops per output byte for a 3x3 conv); the CUDA kernel
-in ``csrc/conv_fused.cu`` forms its input tiles on the fly from the NHWC
-tensor (no im2col matrix, no padded copy) and accumulates in IEEE f32 on
-the CUDA cores, so it holds the reference's tolerance.  Tensor-core
-routes (TF32, bf16) with their own tolerances are later work.
+launched by ``_conv_fused_call``): an implicit-GEMM conv with the bias
+and ReLU epilogue fused into the flush.  ``matmul_fused`` replaces
+``repro/kernels/conv_fused.py::_matmul_fused_kernel``: the fc GEMM with
+the same epilogue.  Both are entries of ``csrc/gemm.cu`` (``conv_fused_f32``,
+``matmul_fused_f32``) on the machinery of the unfused route's GEMM (B3):
+
+* the conv runs B3's tiled kernel (register tiles on a ``cp.async`` ring
+  of shared-memory stages, the tile variant chosen from (M, K, N)) with
+  an A loader that gathers the patch matrix's rows from the unpadded
+  NHWC input (``ImplicitA``: a per-block table of each output pixel's
+  input offset, one filter tap per k-step where ``C % BK == 0``, padding
+  taps zero-filled by the copy) and a bias/ReLU epilogue.  On an H100 it
+  is bound by operations (18*C flops per output for a 3x3 conv) at the
+  CUDA cores' f32 FMA rate: it stays in IEEE f32 (no TF32), so the
+  reference's tolerance holds.
+* the fc GEMM runs B3's split-K skinny kernel for the serving
+  micro-batch (M <= 8; 8 weight rows in flight a thread, float4 loads),
+  and its second pass applies the epilogue; larger M take the tiled
+  kernel.  At the micro-batch it is bound by the bytes of the weights.
+
+Both sum every output in B3's order, fixed by (K, N) alone: K cut into
+slices of ``gemm_slice_len(K, N)`` rows, each one ``fmaf`` chain, the
+slice sums added in order; the epilogue adds the bias with one rounded
+add.  So a row's bits do not depend on the batch it rides in, and the
+``cuda_fused`` route gives the bits of the ``cuda`` route (``im2col`` +
+``gemm``, then ``+ b`` and ReLU).  :func:`conv2d_fused_tiled` forces a
+tile variant, for checks that all give the same bits.
 
 ``qconv2d_fused`` replaces the same Pallas kernel's int32 instantiation
 (the quantized conv of ``repro/kernels/conv_fused.py::qconv2d_fused``):
-int32 operands in [-255, 255], an int32 accumulator, and the merged
-requant scale in the epilogue's scale operand.  It is bound by
-operations at the CUDA cores' int32 rate (half the f32 FMA rate).
-
-``matmul_fused`` replaces ``repro/kernels/conv_fused.py::_matmul_fused_kernel``:
-the fc GEMM with the same epilogue.  At the serving micro-batch it is
-bound by the bytes of the weight matrix; ``csrc/matmul_fused.cu`` reads
-each weight once, coalesced along N, split over K into enough blocks to
-fill the card, and sums the slices in a fixed order (no atomics).
+``csrc/conv_fused.cu``, int32 operands in [-255, 255], an int32
+accumulator, and the merged requant scale in its epilogue.  It is bound
+by operations at the CUDA cores' int32 rate (half the f32 FMA rate).
 
 Routing is by the tensor's device alone: a CPU tensor goes to the plain
 version (``fused_route_ref`` / ``qfused_route_ref`` / ``matmul_fused_ref``);
@@ -31,42 +45,14 @@ wrapper: one per call on the card; the plain route never counts.
 """
 from __future__ import annotations
 
-import functools
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import gemm as G
 from . import runtime as R
 from .runtime import launch_counts, launches, reset_launches  # noqa: F401  (re-exported)
-
-_ones_lock = threading.Lock()
-_ones_cache: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _ones(n: int, device: torch.device) -> torch.Tensor:
-    """The epilogue's all-ones scale of the f32 path, made once per
-    (device, length).  Its fill is synchronized before it is cached, so
-    stage workers on other streams read it finished; it is never freed."""
-    key = (device, n)
-    t = _ones_cache.get(key)
-    if t is None:
-        with _ones_lock:
-            t = _ones_cache.get(key)
-            if t is None:
-                t = torch.ones(n, device=device)
-                torch.cuda.current_stream(device).synchronize()
-                _ones_cache[key] = t
-    return t
-
-
-@functools.lru_cache(maxsize=None)
-def _splits(k: int, n: int) -> int:
-    """K slices of the dense kernel's first pass; the C side's formula
-    depends on (K, N) alone, so one call per shape."""
-    return R.bind("matmul_fused", "matmul_fused_splits", [R.I, R.I])(k, n)
-
 
 # ------------------------------------------------------------------ conv
 def supports(fh: int, fw: int, stride: int, groups: int = 1) -> bool:
@@ -119,12 +105,14 @@ def _conv_launch(
     pad: int,
     relu: bool,
     what: str,
-    sym: str,
+    variant: int = -1,
 ) -> torch.Tensor:
-    """Check the operands and launch ``csrc/conv_fused.cu``'s entry ``sym``
-    on the current stream: f32 operands for ``conv_fused_f32``, int32 for
-    ``conv_fused_i32``; scale and bias are f32 either way."""
-    dtype = torch.int32 if sym == "conv_fused_i32" else torch.float32
+    """Check the operands and launch a fused conv on the current stream:
+    f32 operands (``scale`` None) go to ``csrc/gemm.cu``'s
+    ``conv_fused_f32`` on tile variant ``variant`` (-1: chosen from the
+    shape); int32 operands to ``csrc/conv_fused.cu``'s ``conv_fused_i32``
+    with the f32 ``scale``.  Bias is f32 either way."""
+    dtype = torch.float32 if scale is None else torch.int32
     R.require(x, "x", 4, dtype)
     R.require(w, "w", 4, dtype)
     bsz, h, wd, c = x.shape
@@ -141,22 +129,27 @@ def _conv_launch(
     if w.device != dev:
         raise ValueError(f"{what}: w must be on {dev}")
     bias = torch.zeros(cout, device=dev) if b is None else b
-    scale = _ones(cout, dev) if scale is None else scale
     for t, name in ((scale, "scale"), (bias, "bias")):
+        if t is None:
+            continue
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32 on {dev}")
         if t.shape != (cout,):
             raise ValueError(f"{what}: {name} must have shape [Cout]")
-    x, w = x.contiguous(), w.contiguous()
-    scale, bias = scale.contiguous(), bias.contiguous()
+    x, w, bias = x.contiguous(), w.contiguous(), bias.contiguous()
+    scale = None if scale is None else scale.contiguous()
     y = torch.empty((bsz, oh, ow, cout), device=dev, dtype=torch.float32)
-    fn = R.bind("conv_fused", sym, [R.P] * 5 + [R.I] * 12 + [R.P])
-    err = fn(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        bsz, h, wd, c, fh, fw, cout, stride, pad, oh, ow, int(bool(relu)),
-        R.stream(dev),
-    )
-    R.check(err, sym)
+    geometry = (bsz, h, wd, c, fh, fw, cout, stride, pad, oh, ow, int(bool(relu)))
+    if scale is None:
+        fn = R.bind("gemm", "conv_fused_f32", [R.P] * 4 + [R.I] * 13 + [R.P])
+        err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), *geometry,
+                 int(variant), R.stream(dev))
+        R.check(err, "conv_fused_f32")
+    else:
+        fn = R.bind("conv_fused", "conv_fused_i32", [R.P] * 5 + [R.I] * 12 + [R.P])
+        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 y.data_ptr(), *geometry, R.stream(dev))
+        R.check(err, "conv_fused_i32")
     return y
 
 
@@ -172,17 +165,34 @@ def conv2d_fused(
     """Fused conv + bias + ReLU (``groups == 1``).
 
     CPU tensors take :func:`fused_route_ref`; CUDA tensors launch
-    ``csrc/conv_fused.cu`` on the current stream.  The kernel's epilogue
-    scale is ones on this f32 path; :func:`qconv2d_fused` puts the merged
-    requant scale in the same operand."""
+    ``csrc/gemm.cu``'s ``conv_fused_f32`` on the current stream."""
     if not R.on_card(x, "conv2d_fused"):
         return fused_route_ref(x, w, b, stride=stride, pad=pad, relu=relu)
-    y = _conv_launch(
-        x, w, None, b, stride=stride, pad=pad, relu=relu,
-        what="conv2d_fused", sym="conv_fused_f32",
-    )
+    y = _conv_launch(x, w, None, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused")
     R.count("conv2d_fused")
     return y
+
+
+def conv2d_fused_tiled(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    variant: int,
+    *,
+    stride: int = 1,
+    pad: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """:func:`conv2d_fused` on tile variant ``variant`` (0 ..
+    ``gemm.tile_variants() - 1``), on CUDA tensors only: for checks that
+    every variant gives the same bits.  Counts no launch (the main path
+    never calls it)."""
+    if not R.on_card(x, "conv2d_fused_tiled"):
+        raise ValueError("conv2d_fused_tiled runs on the card only")
+    if not 0 <= variant < G.tile_variants():
+        raise ValueError(f"conv2d_fused_tiled: no tile variant {variant}")
+    return _conv_launch(x, w, None, b, stride=stride, pad=pad, relu=relu,
+                        what="conv2d_fused_tiled", variant=variant)
 
 
 # ------------------------------------------------------------ quantized conv
@@ -269,10 +279,7 @@ def qconv2d_fused(
         )
     R.require(x, "x", 4)
     xq, wq, merged = _quantize_operands(x, qw, scale, zp, tuple(w_shape))
-    y = _conv_launch(
-        xq, wq, merged, b, stride=stride, pad=pad, relu=relu,
-        what="qconv2d_fused", sym="conv_fused_i32",
-    )
+    y = _conv_launch(xq, wq, merged, b, stride=stride, pad=pad, relu=relu, what="qconv2d_fused")
     R.count("qconv2d_fused")
     return y
 
@@ -300,8 +307,9 @@ def matmul_fused(
     """GEMM with the dense layer's epilogue (bias, ReLU) fused.
 
     CPU tensors take :func:`matmul_fused_ref`; CUDA tensors launch
-    ``csrc/matmul_fused.cu`` (two passes, counted as one launch of the
-    wrapper) on the current stream."""
+    ``csrc/gemm.cu``'s ``matmul_fused_f32`` on the current stream (for M
+    <= 8 two passes, the split-K partials and their ordered sum with the
+    epilogue; counted as one launch of the wrapper)."""
     if not R.on_card(a, "matmul_fused"):
         return matmul_fused_ref(a, w, bias, relu=relu)
     R.require(a, "a", 2)
@@ -317,14 +325,12 @@ def matmul_fused(
     if bias.shape != (n,):
         raise ValueError("matmul_fused: bias must have shape [N]")
     a, w, bias = a.contiguous(), w.contiguous(), bias.contiguous()
-    scale = _ones(n, dev)  # the kernel's epilogue scale (f32 path)
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
-    # pass-1 partial sums, one [M, N] slice per K split (the C side sizes S)
-    part = torch.empty((_splits(k, n), m, n), device=dev, dtype=torch.float32)
-    fn = R.bind("matmul_fused", "matmul_fused_f32", [R.P] * 6 + [R.I] * 4 + [R.P])
+    part = G.partials(m, k, n, dev)  # the skinny path's split-K partials
+    fn = R.bind("gemm", "matmul_fused_f32", [R.P] * 5 + [R.I] * 4 + [R.P])
     err = fn(
-        a.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), part.data_ptr(), m, k, n, int(bool(relu)), R.stream(dev),
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), m, k, n, int(bool(relu)), R.stream(dev),
     )
     R.check(err, "matmul_fused_f32")
     R.count("matmul_fused")

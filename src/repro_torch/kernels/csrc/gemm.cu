@@ -1,49 +1,77 @@
-// Plain f32 GEMM, out[M,N] = a[M,K] @ b[K,N], row-major, no epilogue.
+// f32 GEMMs of the CNN path, out[M,N] = epi(A[M,K] @ B[K,N]), row-major,
+// in three entries that share one tile machinery and one summation order:
 //
-// Replaces the Pallas kernel repro/kernels/gemm.py::_gemm_kernel (entry
-// point gemm): the tiled GEMM with f32 accumulation behind the unfused
-// conv-as-GEMM route (the reference's "pallas" backend).  Here it takes
-// the explicit patch matrix that csrc/im2col.cu writes, and the fc
-// layers' activations; the bias add and the ReLU stay outside.
+//   * gemm_f32: the plain GEMM, no epilogue.  Replaces the Pallas kernel
+//     repro/kernels/gemm.py::_gemm_kernel (entry point gemm), the tiled
+//     GEMM behind the unfused conv-as-GEMM route (the reference's
+//     "pallas" backend).  A is the explicit patch matrix csrc/im2col.cu
+//     writes, or the fc layers' activations; bias and ReLU stay outside.
+//   * matmul_fused_f32: the fc GEMM with its epilogue, relu(sum + bias).
+//     Replaces repro/kernels/conv_fused.py::_matmul_fused_kernel (entry
+//     point matmul_fused).
+//   * conv_fused_f32: the implicit-GEMM conv, NHWC input, HWIO filters,
+//     with the same epilogue.  Replaces the f32 instantiation of
+//     repro/kernels/conv_fused.py::_conv_fused_kernel (launched by
+//     _conv_fused_call).  A[m, k] = x[b, oh*s - p + fi, ow*s - p + fj, c]
+//     with m = (b, oh, ow) and k = (fi, fj, c), B4's patch-matrix order,
+//     gathered from the unpadded input on the fly: no patch matrix and no
+//     padded copy exist in device memory.  (csrc/conv_fused.cu keeps the
+//     int32 instantiation, the quantized conv.)
 //
-// What bounds it on an H100: operations for the conv GEMMs (2*K flops
-// per output, K up to 4608) at the CUDA cores' 67 TFLOP/s f32 FMA rate,
-// since it stays in IEEE f32 (fmaf, no TF32) to hold the
-// reference's tolerance; bytes for the fc GEMMs, whose M is the serving
-// micro-batch, so each weight element feeds only M multiply-adds.
+// What bounds them on an H100: operations for the convs and the conv
+// GEMMs (2*K flops per output, K up to 4608) at the CUDA cores' 67
+// TFLOP/s f32 FMA rate, since they stay in IEEE f32 (fmaf, no TF32) to
+// hold the reference's tolerance; bytes for the fc GEMMs, whose M is the
+// serving micro-batch, so each weight element feeds only M multiply-adds.
 //
-// Every output is summed in one order, fixed by (K, N) alone, whatever M
-// is and whichever of the two kernels below runs, so a row's result does
-// not depend on the batch it rides in:  K is cut into S slices of L rows
-// (gemm_slice_len); each slice is one fmaf chain over k ascending from 0;
-// the slice sums are added in slice order to a total that starts at 0.
+// The shared order.  Every output is summed in one order, fixed by (K, N)
+// alone, whatever M is, whichever entry and whichever kernel below runs:
+// K is cut into S slices of L rows (gemm_slice_len); each slice is one
+// fmaf chain over k ascending from 0; the slice sums are added in slice
+// order to a total that starts at 0.  So a row's result does not depend
+// on the batch it rides in, and since the epilogue adds the bias to that
+// total with one rounded add (fmaf(t, 1, b) == t + b), conv_fused_f32 and
+// matmul_fused_f32 give the bits of gemm_f32 followed by "+ bias" and
+// ReLU: the fused route equals the unfused one bitwise.
 //
-//   * gemm_tiled_kernel (M > MT): one block per BM x BN output tile, a
-//     TM x TN register tile per thread (8 x 8: 4 FMAs per float read from
-//     shared memory; 8 x 4: 2.7), K in steps of BK through a ring of
-//     STAGES stages in shared memory filled by cp.async, so the next
-//     tiles load while this one computes (one barrier a step).  A is
-//     stored k-major (As[k][m], rows padded to BM + 4 floats), each float
-//     copied on its own (4-byte cp.async: this transposes it, and takes
-//     K % 4 != 0, as conv1_1's K = 27); B row-major with 16-byte copies
-//     where N % 4 == 0 and the base is aligned, 4-byte ones otherwise.
-//     Ragged edges are zero-filled by the copies.  Four variants
-//     (tiled_shape picks one from M, K, N): 128 x 64 with 8 x 8 for
-//     large grids with N <= 64; 64 x 128 with 8 x 8 and its slice totals
-//     in shared memory for grids with N > 64; 64 x 64 and 32 x 64 with 8
-//     x 4 for smaller grids.  All have 128 threads but 32 x 64 (64).
-//     Registers: 233 for 128 x 64 (two sets of 64 accumulators, slice
-//     and total: two blocks an SM), 167 for 64 x 128 and 64 x 64 (three),
-//     219 for 32 x 64.
-//     The block walks all of K itself and folds its slice accumulator
-//     into the total at every slice boundary: no partial sums leave the
-//     block.
-//   * gemm_skinny_kernel + gemm_finish_kernel (M <= MT): the fc case.
-//     One thread owns 4 columns (a float4 of each weight row, coalesced
-//     along N) and all M rows, for one slice, with SK_U weight rows'
-//     loads in flight at once; S slices give enough blocks to keep the
-//     memory system busy.  Each slice sum goes to a partial [S, M, N];
-//     the second pass adds the S partials in order.  No atomics.
+//   * gemm_tiled_kernel (M > MT, and every conv): one block per BM x BN
+//     output tile, a TM x TN register tile per thread (8 x 8: 4 FMAs per
+//     float read from shared memory; 8 x 4: 2.7), K in steps of BK
+//     through a ring of STAGES stages in shared memory filled by
+//     cp.async, so the next tiles load while this one computes (one
+//     barrier a step).  A is stored k-major (As[k][m], rows padded to BM
+//     + 4 floats), each float copied on its own (4-byte cp.async: this
+//     transposes it, and takes any K, as conv1_1's K = 27); B row-major
+//     with 16-byte copies where N % 4 == 0 and the base is aligned, 4-byte
+//     ones otherwise.  Ragged edges and padding taps are zero-filled by
+//     the copies (source size 0, a valid base pointer).  Two policies
+//     make it serve all three entries:
+//       - the A loader: PatchA reads a row-major A (gemm, the fc GEMM);
+//         ImplicitA gathers the conv's A from x.  Its rows' (b, oh, ow)
+//         are decomposed once per block into a table in shared memory
+//         (a 64-bit base offset and the top-left input pixel), and k once
+//         per k-step: where C % BK == 0 (every VGG-16 conv but conv1_1) a
+//         k-step lies inside one filter tap, walked without a division;
+//         any other C, stride and pad take the generic form, which
+//         divides each thread's k by C and FW.
+//       - the epilogue: NoEpi (gemm) or BiasRelu (the fused entries).
+//     Four tile variants (tiled_shape picks one from M, K, N): 128 x 64
+//     with 8 x 8 for large grids with N <= 64; 64 x 128 with 8 x 8 and its
+//     slice totals in shared memory for grids with N > 64; 64 x 64 and 32
+//     x 64 with 8 x 4 for smaller grids.  All have 128 threads but 32 x 64
+//     (64).  The conv takes 64 x 128 where tiled_shape does and 64 x 64
+//     elsewhere (conv_shape).  Registers (ptxas): 233 / 167 / 167 / 219
+//     for the four variants under PatchA; 205 / 167 / 161 / 201 under
+//     ImplicitA's one-tap walk.  The block walks all of K itself and
+//     folds its slice accumulator into the total at every slice
+//     boundary: no partial sums leave the block.
+//   * gemm_skinny_kernel + gemm_finish_kernel (M <= MT, gemm and the fc
+//     GEMM).  One thread owns 4 columns (a float4 of each weight row,
+//     coalesced along N) and all M rows, for one slice, with SK_U weight
+//     rows' loads in flight at once; S slices give enough blocks to keep
+//     the memory system busy.  Each slice sum goes to a partial [S, M, N];
+//     the second pass adds the S partials in order and applies the
+//     epilogue.  No atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,44 +121,192 @@ struct Tile {
   static constexpr size_t SMEM =
       ((size_t)STAGES * STAGE_FLOATS + (TS ? (size_t)BM * BN : 0)) * sizeof(float);
   static constexpr int MINB = MINB_;
-  static_assert(BK % SLICE_STEP == 0 && (BM * BK) % NT == 0 && (BK * BN / 4) % NT == 0,
+  static_assert(BK % SLICE_STEP == 0 && NT % 8 == 0 && (BM * 8) % NT == 0 &&
+                    (BK * BN / 4) % NT == 0,
                 "copies split evenly");
   static_assert(BN / TN >= 8 && TM % 4 == 0 && TN % 4 == 0, "quarter warps share a row of A");
   static_assert((BM + APAD) % 32 == 4, "A copies hit 32 distinct banks");
 };
 
+// ------------------------------------------------------------ A loaders
+// A loader tells the tile where A[m0 + m, k0 + k] lies.  Per block it may
+// build a row table (ROW_BYTES a row, in shared memory); per k-step it
+// carries a Walk, advanced once per step in order; per k it makes a Kq and
+// per row a Row, and src() joins them into a source address and a flag
+// (false: the copy writes 0).  BY_ROW picks the copy loop's form: by row
+// (a thread's k decomposed once a step, each of its rows read once from
+// the table) for ImplicitA; copy by copy for PatchA, where the by-row
+// form left B3 fewer registers and up to 1.8x slower at VGG-16's conv5
+// on an H100 (benchmarks/port_kernel_variants.py).
+
+// A row-major [M, K] matrix: the patch matrix, or the fc activations.
+struct PatchA {
+  const float* __restrict__ a;
+  int M, K;
+  static constexpr size_t ROW_BYTES = 0;
+  static constexpr bool BY_ROW = false;
+  struct Walk {
+    __device__ void next(const PatchA&, int) {}
+  };
+  struct Kq { int k; };
+  struct Row { int m; };
+  __device__ Kq k_at(const Walk&, int k0, int kl) const { return {k0 + kl}; }
+  __device__ Row row(const void*, int m0, int m) const { return {m0 + m}; }
+  __device__ const float* src(const Row& r, const Kq& q, bool& ok) const {
+    ok = r.m < M && q.k < K;
+    return ok ? a + (int64_t)r.m * K + q.k : a;
+  }
+};
+
+// One output pixel's row of the implicit A: its first element's offset in
+// x (64-bit, negative where the window starts in the padding) and the
+// input pixel under the window's top-left tap.
+struct __align__(16) RowEntry {
+  long long base;
+  int ih0, iw0;
+};
+
+// The conv's A gathered from x [B, H, W, C] (NHWC, unpadded).  FAST
+// (C % BK == 0): a k-step of BK lies inside one tap (fi, fj) at channels
+// c0 .. c0 + BK - 1, walked from (0, 0, 0) without a division.  Generic:
+// each k is split into (fi, fj, c) by division.
+template <bool FAST>
+struct ImplicitA {
+  const float* __restrict__ x;
+  int H, W, C, FW, stride, pad, OH, OW, M, K;
+  static constexpr size_t ROW_BYTES = sizeof(RowEntry);
+  static constexpr bool BY_ROW = true;
+  struct Walk {
+    int fi = 0, fj = 0, c0 = 0;  // FAST: the tap and first channel of the next k-step
+    __device__ void next(const ImplicitA& A, int bk) {
+      if constexpr (FAST) {
+        c0 += bk;
+        if (c0 == A.C) {
+          c0 = 0;
+          if (++fj == A.FW) {
+            fj = 0;
+            ++fi;
+          }
+        }
+      }
+    }
+  };
+  struct Kq { int fi, fj; long long off; bool ok; };  // off = (fi*W + fj)*C + c
+  using Row = RowEntry;
+
+  __device__ void build_rows(void* tab, int m0, int bm, int tid, int nt) const {
+    RowEntry* t = static_cast<RowEntry*>(tab);
+    for (int r = tid; r < bm; r += nt) {
+      const int m = m0 + r;
+      RowEntry e{0, -(1 << 28), 0};  // rows past M fail every bounds check
+      if (m < M) {
+        const int b = m / (OH * OW);
+        const int rem = m - b * (OH * OW);
+        const int oh = rem / OW;
+        const int ow = rem - oh * OW;
+        e.ih0 = oh * stride - pad;
+        e.iw0 = ow * stride - pad;
+        e.base = (((long long)b * H + e.ih0) * W + e.iw0) * C;
+      }
+      t[r] = e;
+    }
+  }
+  // k0 + kl: the k of this thread's copy; w: the walk of its k-step (k0)
+  __device__ Kq k_at(const Walk& w, int k0, int kl) const {
+    if constexpr (FAST) {
+      return {w.fi, w.fj, ((long long)w.fi * W + w.fj) * C + w.c0 + kl, true};
+    } else {
+      const int k = k0 + kl;
+      const bool ok = k < K;
+      const int kc = ok ? k : 0;
+      const int tap = kc / C, c = kc - tap * C;
+      const int fi = tap / FW, fj = tap - fi * FW;
+      return {fi, fj, ((long long)fi * W + fj) * C + c, ok};
+    }
+  }
+  __device__ Row row(const void* tab, int, int m) const {
+    return static_cast<const RowEntry*>(tab)[m];
+  }
+  __device__ const float* src(const Row& r, const Kq& q, bool& ok) const {
+    const int ih = r.ih0 + q.fi, iw = r.iw0 + q.fj;
+    ok = q.ok && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+    return ok ? x + r.base + q.off : x;
+  }
+};
+
+// ------------------------------------------------------------ epilogues
+struct NoEpi {
+  __device__ float operator()(float v, int) const { return v; }
+};
+// relu(v + bias[n]): one rounded add, as "gemm(...) + b" then relu
+struct BiasRelu {
+  const float* __restrict__ bias;
+  int relu;
+  __device__ float operator()(float v, int n) const {
+    v = __fadd_rn(v, __ldg(bias + n));
+    return relu ? fmaxf(v, 0.0f) : v;
+  }
+};
+
 // Thread (ty, tx) owns TM/4 runs of 4 rows, ty*4 + {0..3} in each BM/(TM/4)
 // rows, and TN/4 runs of 4 columns likewise: each quarter warp reads 8
 // consecutive float4s of a B row, conflict-free, and broadcasts A.
-template <class TL>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ a, const float* __restrict__ b,
+template <class TL, class AL, class EP>
+__device__ __forceinline__ void gemm_tile(const AL& A, const float* __restrict__ b,
                                           float* __restrict__ out, int M, int K, int N, int L,
-                                          int b_vec) {
+                                          int b_vec, const EP& ep) {
   constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN, BK = TL::BK;
   constexpr int NT = TL::NT, AS = TL::AS, STAGES = TL::STAGES;
   constexpr int PM = TM / 4, PN = TN / 4;  // runs of 4 per thread
+  constexpr int G = BM * 8 / NT;           // rows of A a thread copies
+  constexpr int OCT = BK / 8;              // octets of k a thread copies, one k each
   extern __shared__ __align__(16) float smem[];
   float* ts = smem + STAGES * TL::STAGE_FLOATS;  // slice totals, when TL::TS
+  void* rows = ts + (TL::TS ? BM * BN : 0);     // the A loader's row table
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   const int n_tiles = (K + BK - 1) / BK;
 
+  if constexpr (AL::ROW_BYTES > 0) {
+    A.build_rows(rows, m0, BM, tid, NT);
+    __syncthreads();
+  }
+  typename AL::Walk walk;
   auto load_tile = [&](int t) {
     float* As = smem + (t % STAGES) * TL::STAGE_FLOATS;
     float* Bs = As + BK * AS;
     const int k0 = t * BK;
     // A: a warp copies 8 consecutive k of 4 rows (one 32-byte sector a
     // row) into As[k][m], 32 distinct banks
+    if constexpr (!AL::BY_ROW) {  // each copy finds its own row and k
 #pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int e = tid + i * NT;
-      const int oct = e / (BM * 8), rem = e % (BM * 8);
-      const int m = rem / 8, k = oct * 8 + rem % 8;
-      const bool ok = (m0 + m < M) && (k0 + k < K);
-      cp_async4(&As[k * AS + m], ok ? a + (int64_t)(m0 + m) * K + k0 + k : a, ok);
+      for (int i = 0; i < BM * BK / NT; ++i) {
+        const int e = tid + i * NT;
+        const int oct = e / (BM * 8), rem = e % (BM * 8);
+        const int m = rem / 8, k = oct * 8 + rem % 8;
+        bool ok;
+        const float* src = A.src(A.row(rows, m0, m), A.k_at(walk, k0, k), ok);
+        cp_async4(&As[k * AS + m], src, ok);
+      }
+    } else {  // a thread's k once a step, then its rows one by one
+      typename AL::Kq kq[OCT];
+#pragma unroll
+      for (int o = 0; o < OCT; ++o) kq[o] = A.k_at(walk, k0, o * 8 + tid % 8);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int m = tid / 8 + g * (NT / 8);
+        const typename AL::Row r = A.row(rows, m0, m);
+#pragma unroll
+        for (int o = 0; o < OCT; ++o) {
+          bool ok;
+          const float* src = A.src(r, kq[o], ok);
+          cp_async4(&As[(o * 8 + tid % 8) * AS + m], src, ok);
+        }
+      }
     }
+    walk.next(A, BK);
     if (b_vec) {
 #pragma unroll
       for (int i = 0; i < BK * BN / 4 / NT; ++i) {
@@ -225,6 +401,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, const flo
       for (int j = 0; j < 4; ++j) {
         if constexpr (TL::TS) r[j] = ts[(i * TN + 4 * p + j) * NT + tid];
         else r[j] = tot[i][4 * p + j];
+        if (n + j < N) r[j] = ep(r[j], n + j);
       }
       float* o = out + (int64_t)m * N + n;
       if (vec_out && n + 3 < N) {
@@ -241,38 +418,39 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, const flo
 // __launch_bounds__ with a minimum of 1 block allocates registers
 // differently from none at all (more of them, for the 64 x 64 tile), so
 // the bound is given only where a tile asks for one.
-template <class TL>
-__global__ void __launch_bounds__(TL::NT) gemm_tiled_kernel(const float* __restrict__ a,
+template <class TL, class AL, class EP>
+__global__ void __launch_bounds__(TL::NT) gemm_tiled_kernel(const AL A,
                                                             const float* __restrict__ b,
                                                             float* __restrict__ out, int M, int K,
-                                                            int N, int L, int b_vec) {
-  gemm_tile<TL>(a, b, out, M, K, N, L, b_vec);
+                                                            int N, int L, int b_vec, const EP ep) {
+  gemm_tile<TL>(A, b, out, M, K, N, L, b_vec, ep);
 }
-template <class TL>
+template <class TL, class AL, class EP>
 __global__ void __launch_bounds__(TL::NT, TL::MINB > 0 ? TL::MINB : 1)
-gemm_tiled_kernel_bounded(const float* __restrict__ a, const float* __restrict__ b,
-                          float* __restrict__ out, int M, int K, int N, int L, int b_vec) {
-  gemm_tile<TL>(a, b, out, M, K, N, L, b_vec);
+gemm_tiled_kernel_bounded(const AL A, const float* __restrict__ b, float* __restrict__ out,
+                          int M, int K, int N, int L, int b_vec, const EP ep) {
+  gemm_tile<TL>(A, b, out, M, K, N, L, b_vec, ep);
 }
 
-template <class TL>
-int launch_tiled(const float* A, const float* B, float* O, int M, int K, int N, int L,
-                 int b_vec, cudaStream_t st) {
+template <class TL, class AL, class EP>
+int launch_tiled(const AL& A, const float* B, float* O, int M, int K, int N, int L, int b_vec,
+                 const EP& ep, cudaStream_t st) {
   auto kern = [] {
-    if constexpr (TL::MINB > 0) return gemm_tiled_kernel_bounded<TL>;
-    else return gemm_tiled_kernel<TL>;
+    if constexpr (TL::MINB > 0) return gemm_tiled_kernel_bounded<TL, AL, EP>;
+    else return gemm_tiled_kernel<TL, AL, EP>;
   }();
-  if (TL::SMEM > 48 * 1024) {
+  constexpr size_t smem = TL::SMEM + TL::BM * AL::ROW_BYTES;
+  if (smem > 48 * 1024) {
     static bool raised = false;  // benign race: the attribute is idempotent
     if (!raised) {
       cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)TL::SMEM);
+                                           (int)smem);
       if (e != cudaSuccess) return static_cast<int>(e);
       raised = true;
     }
   }
   dim3 grid((M + TL::BM - 1) / TL::BM, (N + TL::BN - 1) / TL::BN);
-  kern<<<grid, TL::NT, TL::SMEM, st>>>(A, B, O, M, K, N, L, b_vec);
+  kern<<<grid, TL::NT, smem, st>>>(A, B, O, M, K, N, L, b_vec, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,15 +477,35 @@ int tiled_shape(int M, int K, int N) {
   return 3;
 }
 
-int launch_shape(int shape, const float* A, const float* B, float* O, int M, int K, int N,
-                 int L, int b_vec, cudaStream_t st) {
+template <class AL, class EP>
+int launch_shape(int shape, const AL& A, const float* B, float* O, int M, int K, int N, int L,
+                 int b_vec, const EP& ep, cudaStream_t st) {
   switch (shape) {
-    case 0: return launch_tiled<Tile0>(A, B, O, M, K, N, L, b_vec, st);
-    case 1: return launch_tiled<Tile1>(A, B, O, M, K, N, L, b_vec, st);
-    case 2: return launch_tiled<Tile2>(A, B, O, M, K, N, L, b_vec, st);
-    case 3: return launch_tiled<Tile3>(A, B, O, M, K, N, L, b_vec, st);
+    case 0: return launch_tiled<Tile0>(A, B, O, M, K, N, L, b_vec, ep, st);
+    case 1: return launch_tiled<Tile1>(A, B, O, M, K, N, L, b_vec, ep, st);
+    case 2: return launch_tiled<Tile2>(A, B, O, M, K, N, L, b_vec, ep, st);
+    case 3: return launch_tiled<Tile3>(A, B, O, M, K, N, L, b_vec, ep, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The conv's tile variant: 64 x 128 where tiled_shape picks it, else 64 x
+// 64, which beats 128 x 64 and 32 x 64 under the implicit loader at every
+// VGG-16 conv (benchmarks/port_kernel_variants.py).
+int conv_shape(int M, int K, int N) {
+  return tiled_shape(M, K, N) == 1 ? 1 : 2;
+}
+
+// The conv on tile variant TL: the fast walk where a k-step of TL::BK
+// lies inside one filter tap.
+template <class TL>
+int launch_conv(const ImplicitA<false>& A, const float* B, float* O, int N, int L, int b_vec,
+                const BiasRelu& ep, cudaStream_t st) {
+  if (A.C % TL::BK == 0) {
+    const ImplicitA<true> F{A.x, A.H, A.W, A.C, A.FW, A.stride, A.pad, A.OH, A.OW, A.M, A.K};
+    return launch_tiled<TL>(F, B, O, A.M, A.K, N, L, b_vec, ep, st);
+  }
+  return launch_tiled<TL>(A, B, O, A.M, A.K, N, L, b_vec, ep, st);
 }
 
 __global__ void __launch_bounds__(SK_NT)
@@ -380,14 +578,39 @@ gemm_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-__global__ void gemm_finish_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int64_t total,
-                                   int S) {
+// out = epi(sum of the S partials in slice order); S = 0 gives epi(0)
+template <class EP>
+__global__ void gemm_finish_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                   int64_t total, int N, int S, const EP ep) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   float sum = 0.0f;
   for (int s = 0; s < S; ++s) sum = sum + part[(int64_t)s * total + idx];
-  out[idx] = sum;
+  out[idx] = ep(sum, (int)(idx % N));
+}
+
+int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// M <= MT: split-K partials, then the ordered second pass with the epilogue
+template <class EP>
+int launch_skinny(const float* A, const float* B, float* O, float* P, int M, int K, int N,
+                  int L, const EP& ep, cudaStream_t st) {
+  const int S = K > 0 ? (K + L - 1) / L : 0;
+  if (S > 0) {
+    // float4 weight loads need 16-byte aligned rows: N % 4 == 0 and an aligned base;
+    // float4 activation loads K % 4 == 0 (slices start at multiples of 16)
+    const int vec4 = (N % 4 == 0) && aligned16(B);
+    const int a_vec4 = (K % 4 == 0) && aligned16(A);
+    dim3 grid1((N + SK_COLS - 1) / SK_COLS, S);
+    gemm_skinny_kernel<<<grid1, SK_NT, 0, st>>>(A, B, P, M, K, N, L, vec4, a_vec4);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t total = (int64_t)M * N;
+  const int threads = 256;
+  const int blocks = (int)((total + threads - 1) / threads);
+  gemm_finish_kernel<<<blocks, threads, 0, st>>>(P, O, total, N, S, ep);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -409,6 +632,12 @@ extern "C" int gemm_slice_len(int K, int N) {
 // buffer [ceil(K / L), M, N] for M up to this.
 extern "C" int gemm_skinny_max_m() { return MT; }
 
+// How many tile variants the tiled kernel has (the ``shape`` arguments
+// below run 0 .. gemm_tile_variants() - 1).  Each variant sums every
+// output in the same order, so all give the same bits (chip_smoke.py
+// holds them to each other).
+extern "C" int gemm_tile_variants() { return N_TILES; }
+
 // a [M,K], b [K,N], out [M,N], all f32, contiguous, on the device; part is
 // scratch of ceil(K / gemm_slice_len(K, N)) * M * N floats when M <=
 // gemm_skinny_max_m(), else unused (may be null).  Launches on ``stream``
@@ -422,39 +651,68 @@ extern "C" int gemm_f32(const void* a, const void* b, void* out, void* part,
   const float* B = static_cast<const float*>(b);
   float* O = static_cast<float*>(out);
   if (M > MT) {
-    const int b_vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
-    return launch_shape(tiled_shape(M, K, N), A, B, O, M, K, N, L, b_vec, st);
+    return launch_shape(tiled_shape(M, K, N), PatchA{A, M, K}, B, O, M, K, N, L,
+                        (N % 4 == 0) && aligned16(b), NoEpi{}, st);
   }
-  const int S = K > 0 ? (K + L - 1) / L : 0;
-  if (S == 0) {  // empty sum: zeros
-    return static_cast<int>(
-        cudaMemsetAsync(O, 0, sizeof(float) * (size_t)M * N, st));
-  }
-  // float4 weight loads need 16-byte aligned rows: N % 4 == 0 and an aligned base
-  const int vec4 = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
-  float* P = static_cast<float*>(part);
-  dim3 grid1((N + SK_COLS - 1) / SK_COLS, S);
-  // and float4 activation loads K % 4 == 0 (slices start at multiples of 16)
-  const int a_vec4 = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
-  gemm_skinny_kernel<<<grid1, SK_NT, 0, st>>>(A, B, P, M, K, N, L, vec4, a_vec4);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = (int64_t)M * N;
-  const int threads = 256;
-  const int blocks = (int)((total + threads - 1) / threads);
-  gemm_finish_kernel<<<blocks, threads, 0, st>>>(P, O, total, S);
-  return static_cast<int>(cudaGetLastError());
+  return launch_skinny(A, B, O, static_cast<float*>(part), M, K, N, L, NoEpi{}, st);
 }
 
-// The tiled path forced onto tile variant ``shape`` (0 .. gemm_tile_variants()
-// - 1), any M >= 1: each variant sums every output in the same order, so
-// all give the same bits (chip_smoke.py holds them to each other).
-extern "C" int gemm_tile_variants() { return N_TILES; }
+// The tiled path forced onto tile variant ``shape``, any M >= 1.
 extern "C" int gemm_f32_tiled(const void* a, const void* b, void* out, int M, int K, int N,
                               int shape, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  const int b_vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 15) == 0);
-  return launch_shape(shape, static_cast<const float*>(a), static_cast<const float*>(b),
-                      static_cast<float*>(out), M, K, N, gemm_slice_len(K, N), b_vec,
-                      static_cast<cudaStream_t>(stream));
+  const float* A = static_cast<const float*>(a);
+  return launch_shape(shape, PatchA{A, M, K}, static_cast<const float*>(b),
+                      static_cast<float*>(out), M, K, N, gemm_slice_len(K, N),
+                      (N % 4 == 0) && aligned16(b), NoEpi{}, static_cast<cudaStream_t>(stream));
+}
+
+// The fc GEMM with its epilogue: out = relu?(a @ w + bias).  a [M,K], w
+// [K,N], bias [N], out [M,N], part as for gemm_f32; all f32, contiguous,
+// on the device.  The same paths and bits as gemm_f32, then "+ bias".
+extern "C" int matmul_fused_f32(const void* a, const void* w, const void* bias, void* out,
+                                void* part, int M, int K, int N, int relu, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int L = gemm_slice_len(K, N);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(w);
+  float* O = static_cast<float*>(out);
+  const BiasRelu ep{static_cast<const float*>(bias), relu};
+  if (M > MT) {
+    return launch_shape(tiled_shape(M, K, N), PatchA{A, M, K}, B, O, M, K, N, L,
+                        (N % 4 == 0) && aligned16(w), ep, st);
+  }
+  return launch_skinny(A, B, O, static_cast<float*>(part), M, K, N, L, ep, st);
+}
+
+// The fused conv: y = relu?(conv(x, w) + bias), x [B,H,W,C], w
+// [FH,FW,C,Cout], bias [Cout], y [B,OH,OW,Cout]; all f32, contiguous, on
+// the device.  ``shape`` < 0 picks the tile variant from (M, K, N) =
+// (B*OH*OW, FH*FW*C, Cout) (conv_shape); 0 .. gemm_tile_variants() - 1
+// forces one (checks).  The bits of gemm_f32 on B4's patch matrix, then
+// "+ bias".  Launches on ``stream`` and returns cudaGetLastError().
+extern "C" int conv_fused_f32(const void* x, const void* w, const void* bias, void* y, int B,
+                              int H, int W, int C, int FH, int FW, int Cout, int stride,
+                              int pad, int OH, int OW, int relu, int shape, void* stream) {
+  const int64_t M64 = (int64_t)B * OH * OW;
+  if (M64 <= 0 || Cout <= 0) return 0;
+  if (M64 > INT32_MAX || (int64_t)FH * FW * C > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int M = static_cast<int>(M64), K = FH * FW * C, N = Cout;
+  const ImplicitA<false> A{static_cast<const float*>(x), H, W, C, FW, stride, pad, OH, OW, M, K};
+  const float* Wt = static_cast<const float*>(w);
+  float* Y = static_cast<float*>(y);
+  const BiasRelu ep{static_cast<const float*>(bias), relu};
+  const int L = gemm_slice_len(K, N);
+  const int b_vec = (N % 4 == 0) && aligned16(w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (shape < 0 ? conv_shape(M, K, N) : shape) {
+    case 0: return launch_conv<Tile0>(A, Wt, Y, N, L, b_vec, ep, st);
+    case 1: return launch_conv<Tile1>(A, Wt, Y, N, L, b_vec, ep, st);
+    case 2: return launch_conv<Tile2>(A, Wt, Y, N, L, b_vec, ep, st);
+    case 3: return launch_conv<Tile3>(A, Wt, Y, N, L, b_vec, ep, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -13,7 +13,9 @@ a split-K kernel and a fixed second pass.  Each output is summed in an
 order fixed by (K, N) alone, so a row's result does not depend on M,
 the batch it rides in, nor on the tile variant: :func:`gemm_tiled` runs
 a chosen variant, so that checks can hold every variant to the same
-bits.
+bits.  The fused conv and fc GEMM (``kernels/conv_fused.py``) run the same
+kernels with an implicit A loader and a bias/ReLU epilogue, in the same
+order, so their outputs are this GEMM's followed by ``+ bias``.
 
 A CPU tensor takes :func:`gemm_ref`; a CUDA tensor launches the kernel
 or raises.  Each launch counts once under ``"gemm"`` in
@@ -47,6 +49,16 @@ def _skinny_max_m() -> int:
 def tile_variants() -> int:
     """How many tile variants the tiled kernel has."""
     return R.bind("gemm", "gemm_tile_variants", [])()
+
+
+def partials(m: int, k: int, n: int, device: torch.device):
+    """Scratch of the skinny path (M <= 8): one [M, N] partial per K slice
+    of ``gemm_slice_len(K, N)`` rows; ``None`` where the tiled path runs
+    or K is 0.  Shared with the fused fc GEMM, which takes the same path."""
+    if not (0 < m <= _skinny_max_m() and k > 0):
+        return None
+    slices = -(-k // _slice_len(k, n))
+    return torch.empty((slices, m, n), device=device, dtype=torch.float32)
 
 
 def _operands(a: torch.Tensor, b: torch.Tensor):
@@ -86,10 +98,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     dev = a.device
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
-    part = None
-    if 0 < m <= _skinny_max_m() and k > 0:
-        slices = -(-k // _slice_len(k, n))
-        part = torch.empty((slices, m, n), device=dev, dtype=torch.float32)
+    part = partials(m, k, n, dev)
     fn = R.bind("gemm", "gemm_f32", [R.P] * 4 + [R.I] * 3 + [R.P])
     err = fn(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),

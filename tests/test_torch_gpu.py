@@ -48,6 +48,9 @@ CONV_CASES = [
     (1, 6, 6, 8, 1, 4, 1, 0, False),  # 1x1
     (2, 14, 14, 64, 3, 70, 1, 1, True),  # Ow=14 (ragged M tile), Cout not a multiple of 64
     (1, 23, 23, 3, 11, 96, 4, 0, True),  # AlexNet conv1 geometry
+    (2, 9, 9, 32, 3, 40, 2, 1, True),  # C % 32 == 0 (one tap a k-step) at stride 2
+    (2, 8, 8, 48, 3, 20, 1, 1, False),  # C = 48: one tap a k-step of 16, not of 32
+    (3, 7, 7, 256, 1, 36, 2, 0, True),  # strided 1x1 projection
 ]
 # (M, K, N, relu)
 MM_CASES = [(4, 40, 24, True), (3, 17, 10, False), (9, 300, 130, True), (4, 4096, 1000, False)]
@@ -91,6 +94,39 @@ def test_matmul_kernel_matches_plain(cuda, case):
     ref = K.matmul_fused_ref(a, w, bias, relu=relu)
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=RTOL, atol=ATOL)
     assert torch.equal(K.matmul_fused(a[:1].contiguous(), w, bias, relu=relu)[0], y[0])
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_conv_kernel_bits_equal_every_tile_variant_and_the_unfused_route(cuda, case):
+    """The conv sums in the unfused GEMM's order: every tile variant, and
+    the patch matrix through ``gemm`` followed by ``+ b`` and ReLU, give
+    the same bits."""
+    b, h, w, c, f, cout, stride, pad, relu = case
+    rng = np.random.default_rng(sum(case) + 1)
+    x, wt, bias = _on(cuda, rng, b, h, w, c), _on(cuda, rng, f, f, c, cout, scale=0.3), _on(cuda, rng, cout)
+    y = K.conv2d_fused(x, wt, bias, stride=stride, pad=pad, relu=relu)
+    before = K.launch_counts()
+    for variant in range(G.tile_variants()):
+        assert torch.equal(K.conv2d_fused_tiled(x, wt, bias, variant, stride=stride, pad=pad, relu=relu), y)
+    assert K.launch_counts() == before  # forced variants count no launch
+    unfused = ops.gemm(ops.im2col_batched(x, f, f, stride, pad), wt.reshape(f * f * c, cout))
+    unfused = unfused.reshape(y.shape) + bias
+    assert torch.equal(torch.relu(unfused) if relu else unfused, y)
+
+
+@pytest.mark.parametrize("kn", [(300, 130), (4096, 1000), (9216, 4096)], ids=lambda c: "x".join(map(str, c)))
+def test_matmul_kernel_rows_bitwise_at_every_batch_and_equal_gemm_plus_bias(cuda, kn):
+    """M = 1, 4, 8 (split K) and 16 (tiled) give a row the same bits, and
+    those of ``gemm`` followed by ``+ bias`` and ReLU."""
+    k, n = kn
+    rng = np.random.default_rng(k + n)
+    a, w, bias = _on(cuda, rng, 16, k), _on(cuda, rng, k, n, scale=k ** -0.5), _on(cuda, rng, n)
+    y = K.matmul_fused(a, w, bias, relu=True)
+    for m in (1, 4, 8):
+        assert torch.equal(K.matmul_fused(a[:m].contiguous(), w, bias, relu=True), y[:m])
+    for m in (4, 16):
+        assert torch.equal(torch.relu(ops.gemm(a[:m].contiguous(), w) + bias), y[:m])
+    assert torch.equal(K.matmul_fused(a[:4].contiguous(), w, bias), ops.gemm(a[:4].contiguous(), w) + bias)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -243,6 +279,26 @@ def test_cuda_route_served_bitwise_equal_single_stage(cuda):
     plain = SingleStageEngine(g, server.params, backend="torch").run(images)["outputs"]
     for a, b in zip(outs, plain):
         np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_fused_and_unfused_routes_serve_the_same_bits(cuda):
+    """``cuda_fused`` (conv and fc kernels with the epilogue) and ``cuda``
+    (im2col + gemm, then ``+ b`` and ReLU) sum in one order: the served
+    outputs are bitwise equal on the same weights."""
+    g = _tiny()
+    rng = np.random.default_rng(3)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    outs = {}
+    params = None
+    for backend in ("cuda_fused", "cuda"):
+        server = serve(g, backend=backend, batch_size=4, warmup=False, seed=1, params=params)
+        try:
+            outs[backend] = [o.cpu() for o in server.run(images)["outputs"]]
+            params = server.params
+        finally:
+            server.stop()
+    for a, b in zip(outs["cuda_fused"], outs["cuda"]):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------- decode attention (B5)
