@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Sweep build-time variants of the port's B5 (flash-decode) and B3 (GEMM)
-kernels, and of B1 (fused conv) and B2 (fused fc GEMM), which share B3's
-source, on one NVIDIA card, beside the library call each one is held to.
+"""Sweep build-time variants of the port's B5 (flash-decode), B3 (GEMM)
+and B6 (SSD scan) kernels, and of B1 (fused conv) and B2 (fused fc GEMM),
+which share B3's source, on one NVIDIA card, beside the library call each
+one is held to; and time B1q (the quantized conv) beside its first version.
 
     python3 benchmarks/port_kernel_variants.py [--out FILE] [--only SECTIONS] [--old DIR]
 
 from the repo root.  ``--old DIR`` names the ``csrc`` directory of an
-earlier tree whose ``conv_fused.cu`` has the f32 entry and which has a
-``matmul_fused.cu`` (the first versions of B1 and B2): they are built and
-timed beside the built ones, in the same process.
+earlier tree: the sources of it that a section knows how to call are
+built and timed beside the built ones, in the same process (``ssd.cu``
+with the first, one-block-per-sequence ``ssd_fwd``; ``conv_fused.cu``
+with the first int32 ``conv_fused_i32`` or the first f32
+``conv_fused_f32``; ``matmul_fused.cu``).
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with some
-of its constants (B5) or tile definitions (B3) replaced, built by nvcc
+of its constants (B5, B6) or tile definitions (B3) replaced, built by nvcc
 into a temporary directory (all builds at once) and loaded with ctypes;
 the variant named ``built`` is the source as it stands.  Prints one JSON
 object per line and, with ``--out``, writes them all to FILE:
@@ -33,7 +36,18 @@ object per line and, with ``--out``, writes them all to FILE:
   which must give the same bits, beside the old kernel (``--old``) and
   ``F.conv2d`` (TF32 off);
 * ``fc``: B2 at the three fc layers at batch 4 (the built kernel, the old
-  one, ``torch.addmm``).
+  one, ``torch.addmm``);
+* ``ssd``: B6 at Hymba-1.5B's served prefill (batch 4, 896 steps, 50
+  heads of P 64, N 16, chunk 64, bf16, B and C at head stride 0): each
+  variant's time and its error over the plain version's bar, the old
+  kernel's (``--old``), the built kernel's memset and launch apart
+  (``torch.profiler``), and the cycles of each phase of a block (mean and
+  95th percentile over the chunks, from a build that clocks them);
+* ``qconv``: B1q at each conv of VGG-16 at batch 4: the kernel alone on
+  ready u8 operands for each of its tile variants (all bitwise equal to
+  the plain version), the whole call (quantization included), the
+  quantization alone, and the old int32 kernel on ready shifted operands
+  (``--old``), with the bound on the int8 tensor cores.
 
 Times are device times: a run of calls queued behind a sleep kernel,
 between two CUDA events.  Nothing here runs without a card.
@@ -69,6 +83,13 @@ GEMM_VARIANTS = {
     "bk16": {2: "<64, 64, 8, 4, 16, 3, false, 3>", 3: "<32, 64, 8, 4, 16, 3>"},
     "wide": {1: "<128, 128, 8, 8, 16, 3>", 3: "<64, 32, 8, 4, 32, 3>"},
 }
+SSD_VARIANTS = {
+    "built": {},
+    "registers80": {"MINB": "3"},  # three blocks an SM, up to 80 registers a thread
+    "threads128": {"NT": "128", "MINB": "8"},
+    "phase_clocks": {"CLOCK_TICKETS": "4096"},  # the built kernel with its phases clocked
+}
+SSD_PHASES = ("staged", "scanned", "weights", "H_c and waited", "state loaded", "published", "scores", "y")
 COPY_ONLY = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,12 +202,147 @@ def _short(mangled: str) -> str:
     return name
 
 
+def ssd_section(emit, libs, randn, device_ms, stream, dev):
+    """B6 at Hymba-1.5B's served prefill: every variant and the old kernel,
+    each against the plain version at the bf16 bar; the built kernel's
+    memset and launch apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import runtime as R
+    from repro_torch.kernels import ssd as SSD
+
+    b, s_len, h, p, n, q = 4, 896, 50, 64, 16, 64
+    x = randn(b, s_len, h, p, dtype=torch.bfloat16)
+    la = (-randn(b, s_len, h).abs() * 0.3).to(torch.bfloat16)
+    B = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
+    C = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
+    ry, rh = SSD.ssd_ref(x, la, B, C, chunk=q)
+    strides = [st for t in (x, la, B, C) for st in t.stride()[:3]]
+    nc, tol = s_len // q, 5e-2
+
+    def ratio(y, hf):
+        return max(float(((y.float() - ry.float()).abs() / (tol + tol * ry.float().abs())).max()),
+                   float(((hf - rh).abs() / (tol + tol * rh.abs())).max()))
+
+    row = {"kernel": "ssd", "shape": f"B{b} S{s_len} H{h} P{p} N{n} chunk{q} bf16, B/C head stride 0",
+           "plain_ms": device_ms(lambda: SSD.ssd_ref(x, la, B, C, chunk=q), 10)}
+    for name, lib in libs.items():
+        if not name.startswith("ssd_"):
+            continue
+        y, hf = torch.empty_like(x), torch.empty(b, h, n, p, device=dev)
+        fn = lib.ssd_fwd
+        if name == "ssd_old":  # one block per (batch, head), the chunks a loop
+            fn.argtypes = [R.P] * 7 + [R.I] * 8 + [R.L] * 12 + [R.P]
+            call = lambda: fn(x.data_ptr(), la.data_ptr(), B.data_ptr(), C.data_ptr(), None,  # noqa: E731
+                              y.data_ptr(), hf.data_ptr(), 1, 1, b, s_len, h, p, n, q, *strides, stream())
+        else:  # one block a chunk, the state handed down in order
+            states = torch.empty(nc - 1, b, h, n, p, device=dev)
+            sync = torch.empty(1 + nc * b * h, dtype=torch.int32, device=dev)
+            fn.argtypes = [R.P] * 9 + [R.I] * 9 + [R.L] * 12 + [R.P]
+            call = lambda: fn(x.data_ptr(), la.data_ptr(), B.data_ptr(), C.data_ptr(), None,  # noqa: E731
+                              y.data_ptr(), hf.data_ptr(), states.data_ptr(), sync.data_ptr(), 1, 1, 7,
+                              b, s_len, h, p, n, q, *strides, stream())
+        R.check(call(), name)
+        row[name[len("ssd_"):]] = {"ms": device_ms(call, 50), "err_over_tol": ratio(y, hf)}
+    clocked = libs.get("ssd_phase_clocks")
+    if clocked is not None:  # its last call's clocks: each phase's cycles, mean and 95th percentile
+        import numpy as np
+
+        n_chunks = b * nc * h
+        buf = (ctypes.c_longlong * (n_chunks * 9))()
+        clocked.ssd_phase_clocks.argtypes = [R.P, R.I]
+        R.check(clocked.ssd_phase_clocks(ctypes.addressof(buf), n_chunks), "ssd_phase_clocks")
+        marks = np.frombuffer(buf, dtype=np.int64).reshape(n_chunks, 9)
+        cycles = np.diff(marks, axis=1)
+        row["phase_cycles"] = {name: {"mean": float(cycles[:, i].mean()), "p95": float(np.percentile(cycles[:, i], 95))}
+                               for i, name in enumerate(SSD_PHASES)}
+        row["phase_cycles"]["block_total"] = float((marks[:, -1] - marks[:, 0]).mean())
+    ops.ssd(x, la, B, C, chunk=q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            ops.ssd(x, la, B, C, chunk=q)
+        torch.cuda.synchronize()
+    row["built_launches_ms"] = {
+        (re.search(r"ssd_\w+", e.key) or re.search(r".{1,60}", e.key)).group(0):
+            e.self_device_time_total / 1e3 / e.count
+        for e in prof.key_averages() if e.self_device_time_total > 0}
+    emit(row)
+
+
+def qconv_section(emit, libs, randn, device_ms, stream, dev, vgg, shapes):
+    """B1q at each VGG-16 conv at batch 4: the kernel alone on ready u8
+    operands (each tile variant, bitwise), the whole call, the
+    quantization, and the old int32 kernel on ready shifted operands."""
+    import torch
+
+    from repro_torch.cnn import quant as Q
+    from repro_torch.kernels import conv_fused as K
+    from repro_torch.kernels import runtime as R
+
+    lib = libs["qconv_built"]
+    lib.qconv_u8.argtypes = [R.P] * 9 + [R.I] * 15 + [R.P]
+    old = libs.get("conv_fused_old")
+    old = old if old is not None and hasattr(old, "conv_fused_i32") else None
+    if old is not None:
+        old.conv_fused_i32.argtypes = [R.P] * 5 + [R.I] * 12 + [R.P]
+    totals = {}
+    for node in vgg.major_nodes():
+        if node.kind != "conv":
+            continue
+        h, w, c = shapes[node.inputs[0]]
+        fk, st, pd, cout = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"], node.attrs["out_ch"]
+        b = 4
+        x = randn(b, h, w, c)
+        wt = randn(fk, fk, c, cout, scale=(2.0 / (fk * fk * c)) ** 0.5)
+        bias = randn(cout, scale=0.1)
+        qp = Q.quantize_graph_params({"l": {"w": wt, "b": bias}})["l"]
+        qargs = (qp["qw"], qp["scale"], qp["zp"], bias, qp["shape"])
+        ref = K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=True)
+        qa, sa, za = Q.quantize_tensor(x, axis=None)
+        wtp, colsum = K.packed_weights(qp["qw"])
+        oh, ow = ref.shape[1], ref.shape[2]
+        k = fk * fk * c
+        geo = (b, h, w, c, fk, fk, cout, st, pd, oh, ow, 1, wtp.shape[1], int(c % 16 == 0))
+        row = {"kernel": "qconv2d_fused", "layer": node.name, "m": b * oh * ow, "k": k, "n": cout,
+               "za": float(za),
+               "bound_ms": max(2.0 * b * oh * ow * cout * k / 1979e12,
+                               (x.numel() + k * cout + 4.0 * ref.numel()) / 3.35e12) * 1e3,
+               "whole_call_ms": device_ms(lambda: K.qconv2d_fused(x, *qargs, stride=st, pad=pd, relu=True), 20),
+               "quantize_ms": device_ms(lambda: Q.quantize_tensor(x, axis=None), 20)}
+        for t in range(-1, lib.qconv_tile_variants()):
+            y = torch.empty_like(ref)
+            call = lambda: lib.qconv_u8(  # noqa: E731
+                qa.data_ptr(), wtp.data_ptr(), colsum.data_ptr(), za.data_ptr(), qp["zp"].data_ptr(),
+                sa.data_ptr(), qp["scale"].data_ptr(), bias.data_ptr(), y.data_ptr(), *geo, t, stream())
+            R.check(call(), "qconv_u8")
+            row[f"built/{'auto' if t < 0 else f'tile{t}'}"] = {"ms": device_ms(call, 20),
+                                                               "bitwise": bool(torch.equal(y, ref))}
+        if old is not None:
+            xq = qa.to(torch.int32) - za.to(torch.int32)
+            wq = (qp["qw"].to(torch.int32) - qp["zp"].to(torch.int32)).reshape(qp["shape"]).contiguous()
+            merged = (sa * qp["scale"]).reshape(-1).contiguous()
+            y = torch.empty_like(ref)
+            call = lambda: old.conv_fused_i32(  # noqa: E731
+                xq.data_ptr(), wq.data_ptr(), merged.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                b, h, w, c, fk, fk, cout, st, pd, oh, ow, 1, stream())
+            R.check(call(), "old conv_fused_i32")
+            row["old"] = {"ms": device_ms(call, 10), "bitwise": bool(torch.equal(y, ref))}
+        for key, val in row.items():
+            if isinstance(val, dict) or key.endswith("_ms"):
+                totals[key] = totals.get(key, 0.0) + (val["ms"] if isinstance(val, dict) else val)
+        emit(row)
+    emit({"kernel": "qconv2d_fused", "vgg16_totals_ms": totals})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
-    ap.add_argument("--only", default="flash_decode,gemm,conv,fc",
-                    help="comma-separated sections: flash_decode, gemm, conv, fc")
-    ap.add_argument("--old", help="csrc directory holding the first versions of B1 and B2")
+    ap.add_argument("--only", default="flash_decode,gemm,conv,fc,ssd,qconv",
+                    help="comma-separated sections: flash_decode, gemm, conv, fc, ssd, qconv")
+    ap.add_argument("--old", help="csrc directory of an earlier tree, whose kernels are timed beside")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -196,6 +352,7 @@ def main() -> int:
         print("port_kernel_variants: needs a CUDA card", file=sys.stderr)
         return 2
     from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import runtime as R
@@ -235,9 +392,21 @@ def main() -> int:
             sources.update(_variant_sources("flash_decode", FD_VARIANTS), copy_only=COPY_ONLY)
         if only & {"gemm", "conv", "fc"}:
             sources.update(_variant_sources("gemm", GEMM_VARIANTS))
-        if args.old and only & {"gemm", "conv", "fc"}:
-            for name in ("conv_fused", "matmul_fused", "gemm"):
-                with open(os.path.join(args.old, f"{name}.cu")) as f:
+        if "ssd" in only:
+            sources.update(_variant_sources("ssd", SSD_VARIANTS))
+        if "qconv" in only:
+            sources["qconv_built"] = open(os.path.join(build.CSRC, "conv_fused.cu")).read()
+        wanted = set()  # the earlier tree's sources the sections call
+        if only & {"gemm", "conv", "fc"}:
+            wanted |= {"conv_fused", "matmul_fused", "gemm"}
+        if "ssd" in only:
+            wanted.add("ssd")
+        if "qconv" in only:
+            wanted.add("conv_fused")
+        for name in sorted(wanted) if args.old else ():
+            path = os.path.join(args.old, f"{name}.cu")
+            if os.path.exists(path):
+                with open(path) as f:
                     sources[f"{name}_old"] = f.read()
         libs, registers = _build(sources, tmp)
         emit({"registers": registers})
@@ -327,6 +496,8 @@ def main() -> int:
             lib.matmul_fused_f32.argtypes = [R.P] * 5 + [R.I] * 4 + [R.P]
             lib.gemm_slice_len.argtypes = [R.I, R.I]
         old = {n: libs.get(f"{n}_old") for n in ("conv_fused", "matmul_fused")}
+        if old["conv_fused"] is not None and not hasattr(old["conv_fused"], "conv_fused_f32"):
+            old["conv_fused"] = None  # a tree whose conv_fused.cu holds only the quantized conv
         if old["conv_fused"] is not None:
             old["conv_fused"].conv_fused_f32.argtypes = [R.P] * 5 + [R.I] * 12 + [R.P]
         if old["matmul_fused"] is not None:
@@ -391,6 +562,13 @@ def main() -> int:
                 R.check(ocall(), "old matmul_fused_f32")
                 row["old"] = {"ms": device_ms(ocall, 20), "max_abs_diff": float((y_old - out).abs().max())}
             emit(row)
+
+        # ------------------------------------------------ B6 SSD scan
+        if "ssd" in only:
+            ssd_section(emit, libs, randn, device_ms, stream, dev)
+        # ------------------------------------------------ B1q quantized conv
+        if "qconv" in only:
+            qconv_section(emit, libs, randn, device_ms, stream, dev, vgg, shapes)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -25,7 +25,12 @@ Phases (any failure exits non-zero):
    ``relu(gemm(im2col(x)) + b)``; at each fc the fused GEMM's rows at M =
    1, 4, 8 and 16 are equal, and equal ``relu(gemm(a, w) + b)``; at each
    conv GEMM the first 4 rows of the tiled result and every tile
-   variant's result equal the served tiled result;
+   variant's result equal the served tiled result; at each conv the
+   quantized conv's every tile variant, and its kernel alone on ready u8
+   operands, equal ``qfused_route_ref``.  B1q is timed as that kernel
+   alone, with its bound on the int8 tensor cores, beside the whole call
+   (quantization included), the quantization alone and the filter's
+   packing, which a layer does once;
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
    batch_size=4)``, with 32 seeded images; the launch counters must show
    13 conv and 3 dense launches per micro-batch, the outputs must be
@@ -61,7 +66,8 @@ Phases (any failure exits non-zero):
    in f32 and printed in bf16; a profiler trace of 3 decode steps gives
    the device's busy and idle share.  6d times B5 at the served shape and
    at ``decode_32k``'s (batch 16, 32768 slots) and B6 at the served
-   prefill's, each beside its plain version, its bound and, for B5,
+   prefill's (one memset and one kernel launch a call), each beside its
+   plain version, its bound and, for B5,
    ``F.scaled_dot_product_attention`` with a length mask;
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
    the five above and B5, B6), then the ``{"ok": true, ...}`` line last.
@@ -110,14 +116,15 @@ BATCH = 4
 SEED = 0
 DEVICE = "cuda"
 
-# Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s and
-# HBM bytes/s; the SXM part unless the card names another.  The CUDA
-# cores' int32 multiply-add rate is half the f32 FMA rate (64 INT32 lanes
-# per SM against 128 FP32), the bound of the quantized conv.
+# Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
+# bytes/s and int8 tensor-core op/s; the SXM part unless the card names
+# another.  The quantized conv (B1q) runs on the int8 tensor cores, its
+# bound; the CUDA cores' int32 multiply-add rate, half the f32 FMA rate
+# (64 INT32 lanes per SM against 128 FP32), is printed beside it.
 PEAKS = {
-    "H100 PCIe": (51.2e12, 2.0e12),
-    "H100 NVL": (60.0e12, 3.9e12),
-    "H100": (67.0e12, 3.35e12),
+    "H100 PCIe": (51.2e12, 2.0e12, 1513e12),
+    "H100 NVL": (60.0e12, 3.9e12, 1671e12),
+    "H100": (67.0e12, 3.35e12, 1979e12),
 }
 KERNELS = {
     "conv2d_fused": {
@@ -565,6 +572,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         dense_form_flop_bound_ms=2.0 * n_chunks * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p)
         / flops_peak * 1e3,
         library_null_reason=NO_LIBRARY["ssd"],
+        cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
     )
     del x, la, B, C, model, out
 
@@ -671,7 +679,7 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-    flops_peak, bytes_peak = peaks(kind)
+    flops_peak, bytes_peak, int8_peak = peaks(kind)
     int_ops_peak = flops_peak / 2
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -804,6 +812,9 @@ def main() -> int:
         row["bound_by"] = "operations" if op_ms >= byte_ms else "bytes"
         print(json.dumps(row))
         t = totals[name]
+        for key in ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms"):
+            if key in extra:
+                t[key] = t.get(key, 0.0) + extra[key]
         t["max_abs_err"] = max(t["max_abs_err"], err)
         t["ms"] += row["kernel_ms"]
         t["host_paced_ms"] += row["host_paced_ms"]["kernel"]
@@ -876,21 +887,42 @@ def main() -> int:
                 m=m, k=k, n=cout,
             )
             del cols, yg
-            # B1q: the quantized conv at this geometry
+            # B1q: the quantized conv at this geometry.  Timed as the kernel
+            # alone on ready u8 operands (the quantized input, the filter's
+            # transposed copy and column sums), beside the whole call and
+            # the quantization; every tile variant gives the same bits
             qp = Q.quantize_graph_params({"l": {"w": wt, "b": b}})["l"]
             qargs = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
-            yq = K.qconv2d_fused(x, *qargs, stride=st, pad=pd, relu=relu)
-            qbytes = 4.0 * (x.numel() + 3 * cout + yq.numel()) + qp["qw"].numel()
+            qkw = dict(stride=st, pad=pd, relu=relu)
+            yq = K.qconv2d_fused(x, *qargs, **qkw)
+            qa, sa, za = Q.quantize_tensor(x, axis=None)
+            wpk, colsum = K.packed_weights(qp["qw"])
+
+            def qconv_alone():
+                return K.qconv_launch(qa, sa, za, wpk, colsum, qp["scale"], qp["zp"], qp["b"], qp["shape"], **qkw)
+
+            for variant in range(K.qconv_tile_variants()):
+                if not torch.equal(K.qconv2d_fused_tiled(x, *qargs, variant, **qkw), yq):
+                    not_bitwise.append(f"qconv2d_fused tile variant {variant} at {where}")
+            qplain = K.qfused_route_ref(x, *qargs, **qkw)
+            if not torch.equal(qconv_alone(), qplain):
+                not_bitwise.append(f"qconv2d_fused kernel alone vs qfused_route_ref at {where}")
+            # u8 input and filter read once, f32 output and the per-channel
+            # vectors (scale, zero point, bias, column sums) written / read once
+            qbytes = qa.numel() + wpk.numel() + 4.0 * (yq.numel() + 4 * cout)
             record(
-                "qconv2d_fused", where,
-                lambda: K.qconv2d_fused(x, *qargs, stride=st, pad=pd, relu=relu),
-                lambda: K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu), None,
-                yq, K.qfused_route_ref(x, *qargs, stride=st, pad=pd, relu=relu),
-                flops / int_ops_peak * 1e3, qbytes / bytes_peak * 1e3, exact=True,
+                "qconv2d_fused", where, qconv_alone,
+                lambda: K.qfused_route_ref(x, *qargs, **qkw), None,
+                yq, qplain,
+                flops / int8_peak * 1e3, qbytes / bytes_peak * 1e3, exact=True,
+                whole_call_ms=device_ms(lambda: K.qconv2d_fused(x, *qargs, **qkw), torch),
                 quantize_ms=device_ms(lambda: Q.quantize_tensor(x, axis=None), torch),
+                pack_once_ms=device_ms(lambda: K.pack_weights(qp["qw"]), torch),
+                int32_cuda_core_bound_ms=flops / int_ops_peak * 1e3,
+                za=float(za),
                 library_null_reason=NO_LIBRARY["qconv2d_fused"],
             )
-            del yq
+            del yq, qa, qplain
         else:
             k = int(np.prod(hin))
             n = node.attrs["out_features"]
@@ -932,13 +964,16 @@ def main() -> int:
 
     print(json.dumps({"bitwise_3d": {
         "checks": "B1 batch 1 = batch 4 and every tile variant, B1 = relu(gemm(im2col) + b); "
-                  "B2 rows at M = 1, 4, 8, 16 and = relu(gemm + b); B3 tiled = skinny rows, every tile variant",
+                  "B2 rows at M = 1, 4, 8, 16 and = relu(gemm + b); B3 tiled = skinny rows, every tile variant; "
+                  "B1q every tile variant and the kernel alone = qfused_route_ref",
         "not_bitwise": not_bitwise}}))
     check(not not_bitwise, f"bitwise checks failed: {not_bitwise[:5]}")
     print(json.dumps({"kernel_totals_3d": {
         n: {"device_ms": t["ms"], "host_paced_ms": t["host_paced_ms"], "plain_device_ms": t["plain_ms"],
             "library_device_ms": None if n in NO_LIBRARY else t["library_ms"], "bound_ms": t["bound_ms"],
-            "bound_share": t["bound_ms"] / t["ms"] if t["ms"] else None}
+            "bound_share": t["bound_ms"] / t["ms"] if t["ms"] else None,
+            **{k: t[k] for k in ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms")
+               if k in t}}
         for n, t in totals.items()}}))
 
     mark("3b,3d")

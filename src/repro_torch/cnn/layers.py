@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels.config import ieee_f32_convs
+
 
 def im2col(x: torch.Tensor, fh: int, fw: int, stride: int, pad: int) -> torch.Tensor:
     """[B,H,W,C] -> [B, OH*OW, FH*FW*C] patch matrix, features ordered
@@ -78,7 +80,10 @@ def depthwise_conv2d(
     pad: int = 0,
 ) -> torch.Tensor:
     """Depthwise conv.  ``w``: [FH, FW, 1, C].  Native grouped convolution
-    (one im2col GEMM per channel would be pathological)."""
+    (one im2col GEMM per channel would be pathological), in IEEE f32 on
+    the card (``kernels/config.py::ieee_f32_convs``)."""
+    if x.is_cuda:
+        ieee_f32_convs()
     out = F.conv2d(
         x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
         stride=stride, padding=pad, groups=x.shape[-1],

@@ -33,9 +33,13 @@ tile variant, for checks that all give the same bits.
 
 ``qconv2d_fused`` replaces the same Pallas kernel's int32 instantiation
 (the quantized conv of ``repro/kernels/conv_fused.py::qconv2d_fused``):
-``csrc/conv_fused.cu``, int32 operands in [-255, 255], an int32
-accumulator, and the merged requant scale in its epilogue.  It is bound
-by operations at the CUDA cores' int32 rate (half the f32 FMA rate).
+``csrc/conv_fused.cu``'s ``qconv_u8`` multiplies the unshifted u8
+operands on the int8 tensor cores (``mma.sync`` m16n8k32, int32 sums),
+corrects for the zero points from the row sums it takes itself and the
+layer's column sums, and applies the merged requant scale in its
+epilogue; the result is the exact int32 sum of the shifted operands, so
+the output is bitwise equal to :func:`qfused_route_ref`.  At VGG-16's
+shapes it is bound by the bytes of its f32 output.
 
 Routing is by the tensor's device alone: a CPU tensor goes to the plain
 version (``fused_route_ref`` / ``qfused_route_ref`` / ``matmul_fused_ref``);
@@ -49,9 +53,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import gemm as G
 from . import runtime as R
+from .config import ieee_f32_convs
 from .runtime import launch_counts, launches, reset_launches  # noqa: F401  (re-exported)
 
 # ------------------------------------------------------------------ conv
@@ -84,6 +90,8 @@ def fused_route_ref(
         y = xs.reshape(-1, xs.shape[-1]) @ w.reshape(w.shape[2], w.shape[3])
         y = y.reshape(bsz, oh, ow, -1)
     else:
+        if x.is_cuda:
+            ieee_f32_convs()
         y = F.conv2d(
             x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
             stride=stride, padding=pad, groups=groups,
@@ -98,7 +106,6 @@ def fused_route_ref(
 def _conv_launch(
     x: torch.Tensor,
     w: torch.Tensor,
-    scale: Optional[torch.Tensor],
     b: Optional[torch.Tensor],
     *,
     stride: int,
@@ -107,50 +114,47 @@ def _conv_launch(
     what: str,
     variant: int = -1,
 ) -> torch.Tensor:
-    """Check the operands and launch a fused conv on the current stream:
-    f32 operands (``scale`` None) go to ``csrc/gemm.cu``'s
-    ``conv_fused_f32`` on tile variant ``variant`` (-1: chosen from the
-    shape); int32 operands to ``csrc/conv_fused.cu``'s ``conv_fused_i32``
-    with the f32 ``scale``.  Bias is f32 either way."""
-    dtype = torch.float32 if scale is None else torch.int32
-    R.require(x, "x", 4, dtype)
-    R.require(w, "w", 4, dtype)
+    """Check the operands and launch ``csrc/gemm.cu``'s ``conv_fused_f32``
+    on the current stream, on tile variant ``variant`` (-1: chosen from
+    the shape)."""
+    R.require(x, "x", 4)
+    R.require(w, "w", 4)
     bsz, h, wd, c = x.shape
     fh, fw, cw, cout = w.shape
     if cw != c:
         raise ValueError(f"{what}: filter takes {cw} channels, input has {c}")
+    oh, ow = _out_size(h, wd, fh, fw, stride, pad, what)
+    dev = x.device
+    if w.device != dev:
+        raise ValueError(f"{what}: w must be on {dev}")
+    bias = torch.zeros(cout, device=dev) if b is None else b
+    _check_f32(bias, "bias", (cout,), dev, what)
+    x, w, bias = x.contiguous(), w.contiguous(), bias.contiguous()
+    y = torch.empty((bsz, oh, ow, cout), device=dev, dtype=torch.float32)
+    fn = R.bind("gemm", "conv_fused_f32", [R.P] * 4 + [R.I] * 13 + [R.P])
+    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+             bsz, h, wd, c, fh, fw, cout, stride, pad, oh, ow, int(bool(relu)),
+             int(variant), R.stream(dev))
+    R.check(err, "conv_fused_f32")
+    return y
+
+
+def _out_size(h: int, wd: int, fh: int, fw: int, stride: int, pad: int, what: str):
     if not supports(fh, fw, stride):
         raise ValueError(f"{what}: unsupported geometry {fh}x{fw}/s{stride}")
     oh = (h - fh + 2 * pad) // stride + 1
     ow = (wd - fw + 2 * pad) // stride + 1
     if oh < 1 or ow < 1:
         raise ValueError(f"{what}: empty output {oh}x{ow}")
-    dev = x.device
-    if w.device != dev:
-        raise ValueError(f"{what}: w must be on {dev}")
-    bias = torch.zeros(cout, device=dev) if b is None else b
-    for t, name in ((scale, "scale"), (bias, "bias")):
-        if t is None:
-            continue
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32 on {dev}")
-        if t.shape != (cout,):
-            raise ValueError(f"{what}: {name} must have shape [Cout]")
-    x, w, bias = x.contiguous(), w.contiguous(), bias.contiguous()
-    scale = None if scale is None else scale.contiguous()
-    y = torch.empty((bsz, oh, ow, cout), device=dev, dtype=torch.float32)
-    geometry = (bsz, h, wd, c, fh, fw, cout, stride, pad, oh, ow, int(bool(relu)))
-    if scale is None:
-        fn = R.bind("gemm", "conv_fused_f32", [R.P] * 4 + [R.I] * 13 + [R.P])
-        err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), *geometry,
-                 int(variant), R.stream(dev))
-        R.check(err, "conv_fused_f32")
-    else:
-        fn = R.bind("conv_fused", "conv_fused_i32", [R.P] * 5 + [R.I] * 12 + [R.P])
-        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 y.data_ptr(), *geometry, R.stream(dev))
-        R.check(err, "conv_fused_i32")
-    return y
+    return oh, ow
+
+
+def _check_f32(t: torch.Tensor, name: str, shape: Tuple[int, ...], dev: torch.device, what: str) -> None:
+    """``t`` must be a float32 tensor of ``shape`` on ``dev``."""
+    if t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"{what}: {name} must be float32 on {dev}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {name} must have shape {list(shape)}, got {list(t.shape)}")
 
 
 def conv2d_fused(
@@ -168,7 +172,7 @@ def conv2d_fused(
     ``csrc/gemm.cu``'s ``conv_fused_f32`` on the current stream."""
     if not R.on_card(x, "conv2d_fused"):
         return fused_route_ref(x, w, b, stride=stride, pad=pad, relu=relu)
-    y = _conv_launch(x, w, None, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused")
+    y = _conv_launch(x, w, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused")
     R.count("conv2d_fused")
     return y
 
@@ -191,7 +195,7 @@ def conv2d_fused_tiled(
         raise ValueError("conv2d_fused_tiled runs on the card only")
     if not 0 <= variant < G.tile_variants():
         raise ValueError(f"conv2d_fused_tiled: no tile variant {variant}")
-    return _conv_launch(x, w, None, b, stride=stride, pad=pad, relu=relu,
+    return _conv_launch(x, w, b, stride=stride, pad=pad, relu=relu,
                         what="conv2d_fused_tiled", variant=variant)
 
 
@@ -250,6 +254,111 @@ def qfused_route_ref(
     return y
 
 
+def pack_weights(qw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The filter operand of ``qconv_u8`` for ``qw`` [K, Cout] u8: its
+    transpose ``wt`` [Cout, Kp] (k contiguous, as the tensor cores' B
+    operand wants it; zero past K up to Kp, K rounded up to 16) and its
+    column sums ``colsum`` [Cout] int32, by a copy and a sum in plain
+    PyTorch."""
+    k, cout = qw.shape
+    wt = torch.zeros((cout, -(-k // 16) * 16), dtype=torch.uint8, device=qw.device)
+    wt[:, :k] = qw.t()
+    return wt, qw.sum(0, dtype=torch.int32)
+
+
+_packed = WeakIdKeyDictionary()  # qw -> (qw._version, wt, colsum)
+
+
+def packed_weights(qw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pack_weights` of ``qw``, made once per weight tensor and kept
+    while ``qw`` lives and is not modified in place."""
+    hit = _packed.get(qw)
+    if hit is not None and hit[0] == qw._version:
+        return hit[1], hit[2]
+    wt, colsum = pack_weights(qw)
+    _packed[qw] = (qw._version, wt, colsum)
+    return wt, colsum
+
+
+def qconv_launch(
+    qa: torch.Tensor,  # [B, H, W, C] uint8, the quantized input
+    sa: torch.Tensor,  # its scale, one float32
+    za: torch.Tensor,  # its zero point, one float32
+    wt: torch.Tensor,  # [Cout, Kp] uint8, from packed_weights
+    colsum: torch.Tensor,  # [Cout] int32, from packed_weights
+    scale: torch.Tensor,  # [1, Cout] weight scales
+    zp: torch.Tensor,  # [1, Cout] weight zero points
+    b: Optional[torch.Tensor],
+    w_shape: Tuple[int, int, int, int],
+    *,
+    stride: int,
+    pad: int,
+    relu: bool,
+    variant: int = -1,
+    what: str = "qconv_launch",
+) -> torch.Tensor:
+    """Check the u8 operands and launch ``csrc/conv_fused.cu``'s
+    ``qconv_u8`` on the current stream (tile variant ``variant``, -1:
+    chosen from the shape): the kernel alone, with its operands ready.
+    Counts no launch; :func:`qconv2d_fused` does."""
+    if qa.dtype != torch.uint8 or wt.dtype != torch.uint8:
+        raise TypeError(f"{what}: qa and wt must be uint8, got {qa.dtype}, {wt.dtype}")
+    if qa.dim() != 4 or wt.dim() != 2:
+        raise ValueError(f"{what}: want qa [B,H,W,C] and wt [Cout,Kp]")
+    bsz, h, wd, c = qa.shape
+    fh, fw, cw, cout = w_shape
+    k = fh * fw * c
+    if cw != c:
+        raise ValueError(f"{what}: filter takes {cw} channels, input has {c}")
+    if wt.shape[0] != cout or wt.shape[1] < k or wt.shape[1] % 16:
+        raise ValueError(f"{what}: wt must be [{cout}, Kp >= {k}, Kp a multiple of 16], "
+                         f"got {list(wt.shape)}")
+    oh, ow = _out_size(h, wd, fh, fw, stride, pad, what)
+    dev = qa.device
+    if wt.device != dev:
+        raise ValueError(f"{what}: wt must be on {dev}")
+    if colsum.device != dev or colsum.dtype != torch.int32 or tuple(colsum.shape) != (cout,):
+        raise ValueError(f"{what}: colsum must be int32 [{cout}] on {dev}")
+    bias = torch.zeros(cout, device=dev) if b is None else b
+    for t, name, shape in ((sa, "sa", (1,) * sa.dim()), (za, "za", (1,) * za.dim()),
+                           (scale, "scale", (1, cout)), (zp, "zp", (1, cout)),
+                           (bias, "bias", (cout,))):
+        _check_f32(t, name, shape, dev, what)
+    qa, wt, bias = qa.contiguous(), wt.contiguous(), bias.contiguous()
+    scale, zp = scale.contiguous(), zp.contiguous()
+    vec = int(c % 16 == 0 and qa.data_ptr() % 16 == 0)
+    y = torch.empty((bsz, oh, ow, cout), device=dev, dtype=torch.float32)
+    fn = R.bind("conv_fused", "qconv_u8", [R.P] * 9 + [R.I] * 15 + [R.P])
+    err = fn(qa.data_ptr(), wt.data_ptr(), colsum.data_ptr(), za.data_ptr(), zp.data_ptr(),
+             sa.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+             bsz, h, wd, c, fh, fw, cout, stride, pad, oh, ow, int(bool(relu)),
+             wt.shape[1], vec, int(variant), R.stream(dev))
+    R.check(err, "qconv_u8")
+    return y
+
+
+def qconv_tile_variants() -> int:
+    """How many tile variants ``qconv_u8`` has (for checks that all give
+    the same bits)."""
+    return R.bind("conv_fused", "qconv_tile_variants", [])()
+
+
+def _qconv_card(x, qw, scale, zp, b, w_shape, stride, pad, relu, variant, what):
+    from ..cnn.quant import quantize_tensor
+
+    R.require(x, "x", 4)
+    fh, fw, c, cout = (int(v) for v in w_shape)
+    if qw.dtype != torch.uint8:
+        raise TypeError(f"{what}: qw must be uint8, got {qw.dtype}")
+    if tuple(qw.shape) != (fh * fw * c, cout) or qw.device != x.device:
+        raise ValueError(f"{what}: qw must be [{fh * fw * c}, {cout}] on {x.device}, got "
+                         f"{list(qw.shape)} on {qw.device}")
+    qa, sa, za = quantize_tensor(x, axis=None)  # per tensor, in plain PyTorch, as the reference
+    wt, colsum = packed_weights(qw)
+    return qconv_launch(qa, sa, za, wt, colsum, scale, zp, b, (fh, fw, c, cout), stride=stride,
+                        pad=pad, relu=relu, variant=variant, what=what)
+
+
 def qconv2d_fused(
     x: torch.Tensor,  # [B, H, W, C] float activations
     qw: torch.Tensor,  # [FH*FW*C, Cout] uint8 (cnn.quant.quantize_graph_params)
@@ -264,24 +373,47 @@ def qconv2d_fused(
 ) -> torch.Tensor:
     """QASYMM8 conv with the requant step fused into the kernel's flush.
 
-    The input is quantized and shifted to int32 here, in plain PyTorch,
-    as the reference does outside its Pallas kernel; then the int32
-    instantiation of ``csrc/conv_fused.cu`` accumulates in int32 and its
-    epilogue applies the merged scale ``sa * scale[j]`` (the operand that
-    holds ones on the f32 path), the bias and the ReLU.  Float 0
-    quantizes to exactly ``za``, so the shifted zero is 0 and the
-    kernel's masked-zero padding of the unpadded input equals the
-    reference's zero-padded ``xq``.  CPU tensors take
+    The input is quantized per tensor here, in plain PyTorch, as the
+    reference does outside its Pallas kernel; the filter's transposed
+    copy and column sums come from :func:`packed_weights` (made once per
+    weight tensor).  Then ``csrc/conv_fused.cu``'s ``qconv_u8`` sums the
+    u8 products on the tensor cores, corrects them to the exact sum of
+    the zero-point-shifted operands, and its epilogue applies the merged
+    scale ``sa * scale[j]``, the bias and the ReLU.  A padding tap holds
+    the activation zero point, so its shifted value is 0, as in the
+    reference's zero-padded shifted input.  CPU tensors take
     :func:`qfused_route_ref`."""
     if not R.on_card(x, "qconv2d_fused"):
         return qfused_route_ref(
             x, qw, scale, zp, b, w_shape, stride=stride, pad=pad, relu=relu
         )
-    R.require(x, "x", 4)
-    xq, wq, merged = _quantize_operands(x, qw, scale, zp, tuple(w_shape))
-    y = _conv_launch(xq, wq, merged, b, stride=stride, pad=pad, relu=relu, what="qconv2d_fused")
+    y = _qconv_card(x, qw, scale, zp, b, w_shape, stride, pad, relu, -1, "qconv2d_fused")
     R.count("qconv2d_fused")
     return y
+
+
+def qconv2d_fused_tiled(
+    x: torch.Tensor,
+    qw: torch.Tensor,
+    scale: torch.Tensor,
+    zp: torch.Tensor,
+    b: Optional[torch.Tensor],
+    w_shape: Tuple[int, int, int, int],
+    variant: int,
+    *,
+    stride: int = 1,
+    pad: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """:func:`qconv2d_fused` on tile variant ``variant`` (0 ..
+    :func:`qconv_tile_variants` - 1), on CUDA tensors only: for checks
+    that every variant gives the same bits.  Counts no launch."""
+    if not R.on_card(x, "qconv2d_fused_tiled"):
+        raise ValueError("qconv2d_fused_tiled runs on the card only")
+    if not 0 <= variant < qconv_tile_variants():
+        raise ValueError(f"qconv2d_fused_tiled: no tile variant {variant}")
+    return _qconv_card(x, qw, scale, zp, b, w_shape, stride, pad, relu, variant,
+                       "qconv2d_fused_tiled")
 
 
 # ------------------------------------------------------------------ dense

@@ -3,10 +3,14 @@
 ``ssd`` replaces the Pallas kernel ``repro/kernels/ssd.py::_ssd_kernel``:
 the Mamba-2 dual form of ``h_t = a_t h_{t-1} + B_t x_t^T, y_t = C_t h_t``,
 computed per chunk of Q steps as a causal ``Q x Q`` product plus the
-carried ``[N, P]`` state.  The TPU kernel's grid is (head, chunk) and the
-reference vmaps it over the batch; ``csrc/ssd.cu`` runs one block per
-(batch, head) with the chunks as a loop inside it, the state in shared
-memory, f32 arithmetic, y in x's type and h_final in f32.
+carried ``[N, P]`` state.  The TPU kernel's grid is (head, chunk) with the
+chunk axis sequential, and the reference vmaps it over the batch.
+``csrc/ssd.cu`` runs the chunks in parallel, one block each: a block
+computes its chunk's state summary, waits for the previous chunk of its
+sequence to publish the state it starts from, publishes its own for the
+next, and then computes its scores and output (an ordered handoff
+through scratch the wrapper allocates, a fixed size per shape).  f32
+arithmetic, y in x's type, h_final in f32.
 
 B and C are read through strides: Hymba computes one B and one C per
 token and broadcasts them to every head (``repro/models/ssm.py:180-181``),
@@ -21,8 +25,8 @@ does; ``kernels/ops.py::ssd`` pads a ragged S (``log_a = 0, B = 0`` is
 exact) and slices the result back.
 
 A CPU tensor takes :func:`ssd_ref`; a CUDA tensor launches the kernel or
-raises.  Each launch counts once under ``"ssd"`` in
-``kernels/runtime.py``'s ``launches``.
+raises.  Each call counts once under ``"ssd"`` in ``kernels/runtime.py``'s
+``launches``: one memset and one kernel launch.
 """
 from __future__ import annotations
 
@@ -124,6 +128,18 @@ def _strides(t: torch.Tensor, ndim: int):
     return [t.stride(i) for i in range(ndim)]
 
 
+def _rows_of_16_bytes(t: torch.Tensor) -> bool:
+    """Every [.., :] row of ``t`` starts on a 16-byte boundary and is a
+    whole number of 16-byte pieces, so the kernel stages it by 16-byte
+    loads (else one element at a time)."""
+    size = t.element_size()
+    return (
+        t.data_ptr() % 16 == 0
+        and (t.shape[-1] * size) % 16 == 0
+        and all((st * size) % 16 == 0 for st in t.stride()[:-1])
+    )
+
+
 def ssd(
     x: torch.Tensor,
     log_a: torch.Tensor,
@@ -159,20 +175,27 @@ def ssd(
         raise ValueError(f"ssd: every operand must be on {dev}")
     if B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd: x, B, C must share a dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
-    if p % 4:
-        raise ValueError(f"ssd: P = {p} must be a multiple of 4")
+    if p % 4 or (-(-n // 4)) * (p // 4) > 256:
+        raise ValueError(f"ssd: P = {p} must be a multiple of 4, and N rounded up to 4 times P "
+                         f"at most 1024 (N = {n})")
     if _smem_bytes(q, p, n) > MAX_SMEM:
         raise ValueError(f"ssd: chunk {q} with P = {p}, N = {n} needs more shared memory than a block has")
     # the last dim must be contiguous; every other stride is passed (0 is fine)
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
     h0c = None if h0 is None else h0.float().contiguous()
+    nc = s // q
     y = torch.empty((b, s, h, p), device=dev, dtype=x.dtype)
     h_out = torch.empty((b, h, n, p), device=dev, dtype=torch.float32)
-    fn = R.bind("ssd", "ssd_fwd", [R.P] * 7 + [R.I] * 8 + [R.L] * 12 + [R.P])
+    # the state each chunk but the first starts from; a ticket counter and one flag a chunk
+    states = torch.empty((nc - 1, b, h, n, p), device=dev, dtype=torch.float32)
+    sync = torch.empty(1 + nc * b * h, device=dev, dtype=torch.int32)
+    vec = sum(bit for bit, t in ((1, x), (2, B), (4, C)) if _rows_of_16_bytes(t))
+    fn = R.bind("ssd", "ssd_fwd", [R.P] * 9 + [R.I] * 9 + [R.L] * 12 + [R.P])
     err = fn(
         x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(),
         None if h0c is None else h0c.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(log_a.dtype == torch.bfloat16),
+        states.data_ptr() if nc > 1 else None, sync.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(log_a.dtype == torch.bfloat16), vec,
         b, s, h, p, n, q,
         *_strides(x, 3), *_strides(log_a, 3), *_strides(B, 3), *_strides(C, 3),
         R.stream(dev),

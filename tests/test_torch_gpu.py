@@ -243,6 +243,107 @@ def test_qconv_kernel_matches_plain_bitwise(cuda, case):
     assert torch.equal(y, K.qfused_route_ref(x, *args, stride=stride, pad=pad, relu=relu))
 
 
+# (B, H, W, C, F, Cout, stride, pad): C = 3 and 24 (byte gathers), C % 16 == 0
+# (16-byte copies), stride 2, padding, Cout odd, ragged and over 128
+QCONV_U8_CASES = [(2, 13, 11, 3, 3, 70, 2, 1), (1, 9, 9, 32, 3, 37, 1, 1), (2, 14, 14, 64, 3, 130, 2, 1),
+                  (1, 7, 7, 24, 5, 64, 1, 2), (3, 8, 8, 16, 1, 20, 2, 0)]
+
+
+@pytest.mark.parametrize("case", QCONV_U8_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_qconv_u8_kernel_bitwise_with_the_zero_point_in_the_padding(cuda, case):
+    """Inputs with negative values put the activation zero point inside (0,
+    255), so a padding tap must hold it; every tile variant and the kernel
+    alone on ready u8 operands give the plain version's bits."""
+    b, h, w, c, f, cout, stride, pad = case
+    rng = np.random.default_rng(sum(case))
+    x = _on(cuda, rng, b, h, w, c) - 0.3
+    wt, bias = _on(cuda, rng, f, f, c, cout, scale=0.3), _on(cuda, rng, cout)
+    qp = Q.quantize_graph_params({"l": {"w": wt, "b": bias}})["l"]
+    args = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
+    kw = dict(stride=stride, pad=pad, relu=True)
+    ref = K.qfused_route_ref(x, *args, **kw)
+    qa, sa, za = Q.quantize_tensor(x, axis=None)
+    assert 0 < float(za) < 255
+    before = K.launch_counts()
+    y = K.qconv2d_fused(x, *args, **kw)
+    assert K.launch_counts()["qconv2d_fused"] == before["qconv2d_fused"] + 1
+    assert torch.equal(y, ref)
+    for variant in range(K.qconv_tile_variants()):
+        assert torch.equal(K.qconv2d_fused_tiled(x, *args, variant, **kw), ref)
+    packed, colsum = K.packed_weights(qp["qw"])
+    alone = K.qconv_launch(qa, sa, za, packed, colsum, qp["scale"], qp["zp"], qp["b"], qp["shape"], **kw)
+    assert torch.equal(alone, ref)
+    assert K.launch_counts()["qconv2d_fused"] == before["qconv2d_fused"] + 1  # only the routed call counts
+
+
+_TF32_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, "src")
+default = torch.backends.cudnn.allow_tf32
+from repro_torch.cnn import layers as L
+from repro_torch.kernels import conv_fused as K
+from repro_torch.serving import SingleStageEngine, serve
+out = {"default_allow_tf32": default}
+if sys.argv[1] == "serve":
+    rng = np.random.default_rng(0)
+    images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(4)]
+    server = serve("mobilenet", backend="cuda_fused", batch_size=2, warmup=False, seed=1)
+    try:
+        got = torch.cat([o.cpu() for o in server.run(images)["outputs"]])
+        graph, params = server.graph, server.params
+    finally:
+        server.stop()
+    cpu = {name: {k: v.cpu() if torch.is_tensor(v) else v for k, v in p.items()} for name, p in params.items()}
+    want = torch.cat(SingleStageEngine(graph, cpu, backend="torch", device="cpu").run(images)["outputs"])
+    out["max_abs_diff"] = float((got - want).abs().max())
+    out["close"] = bool(torch.allclose(got, want, rtol=1e-3, atol=1e-6))
+else:  # the conv call sites alone, no device resolved first
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 56, 56, 128, generator=g)
+    w = torch.randn(3, 3, 1, 128, generator=g) * 0.3
+    wg = torch.randn(3, 3, 16, 128, generator=g) * 0.1
+    worst = 0.0
+    for got, want in ((L.depthwise_conv2d(x.cuda(), w.cuda(), None, pad=1), L.depthwise_conv2d(x, w, None, pad=1)),
+                      (K.fused_route_ref(x.cuda(), wg.cuda(), None, pad=1, groups=8),
+                       K.fused_route_ref(x, wg, None, pad=1, groups=8))):
+        tol = 1e-4 * want.abs() + 1e-5 * max(1.0, float(want.abs().max()))
+        worst = max(worst, float(((got.cpu() - want).abs() / tol).max()))
+    out["worst_err_over_tol"] = worst
+out["allow_tf32_after"] = torch.backends.cudnn.allow_tf32
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("what", ["serve", "call_sites"])
+def test_library_convs_run_in_ieee_f32_under_default_flags(cuda, what):
+    """In a fresh process, whose cuDNN flags are torch's defaults (TF32 on
+    for convs; the ``cuda`` fixture turns it off in this one), the port's
+    ``F.conv2d`` calls run in IEEE f32: MobileNet served on ``cuda_fused``
+    (13 depthwise convs through ``cnn/layers.py``) matches the CPU plain
+    route at the served bar, and the two call sites alone (``depthwise_conv2d``
+    and the fused conv's grouped route) match the CPU at the reference's
+    per-node bar ``1e-4 * |r| + 1e-5 * max(1, max |r|)``, which TF32's ten
+    mantissa bits would miss."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TF32_SCRIPT, what], cwd=root, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["default_allow_tf32"] is True
+    assert out["allow_tf32_after"] is False
+    if what == "serve":
+        assert out["close"], out
+    else:
+        assert out["worst_err_over_tol"] <= 1.0, out
+
+
 def test_unfused_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         ops.gemm(torch.zeros(2, 3, device=cuda, dtype=torch.float64), torch.zeros(3, 4, device=cuda))
@@ -257,6 +358,29 @@ def test_unfused_kernels_refuse_what_they_do_not_take(cuda):
                         torch.zeros(18, 2, device=cuda, dtype=torch.uint8),
                         torch.ones(1, 2, device=cuda), torch.zeros(1, 2, device=cuda),
                         None, (3, 3, 2, 2), pad=1)
+    # the u8 route's own arguments
+    x, ones, zeros = torch.zeros(1, 4, 4, 2, device=cuda), torch.ones(1, 2, device=cuda), torch.zeros(1, 2, device=cuda)
+    qw = torch.zeros(18, 2, device=cuda, dtype=torch.uint8)
+    with pytest.raises(TypeError):  # qw not uint8
+        K.qconv2d_fused(x, qw.float(), ones, zeros, None, (3, 3, 2, 2), pad=1)
+    with pytest.raises(ValueError):  # qw not [FH*FW*C, Cout]
+        K.qconv2d_fused(x, qw[:9], ones, zeros, None, (3, 3, 2, 2), pad=1)
+    with pytest.raises(ValueError):  # qw on the CPU
+        K.qconv2d_fused(x, qw.cpu(), ones, zeros, None, (3, 3, 2, 2), pad=1)
+    with pytest.raises(ValueError):  # scale not [1, Cout]
+        K.qconv2d_fused(x, qw, torch.ones(2, device=cuda), zeros, None, (3, 3, 2, 2), pad=1)
+    with pytest.raises(ValueError):
+        K.qconv2d_fused_tiled(x, qw, ones, zeros, None, (3, 3, 2, 2), K.qconv_tile_variants(), pad=1)
+    qa = torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.uint8)
+    one, packed, colsum = torch.ones(1, device=cuda), *K.packed_weights(qw)
+    with pytest.raises(TypeError):  # qa not uint8
+        K.qconv_launch(qa.float(), one, one, packed, colsum, ones, zeros, None, (3, 3, 2, 2), stride=1, pad=1, relu=False)
+    with pytest.raises(ValueError):  # wt's Kp not a multiple of 16
+        K.qconv_launch(qa, one, one, packed[:, :18].contiguous(), colsum, ones, zeros, None, (3, 3, 2, 2),
+                       stride=1, pad=1, relu=False)
+    with pytest.raises(ValueError):  # column sums not int32
+        K.qconv_launch(qa, one, one, packed, colsum.long(), ones, zeros, None, (3, 3, 2, 2), stride=1, pad=1,
+                       relu=False)
 
 
 def test_cuda_route_served_bitwise_equal_single_stage(cuda):
@@ -350,7 +474,12 @@ def test_flash_decode_kernel_matches_plain(cuda, case, dtype):
 # ------------------------------------------------------------- SSD (B6)
 # (B, S, H, P, N, chunk, nonzero h0, head-stride-0 B/C)
 SSD_CASES = [(2, 128, 50, 64, 16, 64, False, True), (1, 256, 4, 64, 16, 128, True, False),
-             (2, 64, 3, 8, 4, 16, True, True)]
+             (2, 64, 3, 8, 4, 16, True, True),
+             # 3 chunks and more, each handing its state to the next: Hymba's
+             # heads, chunk 128, and a chunk of 100 with P = 12 (24-byte bf16
+             # rows, read one element at a time) and N = 5
+             (2, 256, 50, 64, 16, 64, True, True), (1, 384, 4, 64, 16, 128, True, True),
+             (2, 300, 5, 12, 5, 100, True, True)]
 
 
 def _ssd_inputs(cuda, rng, b, s, h, p, n, h0, shared, dt):
@@ -427,6 +556,11 @@ def test_decode_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
         SSD.ssd(torch.zeros(1, 64, 2, 6, device=cuda), la[:, :64], bc[:, :64], bc[:, :64], chunk=64)
     with pytest.raises(TypeError):
         SSD.ssd(x[:, :64].double(), la[:, :64], bc[:, :64].double(), bc[:, :64].double(), chunk=64)
+    with pytest.raises(ValueError):  # h0 not [B, H, N, P]
+        SSD.ssd(x[:, :64], la[:, :64], bc[:, :64], bc[:, :64], h0=torch.zeros(1, 2, 16, 32, device=cuda), chunk=64)
+    with pytest.raises(ValueError):  # more 4 x 4 tiles of the state than a block has threads
+        wide = torch.zeros(1, 8, 1, 1028, device=cuda)
+        SSD.ssd(wide, la[:, :8, :1], bc[:, :8, :1], bc[:, :8, :1], chunk=8)
 
 
 def test_reduced_hymba_served_through_both_kernels(cuda):

@@ -211,3 +211,128 @@ def test_int32_accumulator_is_exact_at_the_extremes():
     acc = K._int_conv(xq, wq, 1, 0)
     assert acc.dtype == torch.int32
     assert acc.flatten().tolist() == [-4608 * 255 * 255, 4608 * 255 * 255]
+
+
+# ------------------------------------- the u8 tensor-core form of B1q
+BK = 64  # bytes of k the kernel stages a step (csrc/conv_fused.cu)
+
+
+def _u8_identity_conv(qa, za, wt, colsum, zw, w_shape, stride, pad, pad_value=None):
+    """The int32 sum of ``csrc/conv_fused.cu``'s ``qconv_u8``, in int64:
+    the unshifted u8 operands multiplied, then corrected by the zero points,
+
+        sum_k (qa - za)(qw - zw) = sum_k qa qw - zw sum_k qa - za sum_k qw + K za zw.
+
+    A tap in the spatial padding holds ``za`` (not 0); a k past the real K,
+    up to the kernel's last k-step, is 0 on both operands; the row sums
+    come from the operands as staged, the column sums from
+    ``packed_weights``, and K is the real K.  ``pad_value`` replaces ``za``
+    in the padding only, to show what a zero-filling copy would give."""
+    fh, fw, c, cout = w_shape
+    bsz, h, wd, _ = qa.shape
+    k = fh * fw * c
+    fill = int(za) if pad_value is None else pad_value
+    padded = torch.full((bsz, h + 2 * pad, wd + 2 * pad, c), fill, dtype=torch.int64)
+    padded[:, pad:pad + h, pad:pad + wd] = qa.to(torch.int64)
+    cols = L.im2col(padded, fh, fw, stride, 0)
+    a = cols.reshape(-1, k)
+    kk = -(-k // BK) * BK
+    a = torch.cat([a, a.new_zeros(a.shape[0], kk - k)], 1)  # past K: 0
+    w = torch.zeros(kk, cout, dtype=torch.int64)
+    w[:wt.shape[1]] = wt.t().to(torch.int64)  # zero past K already
+    prod = (a.double() @ w.double()).round().to(torch.int64)  # exact: < 2**53
+    rowsum = a.sum(1, keepdim=True)
+    zw = zw.reshape(1, -1).to(torch.int64)
+    acc = prod - zw * rowsum - int(za) * colsum.to(torch.int64)[None] + k * int(za) * zw
+    assert acc.abs().max() < 2 ** 31  # the kernel's int32 sums are exact
+    return acc.to(torch.int32).reshape(bsz, (h + 2 * pad - fh) // stride + 1, -1, cout)
+
+
+@pytest.mark.parametrize("net", sorted(MODELS))
+def test_u8_identity_is_bitwise_the_reference_route_at_every_conv_geometry(net):
+    """The kernel's arithmetic, mirrored: its int32 sum equals the exact
+    sum of the zero-point-shifted operands, and after its epilogue (the
+    f32 requant step, bias, ReLU) it is bitwise the port's and the
+    reference's ``qfused_route_ref`` at every distinct ``groups == 1``
+    conv geometry of the net.  Inputs take negative values, so the
+    activation zero point is well inside (0, 255) and a padding tap that
+    held 0 instead of ``za`` would show."""
+    rng = np.random.default_rng(23)
+    seen = set()
+    for d in _conv_descriptors(net):
+        geo = (d.i_h, d.i_w, d.i_d, d.f_h, d.stride, d.pad, d.ofm)
+        if geo in seen:
+            continue
+        seen.add(geo)
+        h = _covered_size(d.i_h, d.f_h, d.stride, d.pad)
+        wd = _covered_size(d.i_w, d.f_w, d.stride, d.pad)
+        x = _np(rng, 1, h, wd, d.i_d) - 0.3
+        w = _np(rng, d.f_h, d.f_w, d.i_d, d.ofm, scale=0.1)
+        bias = _np(rng, d.ofm)
+        qp = Q.quantize_graph_params({"l": {"w": torch.from_numpy(w), "b": torch.from_numpy(bias)}})["l"]
+        xt = torch.from_numpy(x)
+        qa, sa, za = Q.quantize_tensor(xt, axis=None)
+        assert 0 < float(za) < 255
+        wt, colsum = K.packed_weights(qp["qw"])
+        acc = _u8_identity_conv(qa, za, wt, colsum, qp["zp"], qp["shape"], d.stride, d.pad)
+        xq = qa.to(torch.int32) - za.to(torch.int32)
+        wq = (qp["qw"].to(torch.int32) - qp["zp"].to(torch.int32)).reshape(qp["shape"])
+        assert torch.equal(acc, K._int_conv(xq, wq, d.stride, d.pad)), f"{net}:{d.name}"
+        y = acc.to(torch.float32) * (sa * qp["scale"]).reshape(-1) + qp["b"]
+        y = torch.relu(y)
+        kw = dict(stride=d.stride, pad=d.pad, relu=True)
+        args = (qp["qw"], qp["scale"], qp["zp"], qp["b"], qp["shape"])
+        assert torch.equal(y, K.qfused_route_ref(xt, *args, **kw)), f"{net}:{d.name}"
+        # the reference's route, eager as its tests run it, on the same
+        # quantized weights (the two packages' quantization is held bitwise
+        # above); under jit XLA would contract its requant step into an FMA
+        ref = RK.qfused_route_ref(jnp.asarray(x), *(jnp.asarray(a.numpy()) for a in args[:4]),
+                                  tuple(qp["shape"]), **kw)
+        _same(y, ref)
+    assert seen
+
+
+@pytest.mark.parametrize("case", [(3, 3, 5, 1, 1), (1, 16, 7, 2, 0), (3, 24, 70, 2, 1)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_u8_identity_padding_must_hold_the_zero_point(case):
+    """With ``za > 0``, padding the u8 input with 0 instead of ``za`` (what
+    a zero-filling copy would do) changes the sum at the border, and only
+    there; ``za`` gives the reference's."""
+    f, c, cout, stride, pad = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(_np(rng, 1, 7, 6, c) - 0.5)
+    w = torch.from_numpy(_np(rng, f, f, c, cout, scale=0.2))
+    qp = Q.quantize_graph_params({"l": {"w": w, "b": torch.zeros(cout)}})["l"]
+    qa, _, za = Q.quantize_tensor(x, axis=None)
+    assert float(za) > 0
+    wt, colsum = K.packed_weights(qp["qw"])
+    args = (qa, za, wt, colsum, qp["zp"], qp["shape"], stride, pad)
+    want = K._int_conv(qa.to(torch.int32) - za.to(torch.int32),
+                       (qp["qw"].to(torch.int32) - qp["zp"].to(torch.int32)).reshape(qp["shape"]),
+                       stride, pad)
+    assert torch.equal(_u8_identity_conv(*args), want)
+    wrong = _u8_identity_conv(*args, pad_value=0)
+    if pad:
+        assert not torch.equal(wrong[:, 0], want[:, 0])  # the top row of outputs reads padding
+        assert torch.equal(wrong[:, 1:-1, 1:-1], want[:, 1:-1, 1:-1])  # the interior does not
+    else:
+        assert torch.equal(wrong, want)
+
+
+def test_packed_weights_transpose_pad_and_column_sums():
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(_np(rng, 3, 3, 3, 10, scale=0.2))
+    qp = Q.quantize_graph_params({"l": {"w": w, "b": torch.zeros(10)}})["l"]
+    qw = qp["qw"]
+    wt, colsum = K.packed_weights(qw)
+    assert wt.dtype == torch.uint8 and tuple(wt.shape) == (10, 32)  # K = 27 rounded up to 16
+    assert torch.equal(wt[:, :27], qw.t()) and not wt[:, 27:].any()
+    assert colsum.dtype == torch.int32 and torch.equal(colsum, qw.to(torch.int32).sum(0))
+    again = K.packed_weights(qw)
+    assert again[0] is wt and again[1] is colsum  # made once per weight tensor
+    qw[0, 0] = 255 - qw[0, 0]  # an in-place change makes them again
+    wt2, colsum2 = K.packed_weights(qw)
+    assert wt2 is not wt and torch.equal(wt2[:, :27], qw.t())
+    assert torch.equal(colsum2, qw.to(torch.int32).sum(0))
+    other = qw.clone()  # an equal tensor is another weight
+    assert K.packed_weights(other)[0] is not wt2

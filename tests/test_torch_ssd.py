@@ -149,3 +149,98 @@ def test_backend_choice_on_the_cpu():
     assert torch.equal(y0, y1) and torch.equal(h0, h1)
     with pytest.raises(ValueError):
         ops.ssd(*args, chunk=8, backend="interpret")
+
+
+# ------------------------- the kernel's chunk-parallel form, mirrored
+def _scan_order_cumsum(la):
+    """``csrc/ssd.cu``'s inclusive cumulative sum of one chunk's log_a, in
+    its order: each 32-step segment by a Kogge-Stone scan (step o adds the
+    value o places down), then the totals of the segments before it added
+    in order, from 0."""
+    q = la.shape[0]
+    nseg = -(-q // 32)
+    v = np.zeros((nseg, 32), np.float32)
+    v.reshape(-1)[:q] = la
+    for o in (1, 2, 4, 8, 16):
+        v[:, o:] = v[:, o:] + v[:, :-o]
+    out, off = np.empty_like(v), np.float32(0.0)
+    for seg in range(nseg):
+        out[seg] = v[seg] + off
+        off = np.float32(off + v[seg, 31])
+    return out.reshape(-1)[:q]
+
+
+def _chunk_parallel_ssd(x, la, B, C, h0, q):
+    """The kernel's arithmetic in numpy f32, S a multiple of q: every chunk
+    computes, from its own inputs alone, L (in scan order), its state
+    summary H_c = sum_s exp(L_end - L_s) B_s x_s^T and its scores; the state
+    goes down the chunks of a sequence in order, h <- exp(L_end) h + H_c
+    (each step rounded); a chunk's output is exp(L) (C h) with the state it
+    was handed, plus scores x."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    y = np.empty_like(x)
+    h_final = np.empty((b, h, n, p), np.float32)
+    causal = np.tril(np.ones((q, q), bool))
+    for bi in range(b):
+        for hi in range(h):
+            state = h0[bi, hi].astype(np.float32)
+            for c in range(s // q):
+                sl = slice(c * q, (c + 1) * q)
+                xc, Bc, Cc = x[bi, sl, hi], B[bi, sl, hi], C[bi, sl, hi]
+                L = _scan_order_cumsum(la[bi, sl, hi])
+                Hc = (Bc * np.exp(L[-1] - L)[:, None]).T @ xc
+                scores = np.where(causal, (Cc @ Bc.T) * np.exp(np.minimum(L[:, None] - L[None, :], 0)), 0)
+                y[bi, sl, hi] = np.exp(L)[:, None] * (Cc @ state) + scores.astype(np.float32) @ xc
+                state = np.float32(np.exp(L[-1])) * state + Hc
+            h_final[bi, hi] = state
+    return y, h_final
+
+
+def _pad_to(a, s, axis=1):
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, s - a.shape[axis])
+    return np.pad(a, pad)
+
+
+# (B, S, H, P, N, chunk): 3 to 5 chunks, a ragged S, chunks of one and two
+# 32-step segments (40: the second part-filled), N not a multiple of 4
+MIRROR_CASES = [(2, 48, 3, 8, 4, 16), (1, 149, 2, 8, 4, 64), (2, 200, 2, 4, 3, 40), (1, 96, 2, 12, 5, 32)]
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_chunk_parallel_mirror_matches_reference_kernel_and_oracle(case):
+    b, s, h, p, n, chunk = case
+    rng = np.random.default_rng(s * h + n)
+    x, la, B, C = _inputs(rng, b, s, h, p, n)
+    h0 = rng.standard_normal((b, h, n, p)).astype(np.float32)
+    sp = -(-s // chunk) * chunk  # ops.ssd's padding: x = B = C = 0, log_a = 0
+    xp, lap, Bp, Cp = (_pad_to(a, sp) for a in (x, la, B, C))
+    assert sp // chunk >= 3
+    y_m, hf_m = _chunk_parallel_ssd(xp, lap, Bp, Cp, h0, chunk)
+    y_m = y_m[:, :s]
+    y_k, hf_k = jax.vmap(lambda *a: ref_ssd_kernel(*a, chunk=chunk, interpret=True))(xp, lap, Bp, Cp, h0)
+    y_o, hf_o = ref_ssd_scan(x, la, B, C, chunk=chunk, h0=h0)
+    y_t, hf_t = ops.ssd(*_t(x, la, B, C, h0), chunk=chunk)
+    for want_y, want_h in ((np.asarray(y_k)[:, :s], hf_k), (y_o, hf_o), (y_t.numpy(), hf_t.numpy())):
+        np.testing.assert_allclose(y_m, np.asarray(want_y), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(hf_m, np.asarray(want_h), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("q", [7, 32, 40, 64, 128])
+def test_scan_order_cumsum_is_a_cumulative_sum(q):
+    la = (-np.abs(np.random.default_rng(q).standard_normal(q)) * 0.3).astype(np.float32)
+    got = _scan_order_cumsum(la)
+    np.testing.assert_allclose(got, np.cumsum(la.astype(np.float64)), rtol=1e-6, atol=1e-6)
+    if q <= 32:  # one segment: the first 2 steps are exact either way
+        assert got[0] == la[0] and got[1] == np.float32(la[0] + la[1])
+
+
+def test_rows_of_16_bytes_decides_the_wide_loads():
+    from repro_torch.kernels.ssd import _rows_of_16_bytes
+
+    x = torch.zeros(2, 64, 3, 64, dtype=torch.bfloat16)
+    assert _rows_of_16_bytes(x)
+    assert _rows_of_16_bytes(torch.zeros(2, 64, 1, 16).expand(2, 64, 50, 16))  # head stride 0
+    assert not _rows_of_16_bytes(torch.zeros(2, 64, 3, 12, dtype=torch.bfloat16))  # 24-byte rows
+    assert not _rows_of_16_bytes(torch.zeros(2, 64, 3, 65)[..., 1:])  # rows off a 16-byte boundary
