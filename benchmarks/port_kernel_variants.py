@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Sweep build-time variants of the port's B5 (flash-decode), B3 (GEMM)
-and B6 (SSD scan) kernels, and of B1 (fused conv) and B2 (fused fc GEMM),
-which share B3's source, on one NVIDIA card, beside the library call each
-one is held to; and time B1q (the quantized conv) beside its first version.
+"""Sweep build-time variants of the port's B5 (flash-decode), B3 (GEMM),
+B6 (SSD scan) and B4 (patch matrix) kernels, and of B1 (fused conv) and
+B2 (fused fc GEMM), which share B3's source, on one NVIDIA card, beside
+the library call each one is held to; and time B1q (the quantized conv)
+beside its first version.
 
     python3 benchmarks/port_kernel_variants.py [--out FILE] [--only SECTIONS] [--old DIR]
 
@@ -11,7 +12,8 @@ earlier tree: the sources of it that a section knows how to call are
 built and timed beside the built ones, in the same process (``ssd.cu``
 with the first, one-block-per-sequence ``ssd_fwd``; ``conv_fused.cu``
 with the first int32 ``conv_fused_i32`` or the first f32
-``conv_fused_f32``; ``matmul_fused.cu``).
+``conv_fused_f32``; ``matmul_fused.cu``; ``im2col.cu`` with the first,
+one-block-per-row ``im2col_f32`` on contiguous input).
 
 Each variant is ``src/repro_torch/kernels/csrc/<kernel>.cu`` with some
 of its constants (B5, B6) or tile definitions (B3) replaced, built by nvcc
@@ -47,7 +49,16 @@ object per line and, with ``--out``, writes them all to FILE:
   ready u8 operands for each of its tile variants (all bitwise equal to
   the plain version), the whole call (quantization included), the
   quantization alone, and the old int32 kernel on ready shifted operands
-  (``--old``), with the bound on the int8 tensor cores.
+  (``--old``), with the bound on the int8 tensor cores;
+* ``im2col``: B4 at each distinct conv of VGG-16 at batch 4 (and summed
+  over the 13 convs): each variant (span size, loads in flight a thread,
+  evict-first stores, registers) on the path its input takes, alone and
+  followed by the conv's GEMM (B3, which reads the matrix back), the
+  built kernel's staged path forced, the old kernel (``--old``), and the
+  library yardstick ``im2col_library`` (``F.pad`` plus one strided copy,
+  and the copy alone on the padded input), every one bitwise equal to
+  ``im2col_ref``; with each layer's byte bound (input read once, patch
+  matrix written once, over 3.35 TB/s).
 
 Times are device times: a run of calls queued behind a sleep kernel,
 between two CUDA events.  Nothing here runs without a card.
@@ -88,6 +99,17 @@ SSD_VARIANTS = {
     "registers80": {"MINB": "3"},  # three blocks an SM, up to 80 registers a thread
     "threads128": {"NT": "128", "MINB": "8"},
     "phase_clocks": {"CLOCK_TICKETS": "4096"},  # the built kernel with its phases clocked
+}
+IM2COL_VARIANTS = {
+    "built": {},
+    "span2k": {"SPAN4": "2048"},
+    "stage2k": {"STAGE": "2048"},
+    "stage8k": {"STAGE": "8192"},
+    "unroll2": {"U": "2"},
+    "unroll8": {"U": "8"},
+    "plain_stores": {"STREAMING": "0"},
+    "uncapped": {"MINB": "1"},  # registers as the compiler likes (94 staged, 46 16-byte)
+    "minb8": {"MINB": "8"},  # registers capped for 8 blocks of 256 an SM
 }
 SSD_PHASES = ("staged", "scanned", "weights", "H_c and waited", "state loaded", "published", "scores", "y")
 COPY_ONLY = r"""
@@ -178,9 +200,12 @@ def _build(sources, tmp):
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{log}")
         libs[name] = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
-        # ptxas: "Compiling entry function '<mangled>'" then "Used N registers"
-        kernels = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", log, re.S)
-        registers[name] = {_short(k): int(r) for k, r in kernels}
+        # ptxas: "Compiling entry function '<mangled>'", "N bytes spill stores",
+        # then "Used N registers"
+        kernels = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                             log, re.S)
+        registers[name] = {_short(k): int(r) if not int(sp) else f"{r} ({sp} bytes spilled)"
+                           for k, sp, r in kernels}
     return libs, registers
 
 
@@ -337,11 +362,81 @@ def qconv_section(emit, libs, randn, device_ms, stream, dev, vgg, shapes):
     emit({"kernel": "qconv2d_fused", "vgg16_totals_ms": totals})
 
 
+def im2col_section(emit, libs, randn, device_ms, stream, vgg, shapes):
+    """B4 at each distinct VGG-16 conv at batch 4: every variant, the
+    staged path, the old kernel and the library copy, all bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import im2col as I
+    from repro_torch.kernels import runtime as R
+
+    built = {name[len("im2col_"):]: lib for name, lib in libs.items()
+             if name.startswith("im2col_") and name != "im2col_old"}
+    for lib in built.values():
+        lib.im2col_f32.argtypes = [R.P] * 2 + [R.I] * 10 + [R.L] * 3 + [R.I, R.P]
+    old = libs.get("im2col_old")
+    if old is not None:  # the first kernel: one block a row, contiguous input
+        old.im2col_f32.argtypes = [R.P] * 2 + [R.I] * 10 + [R.P]
+    layers = {}
+    for node in vgg.major_nodes():
+        if node.kind == "conv":
+            h, w, c = shapes[node.inputs[0]]
+            key = (h, w, c, node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"], node.attrs["out_ch"])
+            layers.setdefault(key, []).append(node.name)
+    totals = {}
+    for (h, w, c, fk, st, pd, cout), names in layers.items():
+        b = 4
+        x = randn(b, h, w, c)
+        w2 = randn(fk * fk * c, cout, scale=(fk * fk * c) ** -0.5)
+        ref = I.im2col_ref(x, fk, fk, st, pd)
+        oh, ow = I.out_hw(h, w, fk, fk, st, pd)
+        geo = (b, h, w, c, fk, fk, st, pd, oh, ow)
+        row = {"kernel": "im2col", "layers": names, "m": ref.shape[0], "k": ref.shape[1],
+               "path": "16-byte" if I.wide_path(x) else "staged",
+               "bound_ms": 4.0 * (x.numel() + ref.numel()) / 3.35e12 * 1e3}
+
+        def timed(call, out):
+            """The call's time, its bits, and its time with the conv's GEMM
+            (B3) after it, which reads the matrix back (from L2 in part)."""
+            R.check(call(), "im2col_f32")
+            return {"ms": device_ms(call, 20), "bitwise": bool(torch.equal(out, ref)),
+                    "then_gemm_ms": device_ms(lambda: (call(), G.gemm(out, w2)), 10)}
+
+        for name, lib in built.items():
+            for wide in ((int(I.wide_path(x)), 0) if name == "built" else (int(I.wide_path(x)),)):
+                out = torch.empty_like(ref)
+                call = lambda: lib.im2col_f32(  # noqa: E731
+                    x.data_ptr(), out.data_ptr(), *geo, *I.kernel_strides(x), wide, stream())
+                row[name if wide == int(I.wide_path(x)) else f"{name}/staged"] = timed(call, out)
+        if old is not None:
+            out = torch.empty_like(ref)
+            row["old"] = timed(lambda: old.im2col_f32(x.data_ptr(), out.data_ptr(), *geo, stream()), out)
+        xp = F.pad(x, (0, 0, pd, pd, pd, pd))
+        patches = I.patch_view(xp, fk, fk, st, oh, ow)
+        row["library"] = {"ms": device_ms(lambda: I.im2col_library(x, fk, fk, st, pd), 20),
+                          "bitwise": bool(torch.equal(I.im2col_library(x, fk, fk, st, pd), ref))}
+        row["library_copy_only"] = {"ms": device_ms(lambda: patches.reshape(ref.shape), 20),
+                                    "bitwise": bool(torch.equal(patches.reshape(ref.shape), ref))}
+        row["bound_share"] = row["bound_ms"] / row["built"]["ms"]
+        for key, val in row.items():
+            if isinstance(val, dict) or key == "bound_ms":
+                totals[key] = totals.get(key, 0.0) + len(names) * (val["ms"] if isinstance(val, dict) else val)
+            if isinstance(val, dict) and "then_gemm_ms" in val:
+                key = f"{key}+gemm"
+                totals[key] = totals.get(key, 0.0) + len(names) * val["then_gemm_ms"]
+        emit(row)
+        del x, w2, ref, xp, patches
+    emit({"kernel": "im2col", "vgg16_totals_ms": totals,
+          "bound_share": totals["bound_ms"] / totals["built"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
-    ap.add_argument("--only", default="flash_decode,gemm,conv,fc,ssd,qconv",
-                    help="comma-separated sections: flash_decode, gemm, conv, fc, ssd, qconv")
+    ap.add_argument("--only", default="flash_decode,gemm,conv,fc,ssd,qconv,im2col",
+                    help="comma-separated sections: flash_decode, gemm, conv, fc, ssd, qconv, im2col")
     ap.add_argument("--old", help="csrc directory of an earlier tree, whose kernels are timed beside")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -396,6 +491,8 @@ def main() -> int:
             sources.update(_variant_sources("ssd", SSD_VARIANTS))
         if "qconv" in only:
             sources["qconv_built"] = open(os.path.join(build.CSRC, "conv_fused.cu")).read()
+        if "im2col" in only:
+            sources.update(_variant_sources("im2col", IM2COL_VARIANTS))
         wanted = set()  # the earlier tree's sources the sections call
         if only & {"gemm", "conv", "fc"}:
             wanted |= {"conv_fused", "matmul_fused", "gemm"}
@@ -403,6 +500,8 @@ def main() -> int:
             wanted.add("ssd")
         if "qconv" in only:
             wanted.add("conv_fused")
+        if "im2col" in only:
+            wanted.add("im2col")
         for name in sorted(wanted) if args.old else ():
             path = os.path.join(args.old, f"{name}.cu")
             if os.path.exists(path):
@@ -569,6 +668,9 @@ def main() -> int:
         # ------------------------------------------------ B1q quantized conv
         if "qconv" in only:
             qconv_section(emit, libs, randn, device_ms, stream, dev, vgg, shapes)
+        # ------------------------------------------------ B4 patch matrix
+        if "im2col" in only:
+            im2col_section(emit, libs, randn, device_ms, stream, vgg, shapes)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card, at
    batch 1 over the six nets: the fused conv at every distinct
    ``groups == 1`` conv geometry and the fused dense GEMM at every fc
-   shape (3a); the patch matrix (B4) at every conv geometry, bitwise; the
+   shape (3a); the patch matrix (B4) at every conv geometry at batch 1
+   and 4, and at AlexNet's sliced convs on the
+   channel-slice views the served graph hands it (each launched once, read
+   in place), bitwise, with its library yardstick ``im2col_library``; the
    GEMM (B3) at every ``groups == 1`` conv GEMM shape and every fc
    shape; the quantized conv (B1q) at every ``groups == 1`` conv
    geometry, bitwise (3c).  Then time every kernel at VGG-16's shapes at
@@ -30,7 +33,10 @@ Phases (any failure exits non-zero):
    operands, equal ``qfused_route_ref``.  B1q is timed as that kernel
    alone, with its bound on the int8 tensor cores, beside the whole call
    (quantization included), the quantization alone and the filter's
-   packing, which a layer does once;
+   packing, which a layer does once.  B4 is timed beside
+   ``im2col_library`` (``F.pad``, then one strided copy; the copy alone
+   beside it), both bitwise equal, and its per-layer times are printed on
+   a line of their own;
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
    batch_size=4)``, with 32 seeded images; the launch counters must show
    13 conv and 3 dense launches per micro-batch, the outputs must be
@@ -161,9 +167,11 @@ LM_KERNELS = {
 }
 NO_LIBRARY = {
     "qconv2d_fused": "no PyTorch call computes an int32 conv on CUDA",
-    "im2col": "F.unfold gives another layout ([B, C*FH*FW, L]) and feature order",
     "ssd": "no PyTorch call computes the SSD chunked scan",
 }
+# per-layer numbers of 3d that are also summed over the layers
+EXTRA_TOTALS = ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms",
+                "library_copy_only_ms")
 # Hymba-1.5B served at full width: batch 4, a 768-token prompt (896 with the
 # 128 meta tokens), 128 greedy steps, so max_len = 1024 = the window
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "hymba-1.5b", 4, 768, 128
@@ -743,11 +751,37 @@ def main() -> int:
     mark("3a")
 
     # --------------------------- 3c. correctness of B4, B3, B1q, all nets
-    im2col_bad = []
+    # B4 at batch 1 and 4 (spans of runs cross images) and the library
+    # yardstick; AlexNet's sliced convs as the channel-slice views the
+    # served graph hands over
+    im2col_bad, im2col_paths = [], {"wide": 0, "staged": 0}
     for (h, w, c, fh, fw, st, pd), where in all_convs.items():
-        x = torch.randn(1, h, w, c, device=dev, generator=gen)
-        if not torch.equal(ops.im2col_batched(x, fh, fw, st, pd), I.im2col_ref(x, fh, fw, st, pd)):
-            im2col_bad.append(where)
+        for bsz in (1, BATCH):
+            x = torch.randn(bsz, h, w, c, device=dev, generator=gen)
+            r = I.im2col_ref(x, fh, fw, st, pd)
+            im2col_paths["wide" if I.wide_path(x) else "staged"] += 1
+            if not torch.equal(ops.im2col_batched(x, fh, fw, st, pd), r):
+                im2col_bad.append(f"{where} batch {bsz}")
+            if not torch.equal(I.im2col_library(x, fh, fw, st, pd), r):
+                im2col_bad.append(f"{where} batch {bsz} im2col_library")
+            del r
+    alex = MODELS["alexnet"]()
+    alex_shapes, by_name = alex.infer_shapes(), {nd.name: nd for nd in alex.nodes}
+    sliced = [(nd, by_name[nd.inputs[0]]) for nd in alex.nodes
+              if nd.kind == "conv" and nd.inputs[0] in by_name and by_name[nd.inputs[0]].kind == "slice"]
+    for nd, sl in sliced:
+        h, w, pitch = alex_shapes[sl.inputs[0]]
+        fk, st, pd = nd.attrs["kernel"], nd.attrs["stride"], nd.attrs["pad"]
+        for bsz in (1, BATCH):
+            view = torch.randn(bsz, h, w, pitch, device=dev, generator=gen)[..., sl.attrs["lo"]:sl.attrs["hi"]]
+            before = K.launch_counts()["im2col"]
+            cols = ops.im2col_batched(view, fk, fk, st, pd)
+            if K.launch_counts()["im2col"] != before + 1 or not I.wide_path(view) or not (
+                torch.equal(cols, I.im2col_ref(view, fk, fk, st, pd))
+                and torch.equal(cols, ops.im2col_batched(view.contiguous(), fk, fk, st, pd))
+            ):
+                im2col_bad.append(f"alexnet:{nd.name} channel-slice view batch {bsz}")
+            del cols
     gemm_shapes = [
         (((h - fh + 2 * pd) // st + 1) * ((w - fw + 2 * pd) // st + 1), fh * fw * c, cout, where)
         for (h, w, c, fh, fw, st, pd, cout), where in convs.items()
@@ -772,7 +806,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(json.dumps({
         "correctness_unfused_and_quantized": {
-            "im2col": {"geometries": len(all_convs), "not_bitwise": im2col_bad},
+            "im2col": {"geometries": len(all_convs), "batches": [1, BATCH], "paths": im2col_paths,
+                       "alexnet_slice_views": [nd.name for nd, _ in sliced], "not_bitwise": im2col_bad},
             "gemm": {"shapes": len(gemm_shapes), "max_abs_err": gemm_worst[0],
                      "worst_err_over_tol": gemm_worst[1], "worst_at": gemm_worst[2]},
             "qconv2d_fused": {"geometries": len(convs), "not_bitwise": qconv_bad},
@@ -789,7 +824,8 @@ def main() -> int:
     shapes = vgg.infer_shapes()
     totals = {n: {"ms": 0.0, "host_paced_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "flop_ms": 0.0, "byte_ms": 0.0, "max_abs_err": 0.0} for n in KERNELS}
-    not_bitwise = []  # 3d's bitwise checks of B1, B2, B3
+    not_bitwise = []  # 3d's bitwise checks of B1, B2, B3, B4
+    layer_rows = {}  # each kernel's 3d rows, in layer order
 
     def record(name, where, kern, plain, lib, y, r, op_ms, byte_ms, exact=False, **extra):
         err, ratio = tol_ok(y, r)
@@ -812,7 +848,8 @@ def main() -> int:
         row["bound_by"] = "operations" if op_ms >= byte_ms else "bytes"
         print(json.dumps(row))
         t = totals[name]
-        for key in ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms"):
+        layer_rows.setdefault(name, []).append(row)
+        for key in EXTRA_TOTALS:
             if key in extra:
                 t[key] = t.get(key, 0.0) + extra[key]
         t["max_abs_err"] = max(t["max_abs_err"], err)
@@ -855,16 +892,25 @@ def main() -> int:
                 y, K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu),
                 flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3,
             )
-            # B4: the patch matrix of this conv
+            # B4: the patch matrix of this conv, beside one PyTorch copy of
+            # the same matrix (im2col_library: F.pad, then one strided copy;
+            # the copy alone on the padded input beside it), bitwise equal
             cols = ops.im2col_batched(x, fk, fk, st, pd)
+            cols_ref = I.im2col_ref(x, fk, fk, st, pd)
+            if not torch.equal(I.im2col_library(x, fk, fk, st, pd), cols_ref):
+                not_bitwise.append(f"im2col_library vs im2col_ref at {where}")
+            patches = I.patch_view(F.pad(x, (0, 0, pd, pd, pd, pd)), fk, fk, st, oh, ow)
             record(
                 "im2col", where,
                 lambda: ops.im2col_batched(x, fk, fk, st, pd),
-                lambda: I.im2col_ref(x, fk, fk, st, pd), None,
-                cols, I.im2col_ref(x, fk, fk, st, pd),
+                lambda: I.im2col_ref(x, fk, fk, st, pd),
+                lambda: I.im2col_library(x, fk, fk, st, pd),
+                cols, cols_ref,
                 0.0, 4.0 * (x.numel() + cols.numel()) / bytes_peak * 1e3, exact=True,
-                library_null_reason=NO_LIBRARY["im2col"],
+                library_copy_only_ms=device_ms(lambda: patches.reshape(m, k), torch),
+                path="16-byte" if I.wide_path(x) else "staged",
             )
+            del cols_ref, patches
             # B3: the conv's GEMM on that patch matrix; its first rows
             # bitwise equal to the skinny path's, and every tile variant's
             w2 = wt.reshape(k, cout)
@@ -962,18 +1008,24 @@ def main() -> int:
             )
         del y
 
+    print(json.dumps({"im2col_layers_3d": [
+        {"layer": row["shape"], "path": row["path"], "device_ms": row["kernel_ms"],
+         "library_ms": row["library_ms"],
+         "library_copy_only_ms": row["library_copy_only_ms"], "bound_ms": row["bound_ms"],
+         "bound_share": row["bound_ms"] / row["kernel_ms"]}
+        for row in layer_rows["im2col"]]}))
     print(json.dumps({"bitwise_3d": {
         "checks": "B1 batch 1 = batch 4 and every tile variant, B1 = relu(gemm(im2col) + b); "
                   "B2 rows at M = 1, 4, 8, 16 and = relu(gemm + b); B3 tiled = skinny rows, every tile variant; "
-                  "B1q every tile variant and the kernel alone = qfused_route_ref",
+                  "B1q every tile variant and the kernel alone = qfused_route_ref; "
+                  "B4's library yardstick im2col_library = im2col_ref",
         "not_bitwise": not_bitwise}}))
     check(not not_bitwise, f"bitwise checks failed: {not_bitwise[:5]}")
     print(json.dumps({"kernel_totals_3d": {
         n: {"device_ms": t["ms"], "host_paced_ms": t["host_paced_ms"], "plain_device_ms": t["plain_ms"],
             "library_device_ms": None if n in NO_LIBRARY else t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_share": t["bound_ms"] / t["ms"] if t["ms"] else None,
-            **{k: t[k] for k in ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms")
-               if k in t}}
+            **{k: t[k] for k in EXTRA_TOTALS if k in t}}
         for n, t in totals.items()}}))
 
     mark("3b,3d")

@@ -212,13 +212,18 @@ def test_gemm_kernel_matches_plain(cuda, case):
         assert torch.equal(G.gemm_tiled(a, b, variant), y)
 
 
+# (B, H, W, C, stride, pad): C = 3, 5, 70 take the staged path, C = 8, 64
+# the 16-byte one; at batch 4 and these sizes spans cross image boundaries
 @pytest.mark.parametrize("case", [(1, 9, 8, 3, 1, 0), (2, 9, 8, 3, 1, 1), (2, 13, 13, 3, 2, 2),
-                                  (1, 23, 23, 3, 4, 0), (2, 7, 7, 70, 1, 1), (1, 6, 7, 5, 2, 0)],
+                                  (1, 23, 23, 3, 4, 0), (2, 7, 7, 70, 1, 1), (1, 6, 7, 5, 2, 0),
+                                  (4, 6, 7, 8, 1, 1), (4, 9, 9, 5, 2, 2), (3, 11, 10, 64, 1, 1),
+                                  (4, 15, 15, 3, 4, 2)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_im2col_kernel_matches_plain_bitwise(cuda, case):
     b, h, w, c, stride, pad = case
     rng = np.random.default_rng(sum(case))
     x = _on(cuda, rng, b, h, w, c)
+    assert I.wide_path(x) == (c % 4 == 0)
     for f in (1, 3, 5):
         if (h - f + 2 * pad) // stride + 1 < 1:
             continue
@@ -227,6 +232,71 @@ def test_im2col_kernel_matches_plain_bitwise(cuda, case):
         assert K.launch_counts()["im2col"] == before + 1
         assert torch.equal(cols, I.im2col_ref(x, f, f, stride, pad))
         assert torch.equal(ops.im2col(x[0], f, f, stride, pad), I.im2col_ref(x[:1], f, f, stride, pad))
+        assert torch.equal(I.im2col_library(x, f, f, stride, pad), cols)
+
+
+# (C, F, stride, pad, pitch, channel offset): AlexNet's grouped convs read
+# channel slices (48 of 96, 192 of 384); 16-byte aligned offsets take the
+# 16-byte path, the others the staged one
+@pytest.mark.parametrize("case", [(48, 5, 1, 2, 96, 0), (48, 5, 1, 2, 96, 48), (192, 3, 1, 1, 384, 192),
+                                  (8, 3, 2, 1, 16, 4), (8, 3, 1, 1, 13, 2), (48, 3, 1, 1, 96, 47)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_im2col_reads_a_channel_slice_in_place(cuda, case):
+    c, f, stride, pad, pitch, at = case
+    rng = np.random.default_rng(pitch + at)
+    full = _on(cuda, rng, 4, 13, 12, pitch)
+    view = full[..., at:at + c]
+    assert not view.is_contiguous()
+    assert I.wide_path(view) == (c % 4 == 0 and at % 4 == 0 and pitch % 4 == 0)
+    before = K.launch_counts()["im2col"]
+    cols = I.im2col(view, f, f, stride, pad)
+    assert K.launch_counts()["im2col"] == before + 1
+    want = I.im2col(view.contiguous(), f, f, stride, pad)
+    assert torch.equal(cols, want)
+    assert torch.equal(cols, I.im2col_ref(view, f, f, stride, pad))
+
+
+@pytest.mark.parametrize("c", [3, 64], ids=lambda c: f"conv1_{1 if c == 3 else 2}")
+def test_im2col_at_vgg16_first_convs_full_shape(cuda, c):
+    """VGG-16's conv1_1 (staged path) and conv1_2 (16-byte path, a
+    462 MB patch matrix) at batch 4."""
+    x = _on(cuda, np.random.default_rng(c), 4, 224, 224, c)
+    cols = I.im2col(x, 3, 3, 1, 1)
+    assert tuple(cols.shape) == (4 * 224 * 224, 9 * c)
+    assert torch.equal(cols, I.im2col_ref(x, 3, 3, 1, 1))
+    del cols
+    assert torch.equal(I.im2col_library(x, 3, 3, 1, 1), I.im2col_ref(x, 3, 3, 1, 1))
+
+
+def test_im2col_refuses_what_it_does_not_take(cuda):
+    nchw = torch.zeros(1, 3, 6, 6, device=cuda).permute(0, 2, 3, 1)  # channel stride 36
+    with pytest.raises(ValueError):
+        I.im2col(nchw, 3, 3, 1, 1)
+    with pytest.raises(TypeError):
+        I.im2col(torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float16), 3, 3)
+    with pytest.raises(ValueError):  # no output pixel
+        I.im2col(torch.zeros(1, 2, 2, 8, device=cuda), 3, 3)
+
+
+def test_cuda_route_takes_every_conv_input_of_the_six_nets_as_it_lies(cuda):
+    """No conv input of the six nets on the ``cuda`` route (channel slices,
+    pool and depthwise outputs) has a layout the patch-matrix kernel
+    refuses: every group of every conv launches it once."""
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels.backend import resolve_backend
+
+    kb = resolve_backend("cuda")
+    for net, make in sorted(MODELS.items()):
+        g = make()
+        params = g.init(seed=0, device=cuda)
+        x = _on(cuda, np.random.default_rng(0), 2, *g.infer_shapes()["input"])
+        want = sum(n.attrs.get("groups", 1) for n in g.nodes if n.kind == "conv")
+        K.reset_launches()
+        with torch.no_grad():
+            y = g.apply(params, x, backend=kb)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["im2col"] == want, net
+        assert bool(torch.isfinite(y).all()), net
 
 
 @pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c)))
