@@ -519,8 +519,8 @@ def main() -> int:
             part = torch.empty(b * hkv * -(-w // split) * g * (d + 2), device=dev)
             out = torch.empty_like(q)
             fn = lib.flash_decode_fwd
-            fn.argtypes = [R.P] * 5 + [R.I] * 7 + [R.F, R.P]
-            R.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(), 1,
+            fn.argtypes = [R.P] * 6 + [R.I] * 7 + [R.F, R.P]
+            R.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(), None, 1,
                        b, hkv, g, d, w, length, 1.0 / d ** 0.5, stream()), "flash_decode_fwd")
             return out
 

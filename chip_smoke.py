@@ -38,15 +38,27 @@ Phases (any failure exits non-zero):
    beside it), both bitwise equal, and its per-layer times are printed on
    a line of their own;
 4. drive the port's main path, ``serve("vgg16", backend="cuda_fused",
-   batch_size=4)``, with 32 seeded images; the launch counters must show
-   13 conv and 3 dense launches per micro-batch, the outputs must be
-   bitwise equal to the single-stage ``cuda_fused`` engine's and close to
-   the plain ``torch`` route's; then time the same server over three
-   steady windows of 1024 images each.  4b: the same for the unfused
-   route, ``serve("vgg16", backend="cuda", ...)`` on the same weights:
-   13 im2col and 16 GEMM launches per micro-batch and no fused one,
-   bitwise equal to the single-stage ``cuda`` engine and to the served
-   ``cuda_fused`` outputs (the fused kernels sum in the GEMM's order).
+   batch_size=4)``, with 32 seeded images, twice on the same weights:
+   with the stage functions op by op (``stage_fn_builder=`` the eager
+   builder), then as CUDA graphs (the default: each stage captured at
+   its first micro-batch, replayed for every later one).  In each the
+   launch counters must show 13 conv and 3 dense launches per
+   micro-batch (a replay counts what its capture recorded) and the
+   graph launches one per stage and micro-batch (none op by op); the
+   graph outputs must be bitwise equal to the eager outputs and to the
+   single-stage ``cuda_fused`` engine's (itself a graph) and close to the
+   plain ``torch`` route's; each server is timed over three steady
+   windows of 1024 images and traced by the profiler over a window of
+   256 (the device's busy share).  On the live graph server a thread
+   submits 128 images while ``swap_plan`` moves to another plan: no ticket
+   may be lost or change its bits, the old graphs are never replayed
+   again, and the new epoch's replays count as before.  4b: the same for
+   the unfused route, ``serve("vgg16", backend="cuda", ...)``: 13 im2col
+   and 16 GEMM launches per micro-batch and no fused one, bitwise equal
+   to its eager outputs, to the single-stage ``cuda`` engine and to the
+   served ``cuda_fused`` outputs in each mode (the fused kernels sum in
+   the GEMM's order).  The eager-against-graph numbers of both routes go
+   on a ``serve_eager_vs_graph`` line.
    4c: the quantized path at full width: each of the served VGG-16's 13 conv nodes through
    ``make_quant_conv_fn(..., kernel=True)`` on its real batch-4 input
    (teacher-forced from a ``cuda_fused`` forward), bitwise equal to
@@ -57,20 +69,28 @@ Phases (any failure exits non-zero):
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
    side of the first split boundary, and S = 32768 with prefixes 1 and
    777 (most splits empty), batch 4 with 5 KV heads, f32 and bf16; a row
-   at batch 1 and a second call must give the same bits; 6b the SSD scan
+   at batch 1, a second call and the length read on the device (as the
+   captured decode step passes it; past S it clamps to S) must give the
+   same bits; 6b the SSD scan
    (B6) at Hymba's 50 heads
    of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
    f32 and bf16; 6c serves Hymba-1.5B at full width (32 layers, random
    weights from seed 0) through ``repro_torch.launch.serve.generate``, the
    CLI's own loop: batch 4, a 768-token prompt (896 with the meta tokens),
-   128 greedy steps.  The launch counters must show exactly 32 SSD and no
+   128 greedy steps, the first op by op and the rest replaying one
+   captured step.  The launch counters must show exactly 32 SSD and no
    other launch in the prefill and exactly 32 flash-decode launches and no
-   other in each decode step.  A second run repeats every B5 and B6 call
+   other in each decode step, and one graph launch in each step after
+   the first.  The same 128 steps op by op, and both again in f32, must
+   give the same greedy tokens and bitwise equal logits at every step.
+   A further run, op by op, repeats every B5 and B6 call
    of the prefill and 8 decode steps through the plain version on the
    same activations; the prefill's last hidden state and the logits of 8
    teacher-forced decode steps are compared with the plain route's, gated
-   in f32 and printed in bf16; a profiler trace of 3 decode steps gives
-   the device's busy and idle share.  6d times B5 at the served shape and
+   in f32 and printed in bf16; a profiler trace of 3 decode steps, op by
+   op and replayed, gives the device's busy and idle share and the host's
+   CUDA API calls a step.  6d times B5 (its length on the device, the int
+   form beside it) at the served shape and
    at ``decode_32k``'s (batch 16, 32768 slots) and B6 at the served
    prefill's (one memset and one kernel launch a call), each beside its
    plain version, its bound and, for B5,
@@ -118,6 +138,8 @@ SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-6
 N_IMAGES = 32
 STEADY_IMAGES = 1024  # per steady window: 256 micro-batches, some seconds
 STEADY_REPS = 3
+PROFILE_IMAGES = 256  # one steady window traced by torch.profiler: 64 micro-batches
+SWAP_IMAGES = 128  # submitted by a thread while swap_plan runs
 BATCH = 4
 SEED = 0
 DEVICE = "cuda"
@@ -252,6 +274,12 @@ def device_ms(fn, torch, target_ms=20.0):
     return s.elapsed_time(e) / n
 
 
+def cuda_api_call(name: str) -> bool:
+    """A profiler key that names a CUDA runtime or driver API call
+    (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cuLaunchKernel``, ...)."""
+    return name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper())
+
+
 def bf16_ulp(torch, r):
     """Spacing of bf16 numbers (8 significant bits) at |r|, taken no finer
     than at 2^-8 of the largest |r|: an output that cancels to near 0 is
@@ -275,7 +303,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     from repro_torch.kernels import runtime
     from repro_torch.kernels import ssd as SSD
     from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_eager_serve_step, make_prefill_step, make_serve_step
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.model import N_META_TOKENS
 
@@ -309,6 +337,13 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                         y1 = OPS.flash_decode(q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(), length)
                         if not (torch.equal(y1, y[2:3]) and torch.equal(OPS.flash_decode(q, k, v, length), y)):
                             fd_not_bitwise.append(where)
+                        # the length read on the device, as a captured decode
+                        # step passes it: the int form's bits at batch 4 and 1
+                        dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
+                        if not (torch.equal(OPS.flash_decode(q, k, v, dev_len), y) and torch.equal(
+                                OPS.flash_decode(q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(),
+                                                 dev_len), y1)):
+                            fd_not_bitwise.append(f"{where} device length")
                         if dtype == torch.float32:
                             r = OPS.flash_decode(q, k, v, length, backend="torch")
                             ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
@@ -320,6 +355,11 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                         if ratio >= fd_worst[dname][0]:
                             fd_worst[dname] = (ratio, where)
                         fd_cases += 1
+                    # a device length past W is clamped to W, as the reference's
+                    # position mask would take every slot
+                    past = torch.tensor([s_len + 5], dtype=torch.int32, device=dev)
+                    if not torch.equal(OPS.flash_decode(q, k, v, past), OPS.flash_decode(q, k, v, s_len)):
+                        fd_not_bitwise.append(f"G{g} D{d} S{s_len} {dname} device length past W")
 
     # ---------------------------- 6b. B6 against its plain version
     ssd_cases, ssd_worst = [], 0.0
@@ -351,7 +391,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     print(json.dumps({"correctness_lm_kernels": {
         "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
                          "worst_at": {k: v[1] for k, v in fd_worst.items()},
-                         "batch1_or_repeat_not_bitwise": fd_not_bitwise,
+                         "device_length_cases": fd_cases,
+                         "batch1_repeat_or_device_length_not_bitwise": fd_not_bitwise,
                          "tolerance": {"float32": f"|y-r| <= {FD_TOL} + {FD_TOL}*|r|",
                                        "bfloat16": "|y - r_f32| <= 1 bf16 ulp of r_f32 (no finer than at 2^-8 max|r_f32|)"}},
         "ssd": {"cases": ssd_cases, "tolerance": {"float32": f"rtol=atol={FD_TOL}",
@@ -359,7 +400,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     }}))
     for dname, (ratio, where) in fd_worst.items():
         check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
-    check(not fd_not_bitwise, f"flash_decode rows differ at batch 1 or between calls at {fd_not_bitwise[:3]}")
+    check(not fd_not_bitwise, f"flash_decode rows differ at batch 1, between calls or with a device length "
+                              f"at {fd_not_bitwise[:3]}")
     check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
 
@@ -373,29 +415,58 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     n_params = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(SEED))
-    generate(cfg, model, prompt[:, :64], 2)  # warm-up: cuBLAS handles, first launches
+    for graphs in (True, False):  # warm-up: cuBLAS handles, first launches, a capture
+        generate(cfg, model, prompt[:, :64], 3, graphs=graphs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     per_step = []
 
     def hook(phase, i):
-        per_step.append((phase, runtime.launch_counts()))
+        per_step.append((phase, runtime.launch_counts(), runtime.graph_launches()))
         runtime.reset_launches()
 
+    # the served run: the first decode step op by op, then one captured
+    # step replayed (launch/steps.py::GraphedServeStep); each replay counts
+    # the launches its capture recorded, and one graph launch
     runtime.reset_launches()
-    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_CHECK_STEPS, step_hook=hook)
+    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN, step_hook=hook)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     n_layers = cfg.n_layers
     others = [k for k in runtime.KERNEL_NAMES if k not in LM_KERNELS]
-    phase0, prefill_counts = per_step[0]
-    check(phase0 == "prefill" and prefill_counts["ssd"] == n_layers
+    phase0, prefill_counts, prefill_graphs = per_step[0]
+    check(phase0 == "prefill" and prefill_counts["ssd"] == n_layers and prefill_graphs == 0
           and prefill_counts["flash_decode"] == 0 and not any(prefill_counts[k] for k in others),
-          f"prefill launched {prefill_counts}, want {n_layers} ssd and nothing else")
-    decode_counts = [c for ph, c in per_step[1:]]
+          f"prefill launched {prefill_counts} and {prefill_graphs} graphs, want {n_layers} ssd and nothing else")
+    decode_counts = [c for ph, c, _ in per_step[1:]]
+    decode_graphs = [n for ph, _, n in per_step[1:]]
     check(len(decode_counts) == LM_GEN, f"{len(decode_counts)} decode steps, want {LM_GEN}")
     for i, c in enumerate(decode_counts):
         check(c["flash_decode"] == n_layers and c["ssd"] == 0 and not any(c[k] for k in others),
               f"decode step {i} launched {c}, want {n_layers} flash_decode and nothing else")
+    check(decode_graphs == [0] + [1] * (LM_GEN - 1),
+          f"graph launches per decode step {decode_graphs[:4]}..., want 0 (the eager first step), then 1")
+
+    # the same steps op by op, in bf16 and in f32: the same greedy tokens,
+    # and every kept logit bitwise equal (the captured kernels and cuBLAS
+    # calls are the eager step's, in the same order)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    runs = {"bfloat16": {"graph": out, "eager": generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN,
+                                                           graphs=False)}}
+    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph")
+                       for mode in ("eager", "graph")}
+    eager_vs_graph = {}
+    for dname, pair in runs.items():
+        e, gr = pair["eager"], pair["graph"]
+        eager_vs_graph[dname] = {
+            "tokens_equal": bool(torch.equal(e["tokens"], gr["tokens"])),
+            "kept_logits_bitwise": all(torch.equal(a, b) for a, b in zip(e["logits"], gr["logits"]))
+            and len(e["logits"]) == len(gr["logits"]) == LM_GEN,
+            **{mode: {"decode_ms": r["decode_ms"], "decode_ms_per_step": r["decode_ms"] / LM_GEN,
+                      "steady_ms_per_step": r["steady_ms_per_step"], "decode_tok_per_s": r["decode_tok_per_s"],
+                      "steady_tok_per_s": LM_BATCH / (r["steady_ms_per_step"] / 1e3)}
+               for mode, r in pair.items()},
+        }
+    del runs["float32"]
     tokens = out["tokens"]
     check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "generated tokens out of range")
@@ -431,8 +502,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         return y, hf
 
     OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
-    try:
-        checked = generate(cfg, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS)
+    try:  # op by op: the checks read device values on the host, which no capture may
+        checked = generate(cfg, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS, graphs=False)
     finally:
         OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
     repeatable = all(torch.equal(a, b) for a, b in zip(checked["logits"], out["logits"]))
@@ -446,7 +517,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     def forced(cfg_, backend):
         caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
         last = make_prefill_step(cfg_, backend)(model, {"tokens": prompt}, caches)
-        step = make_serve_step(cfg_, backend)
+        step = make_eager_serve_step(cfg_, backend)
         tok, logits = prompt[:, -1:], []
         for i in range(LM_CHECK_STEPS):
             logits.append(step(model, caches, tok, LM_PROMPT + N_META_TOKENS + i))
@@ -462,7 +533,6 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
             mx = max(mx, float(d.max()))
         return worst, mx
 
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     f32_worst, f32_max = compare(forced(cfg32, None), forced(cfg32, "torch"))
     bf16_worst, bf16_max = compare([out["last_hidden"].float()] + out["logits"], forced(cfg, "torch"))
     torch.cuda.synchronize()
@@ -474,7 +544,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         "decode_tok_per_s": out["decode_tok_per_s"], "decode_ms_per_step": out["decode_ms"] / LM_GEN,
         "timer": out["timer"], "peak_memory_gb": peak_gb,
         "launches": {"prefill": {k: prefill_counts[k] for k in LM_KERNELS},
-                     "per_decode_step": {k: decode_counts[0][k] for k in LM_KERNELS}},
+                     "per_decode_step": {k: decode_counts[0][k] for k in LM_KERNELS},
+                     "graph_launches_per_decode_step": {"first": decode_graphs[0], "later": decode_graphs[1]}},
         "kernel_parity_on_served_activations": {
             name: {"calls": served[name][0], "worst_err_over_tol": served[name][1],
                    "max_abs_err": served[name][2]} for name in LM_KERNELS},
@@ -496,31 +567,56 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     check(f32_worst <= 1.0, f"float32 kernel route differs from the plain route (err/tol {f32_worst:.3g})")
     del checked
 
-    # where a decode step's time goes: device busy time of a few steps
-    # (profiler, kernels summed) against the served run's step time
+    # where a decode step's time goes, op by op and replayed: device busy
+    # time of a few steps (profiler, kernels summed) against the served
+    # runs' step times, and the host's CUDA API calls a step
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = make_serve_step(cfg)
     tok, pos0 = out["tokens"][:, -1:], out["max_len"]
-    step(model, out["caches"], tok, pos0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(LM_PROFILE_STEPS):
-            step(model, out["caches"], tok, pos0 + 1 + i)
+    breakdown = {}
+    for mode, step in (("eager", make_eager_serve_step(cfg)), ("graph", make_serve_step(cfg))):
+        for i in range(2):  # eager: two warm steps; graph: the eager step and capture, one replay
+            step(model, out["caches"], tok, pos0 + i)
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / LM_PROFILE_STEPS
-    step_ms = out["decode_ms"] / LM_GEN
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(LM_PROFILE_STEPS):
+                step(model, out["caches"], tok, pos0 + 2 + i)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+        api = [e for e in events if e.device_type == DeviceType.CPU and cuda_api_call(e.key)]
+        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / LM_PROFILE_STEPS
+        copies = graph_device_ms(torch, step.graph) if mode == "graph" else None
+        served_run = runs["bfloat16"][mode]
+        step_ms, steady_ms = served_run["decode_ms"] / LM_GEN, served_run["steady_ms_per_step"]
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+        breakdown[mode] = {
+            "served_step_ms": step_ms, "served_steady_step_ms": steady_ms,
+            "device_busy_ms_per_step": busy_ms if dev_events else None,
+            "device_idle_share": (1.0 - busy_ms / step_ms) if dev_events else None,
+            "device_idle_share_steady": (1.0 - busy_ms / steady_ms) if dev_events else None,
+            "device_kernels_per_step": sum(e.count for e in dev_events) / LM_PROFILE_STEPS,
+            "host_api_calls_per_step": sum(e.count for e in api) / LM_PROFILE_STEPS,
+            "graph_launches_per_step": sum(e.count for e in api if e.key == "cudaGraphLaunch")
+            / LM_PROFILE_STEPS,
+            "graph_device_ms": copies,
+            "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS
+                                       for e in top},
+        }
+    del runs
     print(json.dumps({"decode_step_breakdown": {
-        "steps_profiled": LM_PROFILE_STEPS, "served_step_ms": step_ms,
-        "device_busy_ms_per_step": busy_ms if dev_events else None,
-        "device_idle_share": (1.0 - busy_ms / step_ms) if dev_events else None,
-        "device_kernels_per_step": sum(e.count for e in dev_events) / LM_PROFILE_STEPS,
-        "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS for e in top},
-        "source": "torch.profiler over steps after the served run; step time from the served run",
+        "steps_profiled": LM_PROFILE_STEPS, **breakdown,
+        "source": "torch.profiler over steps after the served run; step times from the served bf16 runs "
+                  "(decode_ms / steps, and steady: steps 2 on)",
     }}))
+    print(json.dumps({"decode_eager_vs_graph": {
+        "model": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, **eager_vs_graph,
+        "timer": "cuda events after a device sync; steady from the third step to the end",
+    }}))
+    for dname, row in eager_vs_graph.items():
+        check(row["tokens_equal"], f"{dname}: greedy tokens with graphs differ from the eager run's")
+        check(row["kept_logits_bitwise"], f"{dname}: kept logits with graphs differ from the eager run's")
 
     # ---------------------------- 6d. timing of B5 and B6
     rows = {}
@@ -546,17 +642,22 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, W, D] views
         q4 = q.reshape(b, hkv * g, 1, d)
         mask = (torch.arange(w, device=dev) < length)[None, None, None, :]
-        y = OPS.flash_decode(q, k, v, length)
+        # the length on the device, as the captured decode step passes it;
+        # the int form's time beside it
+        dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
+        y = OPS.flash_decode(q, k, v, dev_len)
+        check(torch.equal(y, OPS.flash_decode(q, k, v, length)), f"flash_decode {label}: device length not bitwise")
         lib_y = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
         lib_err = float((lib_y.reshape(q.shape).float() - y.float()).abs().max())
         rows[label] = timed(
-            "flash_decode", f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} len{length} bf16",
-            lambda: OPS.flash_decode(q, k, v, length),
+            "flash_decode", f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} len{length} bf16, length on the device",
+            lambda: OPS.flash_decode(q, k, v, dev_len),
             lambda: OPS.flash_decode(q, k, v, length, backend="torch"),
             lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True),
             4.0 * b * hkv * g * length * d, flops_peak,
             2.0 * (2 * q.numel() + 2 * b * length * hkv * d),
             library_max_abs_diff=lib_err,
+            int_length_kernel_ms=device_ms(lambda: OPS.flash_decode(q, k, v, length), torch),
         )
         del q, k, v, kt, vt, y, lib_y
 
@@ -596,53 +697,192 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     return kernels
 
 
-def serve_route(torch, serve, backend, images, **kw):
-    """Serve ``images`` through VGG-16 on ``backend`` at micro-batch BATCH
-    with the launch counts set to 0 just before and read just after;
-    then three steady windows of STEADY_IMAGES on the same server."""
-    from repro_torch.kernels import runtime
+def device_busy(prof, wall_s):
+    """The share of a profiled window of ``wall_s`` seconds in which the
+    device ran anything: the union of its traced activities' intervals
+    (two stages' kernels overlap on the card), beside their plain sum."""
+    from torch.autograd import DeviceType
 
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return {"window_s": wall_s, "device_activities": len(spans),
+            "device_busy_s": busy_us / 1e6 if spans else None,
+            "device_busy_share": busy_us / 1e6 / wall_s if spans else None,
+            "device_time_summed_s": sum(b - a for a, b in spans) / 1e6 if spans else None}
+
+
+def graph_device_ms(torch, captured):
+    """Device time of one replay of a captured graph
+    (``kernels/graphs.py::Captured``), and of the work a call adds around
+    it: its inputs copied into the static buffers, its outputs cloned."""
+    srcs = [b.clone() for b in captured.static_in]
+    outs = captured.static_out
+    outs = list(outs.values()) if isinstance(outs, dict) else [outs]
+
+    def copies():
+        for buf, src in zip(captured.static_in, srcs):
+            buf.copy_(src)
+        return [t.clone() for t in outs]
+
+    return {"replay_ms": device_ms(captured.graph.replay, torch), "copies_ms": device_ms(copies, torch)}
+
+
+def serve_route(torch, serve, backend, images, graphs, live=None, **kw):
+    """Serve ``images`` through VGG-16 on ``backend`` at micro-batch BATCH
+    with the launch counts set to 0 just before and read just after; then
+    three steady windows of STEADY_IMAGES, and after them a profiled window
+    of PROFILE_IMAGES, on the same server.  ``graphs`` False serves the stage
+    functions op by op (``build_eager_stage_fns``), True as CUDA graphs
+    (the default builder).  ``live(server, outputs)`` runs on the server
+    after the counts are read, before it stops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import runtime
+    from repro_torch.serving import build_eager_stage_fns
+
+    if not graphs:
+        kw["stage_fn_builder"] = lambda g, p: build_eager_stage_fns(g, p, backend=backend)
+    mode = "graph" if graphs else "eager"
     runtime.reset_launches()
     t_build = time.perf_counter()
     server = serve("vgg16", backend=backend, batch_size=BATCH, seed=SEED, device=DEVICE, **kw)
+    live_report = None
     try:
         setup_s = time.perf_counter() - t_build
         t0 = time.perf_counter()
         tickets = [server.submit(img) for img in images]
         outs = [t.result(timeout=600) for t in tickets]
         wall = time.perf_counter() - t0
-        # served rate over steady windows, each long enough that filling
-        # and draining the pipeline is a few of its 256 micro-batches
-        steady = []
-        for _ in range(STEADY_REPS):
+
+        def window(n):
             t0 = time.perf_counter()
-            ts = [server.submit(images[i % len(images)]) for i in range(STEADY_IMAGES)]
+            ts = [server.submit(images[i % len(images)]) for i in range(n)]
             for t in ts:
                 t.result(timeout=600)
-            steady.append(STEADY_IMAGES / (time.perf_counter() - t0))
+            return time.perf_counter() - t0
+
+        # served rate over steady windows, each long enough that filling
+        # and draining the pipeline is a few of its 256 micro-batches
+        steady_s = [window(STEADY_IMAGES) for _ in range(STEADY_REPS)]
         snap = server.metrics.snapshot()
+        counts = runtime.launch_counts()
+        graph_launches = runtime.graph_launches()
+        stage_graphs = [graph_device_ms(torch, c) for fn in server._stage_fns
+                        for c in fn.graphs.values()] if graphs else []
+        # one more window under the profiler (after the counts: the served
+        # run they check is the one without it)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_s = window(PROFILE_IMAGES)
+        busy = device_busy(prof, profiled_s)
+        del prof
+        outs_cpu = [o.cpu() for o in outs]
+        plan = server.plan.notation()
+        if live is not None:
+            live_report = live(server, outs_cpu)
     finally:
         server.stop()
-    counts = runtime.launch_counts()
     stage_batches = [st["batches"] for st in snap["stages"]]
-    check(len(set(stage_batches)) == 1, f"{backend}: stages saw different batch counts {stage_batches}")
-    outs_cpu = [o.cpu() for o in outs]
+    check(len(set(stage_batches)) == 1, f"{backend} {mode}: stages saw different batch counts {stage_batches}")
     check(all(o.shape == (1, 1000) and bool(torch.isfinite(o).all()) for o in outs_cpu),
-          f"{backend}: served outputs are not finite [1, 1000] rows")
+          f"{backend} {mode}: served outputs are not finite [1, 1000] rows")
     sums = torch.cat(outs_cpu).sum(-1)
     check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-4)),
-          f"{backend}: softmax rows do not sum to 1")
+          f"{backend} {mode}: softmax rows do not sum to 1")
+    n_stages = len(stage_batches)
+    # the warm-up runs each stage once op by op (capturing its graph after it),
+    # then every micro-batch replays each stage's graph once
+    want_graphs = n_stages * stage_batches[0] if graphs else 0
+    check(graph_launches == want_graphs,
+          f"{backend} {mode}: {graph_launches} graph launches, want {want_graphs}")
     report = {
-        "model": "vgg16", "backend": backend, "batch_size": BATCH,
-        "images": len(images), "plan": server.plan.notation(),
+        "model": "vgg16", "backend": backend, "stage_fns": mode, "batch_size": BATCH,
+        "images": len(images), "plan": plan,
         "setup_s": setup_s, "checked_window_s": wall,
-        "steady_images": STEADY_IMAGES, "steady_img_per_s": steady,
+        "steady_images": STEADY_IMAGES, "steady_img_per_s": [STEADY_IMAGES / t for t in steady_s],
+        "ms_between_micro_batches": [t * 1e3 / (STEADY_IMAGES / BATCH) for t in steady_s],
         "stage_p50_ms": [st["service_p50_s"] * 1e3 for st in snap["stages"]],
         "stage_occupancy": [st["occupancy"] for st in snap["stages"]],
-        "micro_batches": stage_batches[0], "launches": counts,
+        "profiled_window": {"images": PROFILE_IMAGES, "img_per_s": PROFILE_IMAGES / profiled_s, **busy},
+        "micro_batches": stage_batches[0], "launches": counts, "graph_launches": graph_launches,
+        "stage_graphs_device_ms": stage_graphs,
     }
+    if live_report is not None:
+        report["live"] = live_report
     # + the warmup batch serve() runs
     return server, outs_cpu, counts, stage_batches[0] + 1, report
+
+
+def hot_swap(torch, server, images, want):
+    """``swap_plan`` on a live graph server while a thread keeps submitting:
+    the new epoch is captured in the swap's prepare phase; every ticket
+    resolves with the bits it had before; the old epoch's graphs are never
+    replayed after the swap; the new epoch's replays count 13 conv and 3
+    fc launches a micro-batch and one graph launch per stage."""
+    import threading
+
+    from repro_torch.core.pipeline import Pipeline, PipelinePlan
+    from repro_torch.kernels import runtime
+
+    plan = server.plan
+    n = sum(len(a) for a in plan.allocation)
+    first = plan.pipeline.stages[0]
+    if len(plan.allocation) > 1:  # all layers in one stage
+        new_plan = PipelinePlan(pipeline=Pipeline(stages=(first,)), allocation=(tuple(range(n)),))
+    else:  # two stages, cut in the middle
+        new_plan = PipelinePlan(pipeline=Pipeline(stages=(first, first)),
+                                allocation=(tuple(range(n // 2)), tuple(range(n // 2, n))))
+    old = [c for fn in server._stage_fns for c in fn.graphs.values()]
+    tickets = []
+
+    def feed():
+        for i in range(SWAP_IMAGES):
+            tickets.append((i, server.submit(images[i % len(images)])))
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    while len(tickets) < SWAP_IMAGES // 4 and feeder.is_alive():
+        time.sleep(0.001)
+    t0 = time.perf_counter()
+    server.swap_plan(new_plan)
+    swap_s = time.perf_counter() - t0
+    old_replays = [c.replays for c in old]
+    feeder.join(timeout=600)
+    lost, not_bitwise = SWAP_IMAGES - len(tickets), []
+    for i, t in tickets:
+        try:
+            if not torch.equal(t.result(timeout=600).cpu(), want[i % len(want)]):
+                not_bitwise.append(i)
+        except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+            lost += 1
+    # the new epoch alone, counted by its replays' tallies
+    b0 = server.metrics.stages[0].snapshot()["batches"]
+    runtime.reset_launches()
+    after = [t.result(timeout=600).cpu() for t in [server.submit(img) for img in images]]
+    batches = server.metrics.stages[0].snapshot()["batches"] - b0
+    counts, graph_launches = runtime.launch_counts(), runtime.graph_launches()
+    new = [c for fn in server._stage_fns for c in fn.graphs.values()]
+    report = {
+        "from_plan": plan.notation(), "to_plan": new_plan.notation(), "swap_s": swap_s,
+        "submitted_around_swap": SWAP_IMAGES, "lost": lost, "not_bitwise": not_bitwise[:8],
+        "old_graphs": len(old), "old_graph_replays_after_swap": sum(c.replays for c in old) - sum(old_replays),
+        "new_graphs": len(new), "new_epoch_micro_batches": batches, "new_epoch_launches": counts,
+        "new_epoch_graph_launches": graph_launches,
+        "after_bitwise": all(torch.equal(a, b) for a, b in zip(after, want)),
+    }
+    check(lost == 0, f"hot swap lost {lost} tickets")
+    check(not not_bitwise, f"hot swap changed the outputs of tickets {not_bitwise[:8]}")
+    check(report["after_bitwise"], "outputs after the hot swap differ from those before it")
+    check(report["old_graph_replays_after_swap"] == 0, "an old epoch's graph was replayed after the swap")
+    check(len(new) == len(new_plan.allocation) and not {id(c) for c in new} & {id(c) for c in old},
+          "the swap did not capture the new epoch's graphs")
+    check(counts["conv2d_fused"] == 13 * batches and counts["matmul_fused"] == 3 * batches
+          and graph_launches == len(new) * batches,
+          f"after the swap: {counts} and {graph_launches} graph launches over {batches} micro-batches")
+    return report
 
 
 def main() -> int:
@@ -1031,70 +1271,68 @@ def main() -> int:
     mark("3b,3d")
 
     # ------------------------------------------------ 4. the main path
+    # each route served twice on the same weights: its stage functions op
+    # by op (the eager side), then as CUDA graphs (the default); the graph
+    # server of cuda_fused also takes a hot swap
     rng = np.random.default_rng(SEED)
     images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(N_IMAGES)]
-    server, outs_cpu, counts, n_batches, report = serve_route(torch, serve, "cuda_fused", images)
-    check(counts["conv2d_fused"] == 13 * n_batches,
-          f"conv2d_fused launched {counts['conv2d_fused']} times, want 13 x {n_batches}")
-    check(counts["matmul_fused"] == 3 * n_batches,
-          f"matmul_fused launched {counts['matmul_fused']} times, want 3 x {n_batches}")
-    path_counts = {"conv2d_fused": counts["conv2d_fused"], "matmul_fused": counts["matmul_fused"]}
-    params = server.params
-    single = SingleStageEngine(server.graph, params, backend="cuda_fused", device=dev).run(images)
-    bitwise = all(torch.equal(a, b.cpu()) for a, b in zip(outs_cpu, single["outputs"]))
-    plain = SingleStageEngine(server.graph, params, backend="torch", device=dev).run(images)
-    ref = torch.cat([o.cpu() for o in plain["outputs"]])
-    got = torch.cat(outs_cpu)
-    close = bool(torch.allclose(got, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL))
-    print(json.dumps({
-        "serve": {
-            **report,
-            "bitwise_vs_single_stage": bitwise,
+    per_batch = {"cuda_fused": {"conv2d_fused": 13, "matmul_fused": 3}, "cuda": {"im2col": 13, "gemm": 16}}
+    served_outs, served_reports, path_counts, params = {}, {}, {}, None
+    for backend in ("cuda_fused", "cuda"):
+        for graphs in (False, True):
+            mode = "graph" if graphs else "eager"
+            live = (lambda srv, outs: hot_swap(torch, srv, images, outs)) if backend == "cuda_fused" and graphs else None
+            server, outs_cpu, counts, n_batches, report = serve_route(
+                torch, serve, backend, images, graphs, live=live, params=params
+            )
+            params = server.params
+            for name, n in per_batch[backend].items():
+                check(counts[name] == n * n_batches,
+                      f"{backend} {mode}: {name} launched {counts[name]} times, want {n} x {n_batches}")
+            if backend == "cuda":
+                check(counts["conv2d_fused"] == counts["matmul_fused"] == counts["qconv2d_fused"] == 0,
+                      f"the cuda route launched a fused kernel: {counts}")
+            if graphs:  # the main path as it runs: its launches go on the kernels line
+                path_counts.update({name: counts[name] for name in per_batch[backend]})
+            served_outs[(backend, mode)], served_reports[(backend, mode)] = outs_cpu, report
+        if backend == "cuda_fused":
+            graph, single_engines = server.graph, {}
+            plain = SingleStageEngine(graph, params, backend="torch", device=dev).run(images)
+            ref = torch.cat([o.cpu() for o in plain["outputs"]])
+        single_engines[backend] = SingleStageEngine(graph, params, backend=backend, device=dev).run(images)
+        outs_g, outs_e = served_outs[(backend, "graph")], served_outs[(backend, "eager")]
+        got = torch.cat(outs_g)
+        result = {
+            "bitwise_graph_vs_eager": all(torch.equal(a, b) for a, b in zip(outs_g, outs_e)),
+            "bitwise_vs_single_stage": all(torch.equal(a, b.cpu())
+                                           for a, b in zip(outs_g, single_engines[backend]["outputs"])),
             "max_abs_diff_vs_torch_route": float((got - ref).abs().max()),
-            "allclose_vs_torch_route": close,
+            "allclose_vs_torch_route": bool(torch.allclose(got, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL)),
             "tolerance_vs_torch_route": f"rtol={SERVE_RTOL}, atol={SERVE_ATOL}",
-            "single_stage_img_per_s": single["throughput"],
-            "torch_route_img_per_s": plain["throughput"],
+            "single_stage_img_per_s": single_engines[backend]["throughput"],
         }
-    }))
-    check(bitwise, "served outputs differ from the single-stage cuda_fused engine")
-    check(close, "served outputs differ from the plain torch route beyond tolerance")
-
-    mark("4")
-
-    # --------------------------------------- 4b. the unfused route served
-    server_u, outs_u, counts, n_batches, report = serve_route(
-        torch, serve, "cuda", images, params=params
-    )
-    check(counts["im2col"] == 13 * n_batches,
-          f"im2col launched {counts['im2col']} times, want 13 x {n_batches}")
-    check(counts["gemm"] == 16 * n_batches,
-          f"gemm launched {counts['gemm']} times, want 16 x {n_batches}")
-    check(counts["conv2d_fused"] == counts["matmul_fused"] == counts["qconv2d_fused"] == 0,
-          f"the cuda route launched a fused kernel: {counts}")
-    path_counts.update(im2col=counts["im2col"], gemm=counts["gemm"])
-    single_u = SingleStageEngine(server_u.graph, params, backend="cuda", device=dev).run(images)
-    bitwise_u = all(torch.equal(a, b.cpu()) for a, b in zip(outs_u, single_u["outputs"]))
-    got_u = torch.cat(outs_u)
-    # the fused kernels sum in the unfused GEMM's order: the same bits
-    bitwise_routes = all(torch.equal(a, b) for a, b in zip(outs_cpu, outs_u))
-    close_u = bool(torch.allclose(got_u, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL))
-    print(json.dumps({
-        "serve": {
-            **report,
-            "bitwise_vs_single_stage": bitwise_u,
-            "bitwise_vs_served_cuda_fused": bitwise_routes,
-            "max_abs_diff_vs_torch_route": float((got_u - ref).abs().max()),
-            "allclose_vs_torch_route": close_u,
-            "tolerance_vs_torch_route": f"rtol={SERVE_RTOL}, atol={SERVE_ATOL}",
-            "single_stage_img_per_s": single_u["throughput"],
-        }
-    }))
-    check(bitwise_u, "served outputs differ from the single-stage cuda engine")
-    check(bitwise_routes, "served cuda_fused outputs differ from the served cuda route's")
-    check(close_u, "cuda-route outputs differ from the plain torch route beyond tolerance")
-
-    mark("4b")
+        if backend == "cuda":  # the fused kernels sum in the unfused GEMM's order: the same bits
+            result["bitwise_vs_served_cuda_fused"] = all(
+                torch.equal(a, b) for mode in ("eager", "graph")
+                for a, b in zip(served_outs[("cuda_fused", mode)], served_outs[("cuda", mode)]))
+        else:
+            result["torch_route_img_per_s"] = plain["throughput"]
+        for mode in ("eager", "graph"):
+            print(json.dumps({"serve": {**served_reports[(backend, mode)],
+                                        **(result if mode == "graph" else {})}}))
+        check(result["bitwise_graph_vs_eager"], f"{backend}: served outputs with graphs differ from op by op")
+        check(result["bitwise_vs_single_stage"], f"served outputs differ from the single-stage {backend} engine")
+        check(result["allclose_vs_torch_route"], f"{backend} outputs differ from the plain torch route beyond tolerance")
+        if backend == "cuda":
+            check(result["bitwise_vs_served_cuda_fused"], "served cuda_fused outputs differ from the served cuda route's")
+        mark("4" if backend == "cuda_fused" else "4b")
+    print(json.dumps({"serve_eager_vs_graph": {
+        f"{backend} {mode}": {k: r[k] for k in ("steady_img_per_s", "ms_between_micro_batches", "stage_p50_ms",
+                                                "stage_graphs_device_ms")}
+        | {"device_busy_share": r["profiled_window"]["device_busy_share"],
+           "profiled_img_per_s": r["profiled_window"]["img_per_s"]}
+        for (backend, mode), r in served_reports.items()}}))
+    del served_outs, single_engines, plain
 
     # ------------------------- 4c. the quantized path at VGG-16's full width
     graph = server.graph

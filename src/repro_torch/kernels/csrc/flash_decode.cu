@@ -54,6 +54,12 @@
 // at any batch.  A split wholly past ``length`` returns at once and
 // writes nothing: the combine stops at ceil(length / SPLIT).  Within a
 // split, slots at or beyond ``length`` are never read.
+//
+// ``length`` comes from the host (an int argument) or from the device (a
+// pointer to one int32, read by every block of both passes and clamped to
+// [1, W]), so that a decode step captured in a CUDA graph reads the
+// position it is replayed at.  Both passes compute the same split count
+// from it either way, so the two give the same bits at the same length.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +129,14 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The valid prefix: the device value clamped to [1, W] where there is one,
+// else the host's (checked by the caller).
+__device__ __forceinline__ int valid_length(const int* length_dev, int length, int W) {
+  if (length_dev == nullptr) return length;
+  const int n = __ldg(length_dev);
+  return n < 1 ? 1 : (n > W ? W : n);
+}
+
 __host__ __device__ inline int pow2_at_least(int x) {
   int p = 1;
   while (p < x) p <<= 1;
@@ -157,10 +171,12 @@ __host__ __device__ inline Part part_view(float* base, int B, int hkv, int n_spl
 template <typename T, int GC, int P2C>
 __global__ void __launch_bounds__(NT)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                float* __restrict__ scratch, int B, int hkv, int G, int D, int W, int length,
-                int split, int n_split, float scale2) {
+                float* __restrict__ scratch, int B, int hkv, int G, int D, int W,
+                const int* __restrict__ length_dev, int length_host, int split, int n_split,
+                float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VN = Vec<T>::N;
+  const int length = valid_length(length_dev, length_host, W);
   const int s_idx = blockIdx.y;
   const int s0 = s_idx * split;
   if (s0 >= length) return;  // wholly past the prefix: the combine stops before it
@@ -338,12 +354,16 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// One block per (query row, KV head, batch), a thread per d.
+// One block per (query row, KV head, batch), a thread per d; the grid is
+// fixed, and the splits it adds, ceil(length / split), come from the
+// valid prefix.
 template <typename T>
 __global__ void __launch_bounds__(MAX_D)
 fd_combine_kernel(const float* __restrict__ scratch, T* __restrict__ out, int B, int hkv,
-                  int G, int D, int n_split, int n_used) {
+                  int G, int D, int W, const int* __restrict__ length_dev, int length_host,
+                  int split, int n_split) {
   __shared__ float sm[MAX_SPLITS], sl[MAX_SPLITS];
+  const int n_used = (valid_length(length_dev, length_host, W) + split - 1) / split;
   const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const Part P = part_view(const_cast<float*>(scratch), B, hkv, n_split, G);
   const int64_t row0 = ((int64_t)b * hkv + h) * n_split * G + g;  // split 0 of (b, h, g)
@@ -368,8 +388,8 @@ fd_combine_kernel(const float* __restrict__ scratch, T* __restrict__ out, int B,
 
 template <typename T, int GC, int P2C>
 void launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q, const T* k,
-                  const T* v, float* part, int B, int hkv, int G, int D, int W, int length,
-                  int split, int n_split, float scale2) {
+                  const T* v, float* part, int B, int hkv, int G, int D, int W,
+                  const int* length_dev, int length, int split, int n_split, float scale2) {
   auto kern = fd_split_kernel<T, GC, P2C>;
   if (smem > 48 * 1024) {
     static size_t raised = 0;  // benign race: the attribute is idempotent
@@ -380,13 +400,14 @@ void launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q, const
       raised = smem;
     }
   }
-  kern<<<grid, NT, smem, stream>>>(q, k, v, part, B, hkv, G, D, W, length, split, n_split,
-                                   scale2);
+  kern<<<grid, NT, smem, stream>>>(q, k, v, part, B, hkv, G, D, W, length_dev, length, split,
+                                   n_split, scale2);
 }
 
 template <typename T>
 int launch(const void* qv, const void* kv, const void* vv, void* outv, void* partv, int B,
-           int hkv, int G, int D, int W, int length, float scale, cudaStream_t stream) {
+           int hkv, int G, int D, int W, const int* length_dev, int length, float scale,
+           cudaStream_t stream) {
   const T* q = static_cast<const T*>(qv);
   const T* k = static_cast<const T*>(kv);
   const T* v = static_cast<const T*>(vv);
@@ -408,8 +429,8 @@ int launch(const void* qv, const void* kv, const void* vv, void* outv, void* par
   // and 64 in f32) with their butterfly unrolled, the others at run time
   switch (gc) {
 #define FD_LAUNCH(N, P2C)                                                                       \
-  launch_split<T, N, P2C>(grid, smem, stream, q, k, v, part, B, hkv, G, D, W, length, split, \
-                          n_split, scale2)
+  launch_split<T, N, P2C>(grid, smem, stream, q, k, v, part, B, hkv, G, D, W, length_dev,    \
+                          length, split, n_split, scale2)
 #define FD_CASE(N)                                                  \
   case N:                                                           \
     if (p2 == 8) FD_LAUNCH(N, 8);                                   \
@@ -424,9 +445,8 @@ int launch(const void* qv, const void* kv, const void* vv, void* outv, void* par
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_used = (length + split - 1) / split;
-  fd_combine_kernel<T><<<dim3(G, hkv, B), MAX_D, 0, stream>>>(part, static_cast<T*>(outv), B,
-                                                               hkv, G, D, n_split, n_used);
+  fd_combine_kernel<T><<<dim3(G, hkv, B), MAX_D, 0, stream>>>(
+      part, static_cast<T*>(outv), B, hkv, G, D, W, length_dev, length, split, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -444,18 +464,21 @@ extern "C" int flash_decode_split_len(int W, int D) { return split_len(W, D); }
 // q [B, Hkv, G, D], k/v [B, W, Hkv, D], out [B, Hkv, G, D], contiguous and
 // 16-byte aligned, all f32 (bf16 = 0) or all bf16 (bf16 = 1); ``part`` is
 // f32 scratch of B * Hkv * ceil(W / split) * G * (D + 2) floats, split =
-// flash_decode_split_len(W, D).  Attends over slots [0, length), 1 <=
-// length <= W.  Launches both passes on ``stream`` and returns
+// flash_decode_split_len(W, D).  Attends over slots [0, length): with
+// ``length_dev`` null, ``length`` (1 <= length <= W); else the int32 at
+// ``length_dev`` on the device, clamped to [1, W], and ``length`` is
+// ignored.  Launches both passes on ``stream`` and returns
 // cudaGetLastError() (0 on success); does not synchronise.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, void* out,
-                                void* part, int bf16, int B, int hkv, int G, int D, int W,
-                                int length, float scale, void* stream) {
+                                void* part, const int* length_dev, int bf16, int B, int hkv,
+                                int G, int D, int W, int length, float scale, void* stream) {
   const int vn = bf16 ? 8 : 4;
   if (B < 1 || hkv < 1 || G < 1 || D < vn || D % vn != 0 || D > MAX_D ||
-      G * D > MAX_GD || length < 1 || length > W)
+      G * D > MAX_GD || (length_dev == nullptr && (length < 1 || length > W)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, part, B, hkv, G, D, W, length, scale, s);
-  return launch<float>(q, k, v, out, part, B, hkv, G, D, W, length, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, out, part, B, hkv, G, D, W, length_dev, length,
+                                 scale, s);
+  return launch<float>(q, k, v, out, part, B, hkv, G, D, W, length_dev, length, scale, s);
 }

@@ -8,13 +8,24 @@ in q's type.  The TPU kernel handles one KV head and is vmapped over
 (batch, KV head); this one takes the batched, GQA-grouped form the model
 holds: q ``[B, Hkv, G, D]`` (a view of ``[B, H, D]``), caches
 ``[B, W, Hkv, D]`` as ``models/blocks.py::_ring_write`` leaves them, and
-one host-side ``length``.  ``csrc/flash_decode.cu`` cuts the cache into
+one ``length``.  ``csrc/flash_decode.cu`` cuts the cache into
 splits of :func:`split_len` slots (a function of W and D alone), runs one
 block per (split, KV head, batch) that leaves a partial softmax state in
 f32 scratch, and adds the partials in split order in a second pass: two
 kernels behind one C call and one count, one call per layer per decode
 step.  Since the split length does not depend on the batch or on
 ``length``, a row's output is bitwise the same at any batch size.
+
+**``length`` on the host or on the device.**  An int is checked on the
+host (``1 <= length <= W``) and passed by value.  A one-element int32
+tensor on the card is passed by address, and both passes read it there,
+clamped to ``[1, W]``: the grid and the scratch stay fixed by ``W`` and
+``D``, so a decode step captured as a CUDA graph (``kernels/graphs.py``)
+attends over the prefix of the position it is replayed at, as the
+reference's kernel reads its ``len_ref`` from a device array.  The two
+forms give the same bits at the same length.  The plain version takes
+the tensor form by masking the slots past it instead of slicing them
+off, so that it reads no device value on the host either.
 
 **A prefix stands for the reference's position mask.**
 ``repro.models.attention.decode_attention`` masks each slot by the
@@ -49,15 +60,20 @@ kernel or raises.  Each launch counts once under ``"flash_decode"`` in
 from __future__ import annotations
 
 import functools
+from typing import Union
 
 import torch
 
 from . import runtime as R
 
 DTYPES = (torch.float32, torch.bfloat16)
+Length = Union[int, torch.Tensor]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> int:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> Length:
+    """The shapes, and ``length``: an int in ``[1, W]``, or a one-element
+    int32 tensor on q's device (returned as it is: its value is never read
+    on the host)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash_decode: want q [B,Hkv,G,D] and k/v [B,W,Hkv,D], got "
@@ -66,21 +82,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> in
     b, hkv, _, d = q.shape
     if k.shape[0] != b or k.shape[2] != hkv or k.shape[3] != d:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
+    if isinstance(length, torch.Tensor):
+        if length.dtype != torch.int32 or length.numel() != 1 or length.device != q.device:
+            raise ValueError(
+                f"flash_decode: a tensor length must be one int32 on {q.device}, got "
+                f"{length.dtype} of shape {tuple(length.shape)} on {length.device}"
+            )
+        return length
     length = int(length)
     if not 1 <= length <= k.shape[1]:
         raise ValueError(f"flash_decode: length {length} outside [1, {k.shape[1]}]")
     return length
 
 
-def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> torch.Tensor:
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> torch.Tensor:
     """Plain version: ``softmax(q k^T / sqrt(D)) v`` over slots
     ``[0, length)``, in f32, cast to q's type.  q ``[B,Hkv,G,D]``, k/v
-    ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``."""
+    ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``.  A tensor ``length`` (clamped to
+    ``[1, W]``, as the kernel does) masks the slots past it; an int slices
+    them off."""
     length = _check(q, k, v, length)
     scale = 1.0 / q.shape[-1] ** 0.5
-    kf = k[:, :length].float()  # the masked slots weigh exp(-inf) = 0
-    vf = v[:, :length].float()
+    masked = isinstance(length, torch.Tensor)
+    kf = (k if masked else k[:, :length]).float()
+    vf = (v if masked else v[:, :length]).float()
     logits = torch.einsum("bkgd,bskd->bkgs", q.float(), kf) * scale
+    if masked:  # the masked slots weigh exp(-inf) = 0
+        slots = torch.arange(k.shape[1], device=k.device)
+        valid = slots < length.reshape(()).clamp(1, k.shape[1])
+        logits = logits.masked_fill(~valid, float("-inf"))
+        vf = vf.masked_fill(~valid[:, None, None], 0.0)  # 0 * stale inf would be nan
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgs,bskd->bkgd", w, vf).to(q.dtype)
 
@@ -99,8 +130,9 @@ def _limits():
     return max_gd, max_d
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int) -> torch.Tensor:
-    """Decode attention over the first ``length`` cache slots; launches
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> torch.Tensor:
+    """Decode attention over the first ``length`` cache slots (an int, or
+    an int32 tensor on the card read there); launches
     ``csrc/flash_decode.cu`` on the current stream for CUDA tensors."""
     if not R.on_card(q, "flash_decode"):
         return flash_decode_ref(q, k, v, length)
@@ -126,10 +158,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int)
     out = torch.empty_like(q)
     n_split = -(-w // split_len(w, d))
     part = torch.empty(b * hkv * n_split * g * (d + 2), device=dev, dtype=torch.float32)
-    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 5 + [R.I] * 7 + [R.F, R.P])
+    on_device = isinstance(length, torch.Tensor)
+    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 6 + [R.I] * 7 + [R.F, R.P])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hkv, g, d, w, length,
+        length.data_ptr() if on_device else None,
+        int(q.dtype == torch.bfloat16), b, hkv, g, d, w, 0 if on_device else length,
         1.0 / d ** 0.5, R.stream(dev),
     )
     R.check(err, "flash_decode_fwd")

@@ -44,11 +44,12 @@ def _check_backend(backend: Optional[str]) -> None:
 
 
 def flash_decode(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: FD.Length,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Decode attention of q ``[B,Hkv,G,D]`` over cache slots ``[0,
-    length)`` of k/v ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``.  The reference's
+    length)`` of k/v ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``; ``length`` is an
+    int or an int32 tensor on q's device.  The reference's
     single-head call ``flash_decode(q [G,D], k [S,D], v, length)`` is
     ``flash_decode(q[None, None], k[None, :, None], v[None, :, None],
     length)[0, 0]`` here."""

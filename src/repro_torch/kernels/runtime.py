@@ -6,12 +6,23 @@ runs on the card, none for a call that takes the plain PyTorch route.
 A run shows that it went through a kernel by setting the counts to 0
 (:func:`reset_launches`) just before it and reading them
 (:func:`launch_counts`) just after.
+
+A CUDA graph (``kernels/graphs.py``) runs no Python when it is replayed,
+so its launches are counted where it is captured: while a thread
+captures, :func:`recording` gives that thread a tally of its own, which
+:func:`count` fills instead of ``launches`` (the capture launches
+nothing), and every replay adds the tally to ``launches``
+(:func:`add_launches`) and counts one graph launch.  The tally is the
+capturing thread's alone, so kernels that other threads launch meanwhile
+(the old epoch's stage workers while ``swap_plan`` captures the new one)
+count in ``launches`` as before and never in the graph's tally.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Iterator, Mapping
 
 import torch
 
@@ -23,17 +34,52 @@ KERNEL_NAMES = (
 
 _count_lock = threading.Lock()
 launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+_graph_launches = 0
+_capturing = threading.local()
 
 
 def count(name: str) -> None:
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:  # being captured: counted at every replay instead
+        tally[name] += 1
+        return
     with _count_lock:  # stage workers launch from several threads
         launches[name] += 1
 
 
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Count this thread's launches into a fresh tally (yielded) instead
+    of ``launches``, for as long as the block runs."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {name: 0 for name in KERNEL_NAMES}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def add_launches(tally: Mapping[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``tally``."""
+    global _graph_launches
+    with _count_lock:
+        for name, n in tally.items():
+            launches[name] += n
+        _graph_launches += 1
+
+
+def graph_launches() -> int:
+    """Graph replays since the last :func:`reset_launches`."""
+    with _count_lock:
+        return _graph_launches
+
+
 def reset_launches() -> None:
+    global _graph_launches
     with _count_lock:
         for k in launches:
             launches[k] = 0
+        _graph_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

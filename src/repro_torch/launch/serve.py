@@ -9,7 +9,11 @@ prompt batch, one prefill that fills the caches, then ``--gen`` greedy
 decode steps (the first one re-feeds the prompt's last token, as the
 reference does).  On the card the prefill runs the SSD kernel (B6) in
 every layer and each decode step the flash-decode kernel (B5) in every
-layer; times are CUDA-event times taken after a device sync.  With
+layer.  The prefill runs op by op; the decode loop runs its first step
+op by op, captures one step as a CUDA graph and replays it for the rest
+(``launch/steps.py::GraphedServeStep``; ``generate(..., graphs=False)``
+runs every step op by op).  Times are CUDA-event times taken after a
+device sync.  With
 ``--device cpu`` the kernels' plain versions run and the times are host
 clock times of the CPU, not of any device.  Only ``block_kind="hymba"``
 runs; other architectures raise ``NotImplementedError``.
@@ -26,7 +30,7 @@ from ..configs import get_config
 from ..kernels.config import resolve_device
 from ..models import ModelConfig, init_cache, init_params
 from ..models.model import N_META_TOKENS, check_supported
-from .steps import make_prefill_step, make_serve_step
+from .steps import make_eager_serve_step, make_prefill_step, make_serve_step
 
 
 class _Timer:
@@ -37,22 +41,36 @@ class _Timer:
         self.device = device
         self.kind = "cuda_events" if self.cuda else "host_clock"
 
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
     def start(self) -> None:
         if self.cuda:
             torch.cuda.synchronize(self.device)
-            self._s = torch.cuda.Event(enable_timing=True)
-            self._e = torch.cuda.Event(enable_timing=True)
-            self._s.record()
-        else:
-            self._t0 = time.perf_counter()
+        self._s = self._lap = self._mark()
+
+    def lap(self) -> None:
+        """Mark a point between :meth:`start` and :meth:`stop` (no sync)."""
+        self._lap = self._mark()
 
     def stop(self) -> float:
         """Milliseconds since :meth:`start`, the device's work included."""
+        self._e = self._mark()
+        return self._ms(self._s, self._e)
+
+    def since_lap(self) -> float:
+        """Milliseconds from the last :meth:`lap` to :meth:`stop`."""
+        return self._ms(self._lap, self._e)
+
+    def _ms(self, a, b) -> float:
         if self.cuda:
-            self._e.record()
-            self._e.synchronize()
-            return self._s.elapsed_time(self._e)
-        return (time.perf_counter() - self._t0) * 1e3
+            b.synchronize()
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
 
 
 def generate(
@@ -63,21 +81,26 @@ def generate(
     backend: Optional[str] = None,
     keep_logits: int = 0,
     step_hook: Optional[Callable[[str, int], None]] = None,
+    graphs: bool = True,
 ) -> Dict[str, object]:
     """Prefill ``prompt`` [B, S] and decode ``gen`` greedy tokens.
 
-    ``step_hook(phase, i)`` is called on the host after the prefill
-    (``"prefill", 0``) and after each decode step (``"decode", i``), before
-    anything waits for the device.  The weights' copy in the compute dtype
-    is made before the timers start.  Returns the generated tokens [B, gen],
-    the prefill's last hidden state, the logits of the first
-    ``keep_logits`` decode steps, and the prefill and decode times."""
+    On the card the decode steps after the first replay one CUDA graph
+    (``graphs=False`` runs them op by op).  ``step_hook(phase, i)`` is
+    called on the host after the prefill (``"prefill", 0``) and after each
+    decode step (``"decode", i``), before anything waits for the device.
+    The weights' copy in the compute dtype is made before the timers
+    start.  Returns the generated tokens [B, gen], the prefill's last
+    hidden state, the logits of the first ``keep_logits`` decode steps,
+    the prefill and decode times, and the time a step takes from the
+    third step on (``steady_ms_per_step``: the graph's replays, past the
+    first step and the capture)."""
     dev = prompt.device
     b, s = prompt.shape
     extra = N_META_TOKENS
     caches = init_cache(cfg, b, max_len=s + extra + gen, device=dev)
     prefill_step = make_prefill_step(cfg, backend)
-    step = make_serve_step(cfg, backend)
+    step = (make_serve_step if graphs else make_eager_serve_step)(cfg, backend)
     timer = _Timer(dev)
     params.compute_blocks(getattr(torch, cfg.compute_dtype))  # set-up, not prefill time
 
@@ -92,6 +115,8 @@ def generate(
     kept: List[torch.Tensor] = []
     timer.start()
     for i in range(gen):
+        if i == 2:
+            timer.lap()
         logits = step(params, caches, tok, s + extra + i)
         if step_hook is not None:
             step_hook("decode", i)
@@ -101,6 +126,7 @@ def generate(
         tok = nxt[:, None]
         generated.append(nxt)
     decode_ms = timer.stop()
+    steady_ms = timer.since_lap() / (gen - 2) if gen > 2 else None
     return {
         "tokens": torch.stack(generated, dim=1) if generated else prompt.new_zeros((b, 0)),
         "last_hidden": last_hidden,
@@ -109,6 +135,7 @@ def generate(
         "prefill_ms": prefill_ms,
         "decode_ms": decode_ms,
         "decode_tok_per_s": gen * b / (decode_ms / 1e3) if gen else 0.0,
+        "steady_ms_per_step": steady_ms,
         "timer": timer.kind,
         "max_len": s + extra + gen,
     }

@@ -139,10 +139,12 @@ def _rmsn(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor, start_pos: int) -> None:
+                positions: torch.Tensor) -> None:
     """Write S new (k, v) at slots ``positions % W`` in place and record
-    each slot's position.  k/v: [B, S, Hkv, dh]; positions: [S], equal to
-    ``start_pos + arange(S)``.
+    each slot's position.  k/v: [B, S, Hkv, dh]; positions: [S] on the
+    cache's device.  The slots are computed and written on the device, a
+    decode step's one slot too, so that a step captured as a CUDA graph
+    writes the slot of the position it is replayed at.
 
     A prefill longer than the ring (S > W) has several positions per slot;
     the reference scatters them all and leaves unspecified which write
@@ -152,12 +154,6 @@ def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     w = ck.shape[1]
     s = k.shape[1]
-    if s == 1:  # decode: one slot, known on the host
-        slot = start_pos % w
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
-        cpos[slot] = start_pos
-        return
     if s > w:
         k, v, positions = k[:, -w:], v[:, -w:], positions[-w:]
     slots = (positions % w).long()
@@ -167,7 +163,7 @@ def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor
 
 
 def attention_sublayer(cfg: ModelConfig, p: Attention, x: torch.Tensor, cache, mode: str,
-                       positions: torch.Tensor, start_pos: int, window: int, prefix: int,
+                       positions: torch.Tensor, window: int, prefix: int,
                        backend: Optional[str] = None) -> torch.Tensor:
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -187,13 +183,13 @@ def attention_sublayer(cfg: ModelConfig, p: Attention, x: torch.Tensor, cache, m
             q, k, v, positions, positions, window=window, prefix=prefix, chunk=cfg.attn_chunk
         )
         if mode == "prefill":
-            _ring_write(cache, k, v, positions, start_pos)
+            _ring_write(cache, k, v, positions)
     else:  # decode: s == 1, B5 over the valid prefix (kernels/flash_decode.py)
-        _ring_write(cache, k, v, positions, start_pos)
-        ck, cv = cache["k"], cache["v"]
-        length = start_pos + 1
+        _ring_write(cache, k, v, positions)
+        # min(pos + 1, W) on the device: B5 clamps a device length to [1, W]
+        length = positions + 1
         y = ops.flash_decode(
-            q[:, 0].reshape(b, hkv, h // hkv, dh), ck, cv, min(length, ck.shape[1]),
+            q[:, 0].reshape(b, hkv, h // hkv, dh), cache["k"], cache["v"], length,
             backend=backend,
         ).reshape(b, 1, h, dh)
     out = y.reshape(b, s, h * dh) @ p.wo.reshape(h * dh, d)
@@ -225,7 +221,7 @@ def init_hymba_block(p: HymbaBlock, gen: torch.Generator) -> None:
 
 
 def hymba_block_apply(cfg: ModelConfig, p: HymbaBlock, x: torch.Tensor, cache, mode: str,
-                      positions: torch.Tensor, start_pos: int, window: int,
+                      positions: torch.Tensor, window: int,
                       backend: Optional[str] = None) -> torch.Tensor:
     """Hymba: attention heads and Mamba heads run in PARALLEL on the same
     normed input; their normed outputs are averaged [arXiv:2411.13676].
@@ -233,8 +229,8 @@ def hymba_block_apply(cfg: ModelConfig, p: HymbaBlock, x: torch.Tensor, cache, m
     is updated in place."""
     h = norm_apply(p.ln1, x, cfg.norm, cfg.norm_eps)
     attn_out = attention_sublayer(
-        cfg, p.attn, h, None if cache is None else cache["attn"], mode, positions, start_pos,
-        window, 0, backend,
+        cfg, p.attn, h, None if cache is None else cache["attn"], mode, positions, window, 0,
+        backend,
     )
     state = None if cache is None else cache["ssm"]
     m_out, (conv_state, ssm_h) = mamba_mix(

@@ -18,7 +18,7 @@ and a host without one raises) and random weights come from a
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,6 +29,7 @@ from .config import ModelConfig
 from .ssm import HEAD_P
 
 N_META_TOKENS = 128  # hymba learnable meta tokens
+Position = Union[int, torch.Tensor]  # an int, or a 0-d int32 tensor on the device
 NOT_PORTED = "ROADMAP.md queue 1 item 13"
 
 
@@ -192,22 +193,24 @@ def _layer_cache(cache: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 # ----------------------------------------------------------------- forward
 def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cache, mode: str,
-                 positions: torch.Tensor, start_pos: int, backend: Optional[str]) -> torch.Tensor:
+                 positions: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
     for i, blk in enumerate(blocks):
         c = None if cache is None else _layer_cache(cache, i)
         x = hymba_block_apply(
-            cfg, blk, x.to(cdt), c, mode, positions, start_pos, spec.window, backend
+            cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend
         ).to(cdt)
     return x
 
 
 def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
-                 start_pos: int = 0, mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int]:
+                 start_pos: Position = 0, mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Assemble the input sequence.  Returns (x [B,S',D], positions [S']
-    int32, n_prefix_tokens); in decode mode the meta tokens are skipped
-    (they live in the cache from prefill).  The reference's prefix-LM
-    length is 0 without the vision prefix, which is not ported."""
+    int32 on x's device, n_prefix_tokens); in decode mode the meta tokens
+    are skipped (they live in the cache from prefill).  ``start_pos`` is
+    an int or a 0-d int32 tensor on the device, whose value is never read
+    on the host.  The reference's prefix-LM length is 0 without the vision
+    prefix, which is not ported."""
     tokens = batch["tokens"]
     dt = _dtype(cfg.compute_dtype)
     x = params.embed[tokens].to(dt)
@@ -217,20 +220,24 @@ def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tens
         meta = params.meta_tokens[None].to(dt).expand(b, N_META_TOKENS, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
         n_prefix = N_META_TOKENS
-    positions = torch.arange(
-        start_pos, start_pos + x.shape[1], dtype=torch.int32, device=x.device
-    )
+    if isinstance(start_pos, torch.Tensor):
+        offsets = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        positions = start_pos.to(torch.int32) + offsets
+    else:
+        positions = torch.arange(
+            start_pos, start_pos + x.shape[1], dtype=torch.int32, device=x.device
+        )
     return x, positions, n_prefix
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
-            caches: Optional[List[Any]] = None, mode: str = "train", start_pos: int = 0,
+            caches: Optional[List[Any]] = None, mode: str = "train", start_pos: Position = 0,
             backend: Optional[str] = None) -> torch.Tensor:
     """Hidden states [B,S,D] after the final norm (meta tokens dropped
     outside decode).  With ``mode`` "prefill" or "decode" the caches are
-    updated in place; ``start_pos`` is the host-side position of the first
-    token."""
+    updated in place; ``start_pos`` is the position of the first token (an
+    int, or a 0-d int32 tensor on the device)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     if (caches is None) != (mode == "train"):
@@ -239,7 +246,7 @@ def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
     blocks_by_group = params.compute_blocks(_dtype(cfg.compute_dtype))
     for gi, (spec, blocks) in enumerate(zip(layer_groups(cfg), blocks_by_group)):
         gc = None if caches is None else caches[gi]
-        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, start_pos, backend)
+        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, backend)
     x = norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -255,9 +262,14 @@ def _head_matrix(cfg: ModelConfig, params: CausalLM) -> torch.Tensor:
 # -------------------------------------------------------------- serve step
 @torch.no_grad()
 def serve_step(cfg: ModelConfig, params: CausalLM, caches: List[Any], tokens: torch.Tensor,
-               pos: int, backend: Optional[str] = None) -> torch.Tensor:
-    """One decode step of tokens [B, 1] at host-side position ``pos``;
-    returns logits [B, vocab] in f32 and updates ``caches`` in place."""
+               pos: Position, backend: Optional[str] = None) -> torch.Tensor:
+    """One decode step of tokens [B, 1] at position ``pos``; returns logits
+    [B, vocab] in f32 and updates ``caches`` in place.  ``pos`` is a 0-d
+    int32 tensor on the model's device, as the reference's traced
+    ``jnp.int32``, or an int, made into the step's positions on the device
+    once (``embed_inputs``).  Nothing on the step reads a device value on
+    the host, so the step can be captured as a CUDA graph
+    (``launch/steps.py::make_serve_step``)."""
     hidden = forward(cfg, params, {"tokens": tokens}, caches=caches, mode="decode",
                      start_pos=pos, backend=backend)
     return hidden[:, -1].float() @ _head_matrix(cfg, params).float()

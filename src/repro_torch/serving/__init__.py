@@ -1,7 +1,8 @@
 """Serving runtime for Pipe-it pipelines, on PyTorch and CUDA.
 
-* :mod:`.engine`   — one-shot engines: ``SingleStageEngine`` (kernel-level
-  baseline) and ``PipelinedGraphEngine`` (per-image pipeline, Fig. 2).
+* :mod:`.engine`   — the stage functions (CUDA graphs on the card) and the
+  one-shot engines: ``SingleStageEngine`` (kernel-level baseline) and
+  ``PipelinedGraphEngine`` (per-image pipeline, Fig. 2).
 * :mod:`.batching` — fixed-shape micro-batches with size-or-deadline flush.
 * :mod:`.metrics`  — per-stage p50/p95/p99 service times, occupancy
   (Eq. 10/12 observed live), end-to-end latency.
@@ -16,7 +17,12 @@ multi-model co-serving, fleets, persistence, load generation) is not
 ported yet; see ROADMAP.md.
 """
 from .batching import MicroBatch, gather, split_rows, stack_envs
-from .engine import PipelinedGraphEngine, SingleStageEngine, build_stage_fns
+from .engine import (
+    PipelinedGraphEngine,
+    SingleStageEngine,
+    build_eager_stage_fns,
+    build_stage_fns,
+)
 from .faults import (
     FaultEvent,
     FaultInjector,
@@ -54,6 +60,7 @@ __all__ = [
     "Ticket",
     "TransientStageError",
     "WorkerCrash",
+    "build_eager_stage_fns",
     "build_stage_fns",
     "fault_injecting_builder",
     "gather",

@@ -17,6 +17,12 @@ image at a time; the production runtime with persistent workers,
 micro-batching and metrics lives in :mod:`repro_torch.serving.server`
 (``PipelineServer``).  ``SingleStageEngine`` stays as the kernel-level
 baseline (whole graph, one kernel at a time on one stream).
+
+Where the reference jits a stage function or the whole graph, the port
+captures it on the card as a CUDA graph per input shape and replays it
+(``kernels/graphs.py``); :func:`build_eager_stage_fns` keeps the stage
+functions op by op, which the CPU runs and which the comparisons on the
+card use as the eager side.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 from ..cnn.graph import Graph
 from ..core.pipeline import PipelinePlan
 from ..kernels.config import resolve_device, synchronize
+from ..kernels.graphs import GraphedFn
 
 StageFn = Callable[..., Dict[str, torch.Tensor]]
 
@@ -51,10 +58,10 @@ def sync_stream(stream) -> None:
         stream.synchronize()
 
 
-def build_stage_fns(
+def build_eager_stage_fns(
     graph: Graph, plan: PipelinePlan, backend=None
 ) -> List[StageFn]:
-    """One plain function per pipeline stage.
+    """One plain function per pipeline stage, run op by op.
 
     Each function executes the stage's contiguous node range against a
     live-tensor env and returns the pruned env that crosses the stage
@@ -81,12 +88,24 @@ def build_stage_fns(
     return fns
 
 
+def build_stage_fns(
+    graph: Graph, plan: PipelinePlan, backend=None
+) -> List[StageFn]:
+    """The stage functions of :func:`build_eager_stage_fns`, each captured
+    as a CUDA graph on the card at every input shape it is called with
+    (the reference jits each stage), and run op by op on CPU tensors.  The
+    first call at a shape runs eagerly and captures; later calls replay
+    and return fresh tensors."""
+    return [GraphedFn(fn) for fn in build_eager_stage_fns(graph, plan, backend=backend)]
+
+
 def _as_input(image, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(image, dtype=torch.float32).to(device)
 
 
 class SingleStageEngine:
-    """Baseline: the whole graph as one function (kernel-level)."""
+    """Baseline: the whole graph as one function (kernel-level), one CUDA
+    graph per input shape on the card, as the reference jits it."""
 
     def __init__(self, graph: Graph, params, backend=None, device=None):
         from ..kernels.backend import resolve_backend
@@ -95,8 +114,9 @@ class SingleStageEngine:
         self.graph = graph
         self.params = params
         self.device = resolve_device(device)
+        self._fn = GraphedFn(self._apply)
 
-    def _fn(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _apply(self, params, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             return self.graph.apply(params, x, backend=self.backend)
 

@@ -116,9 +116,11 @@ class AutoPlanner:
         queue_depth: int = 2,
         seed: int = 0,
         warmup: bool = True,
+        stage_fn_builder=None,
         recovery=None,
     ) -> PipelineServer:
-        """Plan the pipeline and construct a (warmed, started) server."""
+        """Plan the pipeline and construct a (warmed, started) server;
+        ``stage_fn_builder`` goes to :class:`PipelineServer`."""
         device = resolve_device(self.device)
         if params is None:
             params = graph.init(seed=seed, device=device)
@@ -130,6 +132,7 @@ class AutoPlanner:
             batch_size=batch_size,
             flush_timeout_s=flush_timeout_s,
             queue_depth=queue_depth,
+            stage_fn_builder=stage_fn_builder,
             backend=self.backend,
             recovery=recovery,
             device=device,
@@ -158,6 +161,7 @@ def serve(
     queue_depth: int = 2,
     seed: int = 0,
     warmup: bool = True,
+    stage_fn_builder=None,
     backend=None,
     device=None,
     recovery=None,
@@ -179,7 +183,11 @@ def serve(
     (the port's tensors, e.g. from ``cnn.params.params_from_numpy``)
     default to ``Graph.init(seed)`` on the device.  ``recovery`` (a
     :class:`~repro_torch.serving.faults.RecoveryPolicy`) arms the
-    server's fault-recovery layer.
+    server's fault-recovery layer.  ``stage_fn_builder`` replaces the
+    stage functions (CUDA graphs on the card) for the first plan and every
+    swap, as in :class:`PipelineServer`; for example
+    ``lambda g, p: build_eager_stage_fns(g, p, backend="cuda_fused")``
+    serves op by op.
 
     >>> server = serve("vgg16", backend="cuda_fused", batch_size=4)
     >>> logits = server.submit(image).result()
@@ -215,5 +223,6 @@ def serve(
         queue_depth=queue_depth,
         seed=seed,
         warmup=warmup,
+        stage_fn_builder=stage_fn_builder,
         recovery=recovery,
     )

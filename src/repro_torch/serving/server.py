@@ -169,10 +169,14 @@ class PipelineServer:
         surface.
     stage_fn_builder : ``(graph, plan) -> [stage_fn]`` factory used for the
         initial plan AND for every ``swap_plan``; defaults to the real
-        stage functions (:func:`repro_torch.serving.engine.build_stage_fns`).
-        Tests inject fake-stage builders here (real outputs plus a
-        scripted service delay or fault) to run the server against known
-        timings.
+        stage functions (:func:`repro_torch.serving.engine.build_stage_fns`),
+        each captured as a CUDA graph on the card at its first call at
+        ``batch_size`` (:meth:`warmup`, or the prepare phase of
+        ``swap_plan``) and replayed for every micro-batch after it.
+        :func:`~repro_torch.serving.engine.build_eager_stage_fns` runs them
+        op by op instead.  Tests inject fake-stage builders here (real
+        outputs plus a scripted service delay or fault) to run the server
+        against known timings.
     backend : kernel execution backend spec for the stage functions
         ("torch" | "cuda" | "cuda_fused", a per-node mapping/callable, or a
         resolved ``repro_torch.kernels.backend.KernelBackend``).  Resolved
@@ -733,7 +737,8 @@ class PipelineServer:
 
     def warmup(self) -> None:
         """Run every stage once at the padded micro-batch shape (loads the
-        kernels and sizes the allocator's pools before traffic)."""
+        kernels, sizes the allocator's pools and, on the card, captures
+        each stage's CUDA graph before traffic)."""
         self._warm(self._stage_fns)
 
     # ------------------------------------------------- live batching control

@@ -171,9 +171,9 @@ def _ring_cache(rng, b, w, hkv, d, n_pos, prefill_len):
     k = torch.from_numpy(_np(rng, b, n_pos, hkv, d, scale=0.5))
     v = torch.from_numpy(_np(rng, b, n_pos, hkv, d))
     positions = torch.arange(n_pos, dtype=torch.int32)
-    _ring_write(cache, k[:, :prefill_len], v[:, :prefill_len], positions[:prefill_len], 0)
+    _ring_write(cache, k[:, :prefill_len], v[:, :prefill_len], positions[:prefill_len])
     for p in range(prefill_len, n_pos):
-        _ring_write(cache, k[:, p:p + 1], v[:, p:p + 1], positions[p:p + 1], p)
+        _ring_write(cache, k[:, p:p + 1], v[:, p:p + 1], positions[p:p + 1])
     return cache
 
 
@@ -225,7 +225,7 @@ def test_ring_write_matches_reference_beyond_the_window(prefill_len):
     )
     cache = {"k": torch.zeros(b, w, hkv, d), "v": torch.zeros(b, w, hkv, d),
              "pos": torch.full((w,), -1, dtype=torch.int32)}
-    _ring_write(cache, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(positions), 0)
+    _ring_write(cache, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(positions))
     for key in ("k", "v", "pos"):
         np.testing.assert_array_equal(cache[key].numpy(), np.asarray(want[key]))
 

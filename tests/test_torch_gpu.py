@@ -15,9 +15,15 @@ and the SSD scan (B6) are held at the reference's ``2e-4`` in f32
 (tests/test_kernels.py, tests/test_kernels_ssd.py); with bf16 operands B5
 within one bf16 ulp of its plain version computed in f32 (the ulp taken
 no finer than at 2^-8 of the largest output), B6 at the reference's bf16
-bar ``5e-2``.
+bar ``5e-2``.  CUDA graphs (``kernels/graphs.py``) replay the kernels and
+library calls their eager call makes, in the same order, so captured
+stage functions, served outputs across hot swaps and recoveries, and
+decode steps are held bitwise to their eager runs, as is B5 with its
+length read on the device to B5 with an int.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -34,9 +40,21 @@ from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import conv_fused as K
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import im2col as I
+from repro_torch.core.pipeline import Pipeline, PipelinePlan
+from repro_torch.kernels import runtime
 from repro_torch.launch.serve import generate
 from repro_torch.models import init_params
-from repro_torch.serving import SingleStageEngine, serve
+from repro_torch.serving import (
+    FaultEvent,
+    FaultPlan,
+    PipelineServer,
+    RecoveryPolicy,
+    SingleStageEngine,
+    build_eager_stage_fns,
+    build_stage_fns,
+    fault_injecting_builder,
+    serve,
+)
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -658,3 +676,211 @@ def test_reduced_hymba_served_through_both_kernels(cuda):
                                rtol=1e-4, atol=1e-4)
     for a, b in zip(out["logits"], plain["logits"]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- CUDA graphs (kernels/graphs.py)
+def _tiny_plan(backend):
+    """The tiny net's planned stages, their weights, and seeded micro-batches of 4."""
+    server = serve(_tiny(), backend=backend, batch_size=4, warmup=False, seed=1)
+    server.stop()
+    return server.graph, server.plan, server.params
+
+
+def _run_stages(fns, params, x):
+    env = {"input": x}
+    for fn in fns:
+        env = fn(params, env)
+    torch.cuda.synchronize()
+    return env
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda", "torch"])
+def test_captured_stage_fns_bitwise_equal_eager(cuda, backend):
+    """Each stage captured as a CUDA graph gives the eager stage's bits, and
+    each replay counts the launches the eager call makes."""
+    g, plan, params = _tiny_plan(backend)
+    eager = build_eager_stage_fns(g, plan, backend=backend)
+    graphed = build_stage_fns(g, plan, backend=backend)
+    rng = np.random.default_rng(5)
+    for rep in range(3):  # eager and capture, then two replays
+        x = _on(cuda, rng, 4, 16, 16, 3)
+        K.reset_launches()
+        want = _run_stages(eager, params, x)
+        want_counts = K.launch_counts()
+        K.reset_launches()
+        got = _run_stages(graphed, params, x)
+        assert K.launch_counts() == want_counts
+        assert runtime.graph_launches() == (0 if rep == 0 else len(graphed))
+        assert want.keys() == got.keys()
+        for key in want:
+            assert torch.equal(got[key], want[key]), (backend, rep, key)
+    assert all(len(fn.graphs) == 1 and next(iter(fn.graphs.values())).replays == 2 for fn in graphed)
+
+
+def test_swap_plan_recaptures_and_never_replays_the_old_graphs(cuda):
+    """Each swap_plan captures the new epoch's graphs in its prepare phase;
+    after it the old epoch's graphs are never replayed, the outputs keep
+    their bits and the replays count 3 conv and 2 fc launches a batch."""
+    g, plan, params = _tiny_plan("cuda_fused")
+    rng = np.random.default_rng(6)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    n = sum(len(a) for a in plan.allocation)
+    one_stage = PipelinePlan(pipeline=Pipeline(stages=(plan.pipeline.stages[0],)), allocation=(tuple(range(n)),))
+    server = PipelineServer(g, params, plan, batch_size=4, backend="cuda_fused")
+    server.warmup()
+    runs, retired = [], []
+    try:
+        with server:
+            for new_plan in (None, one_stage, plan):
+                if new_plan is not None:
+                    old = [c for fn in server._stage_fns for c in fn.graphs.values()]
+                    server.swap_plan(new_plan)
+                    retired.append((old, [c.replays for c in old]))
+                live = [c for fn in server._stage_fns for c in fn.graphs.values()]
+                assert len(live) == len(server._stage_fns)  # captured by the swap's warm-up
+                K.reset_launches()
+                runs.append([o.cpu() for o in server.run(images)["outputs"]])
+                batches = server.metrics.stages[0].snapshot()["batches"]
+                counts = K.launch_counts()
+                assert counts["conv2d_fused"] == 3 * batches and counts["matmul_fused"] == 2 * batches
+                assert runtime.graph_launches() == len(live) * batches
+                for old, replays in retired:
+                    assert [c.replays for c in old] == replays
+                    assert not {id(c) for c in old} & {id(c) for c in live}
+    finally:
+        server.stop()
+    for outs in runs[1:]:
+        for a, b in zip(outs, runs[0]):
+            assert torch.equal(a, b)
+
+
+def test_one_graph_is_replayed_by_one_caller_at_a_time(cuda):
+    """A stalled stage worker and its replacement (server.py's recovery)
+    call one stage function from two threads on two streams; the graph's
+    replays are serialised, so each caller gets the bits of its own input."""
+    g, plan, params = _tiny_plan("cuda_fused")
+    fn = build_stage_fns(g, plan, backend="cuda_fused")[0]
+    eager = build_eager_stage_fns(g, plan, backend="cuda_fused")[0]
+    rng = np.random.default_rng(7)
+    xs = [_on(cuda, rng, 4, 16, 16, 3) for _ in range(2)]
+    wants = [eager(params, {"input": x}) for x in xs]
+    fn(params, {"input": xs[0]})  # eager, then the capture
+    torch.cuda.synchronize()
+    bad = []
+
+    def caller(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            for _ in range(40):
+                out = fn(params, {"input": xs[i]})
+                stream.synchronize()
+                bad.extend(i for key in out if not torch.equal(out[key], wants[i][key]))
+
+    threads = [threading.Thread(target=caller, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+    assert next(iter(fn.graphs.values())).replays == 80
+
+
+def test_graph_server_recovers_a_stalled_stage_with_the_same_bits(cuda):
+    """A stage stalls past the watchdog's deadline; its replacement
+    re-dispatches while the stalled call wakes and replays the same graph
+    late.  Every ticket resolves once, with the single-stage engine's bits."""
+    g, plan, params = _tiny_plan("cuda_fused")
+    rng = np.random.default_rng(8)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(24)]
+    policy = RecoveryPolicy(max_retries=1, backoff_base_s=0.001, heartbeat_deadline_s=0.2,
+                            restart_delay_s=0.0)
+    inj = FaultPlan(events=(FaultEvent("stall", stage=0, at_call=2, stall_s=0.6),)).injector(policy)
+    builder = fault_injecting_builder(lambda gr, pl: build_stage_fns(gr, pl, backend="cuda_fused"), inj)
+    server = PipelineServer(g, params, plan, batch_size=4, flush_timeout_s=0.0,
+                            stage_fn_builder=builder, recovery=policy)
+    with server:
+        outs = [o.cpu() for o in server.run(images)["outputs"]]
+    assert inj.fired_kinds() == {"stall": 1}
+    assert server.metrics.recovery.snapshot()["worker_restarts"] >= 1
+    want = SingleStageEngine(g, params, backend="cuda_fused").run(images)["outputs"]
+    for a, b in zip(outs, want):
+        assert torch.equal(a, b.cpu())
+
+
+def test_a_failed_capture_raises(cuda):
+    """Code that reads a device value on the host cannot be captured: the
+    capture raises, and nothing falls back to running op by op.  In a
+    fresh process, so that the failed capture leaves no state behind."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.graphs import GraphedFn\n"
+        "fn = GraphedFn(lambda c, x: x * float(x.sum()))\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "try:  # the first call runs op by op, then captures\n"
+        "    fn(None, x)\n"
+        "except RuntimeError:\n"
+        "    print('raised')\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300)
+    assert out.stdout.strip() == "raised", (out.stdout, out.stderr[-2000:])
+
+
+# (B, W, D, lengths): each side of the first split boundary and W, at batch 1 and 4
+FD_DEVICE_CASES = [(b, w, d) for b in (1, 4) for (w, d) in ((1024, 64), (300, 128), (32768, 64))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FD_DEVICE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_device_length_bitwise_equal_int(cuda, case, dtype):
+    """B5 with ``length`` read on the device gives the int form's bits, at
+    the split boundaries and at W; a device value outside [1, W] is
+    clamped there."""
+    b, w, d = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(w + d + b)
+    q = _on(cuda, rng, b, 5, 5, d, scale=0.5).to(dt)
+    k, v = _on(cuda, rng, b, w, 5, d, scale=0.5).to(dt), _on(cuda, rng, b, w, 5, d).to(dt)
+    split = FD.split_len(w, d)
+    for length in sorted({1, split - 1, split, split + 1, w - 1, w}):
+        dev_len = torch.tensor([length], dtype=torch.int32, device=cuda)
+        assert torch.equal(ops.flash_decode(q, k, v, dev_len), ops.flash_decode(q, k, v, length)), length
+    for outside, inside in ((0, 1), (w + 7, w)):
+        dev_len = torch.tensor(outside, dtype=torch.int32, device=cuda)
+        assert torch.equal(ops.flash_decode(q, k, v, dev_len), ops.flash_decode(q, k, v, inside))
+        ref = FD.flash_decode_ref(q.float(), k.float(), v.float(), dev_len)
+        np.testing.assert_allclose(ref.cpu().numpy(), FD.flash_decode_ref(q.float(), k.float(), v.float(),
+                                                                         inside).cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_with_graphs_gives_the_eager_tokens(cuda, dtype):
+    """A reduced Hymba decoded with one captured step replayed gives the
+    eager run's tokens and logits bit for bit; each step counts 2
+    flash-decode launches, and every step after the first one graph launch."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), compute_dtype=dtype)
+    model = init_params(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    per_step = []
+
+    def hook(phase, i):
+        per_step.append((phase, K.launch_counts()["flash_decode"], runtime.graph_launches()))
+        K.reset_launches()
+
+    eager = generate(cfg, model, prompt, 6, keep_logits=6, graphs=False)
+    K.reset_launches()
+    graphed = generate(cfg, model, prompt, 6, keep_logits=6, step_hook=hook)
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    for a, b in zip(graphed["logits"], eager["logits"]):
+        assert torch.equal(a, b)
+    assert per_step[0] == ("prefill", 0, 0)
+    assert per_step[1:] == [("decode", 2, 0 if i == 0 else 1) for i in range(6)]

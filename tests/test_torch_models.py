@@ -208,7 +208,7 @@ def _block_outputs(ref_params, dtype):
                                        jnp.asarray(pos), {"window": cfg.sliding_window})
     blk = _model(cfg, ref_params).compute_blocks(getattr(torch, dtype))[1][0]
     got = hymba_block_apply(cfg, blk, torch.from_numpy(x).to(getattr(torch, dtype)), None, "train",
-                            torch.from_numpy(pos), 0, cfg.sliding_window)
+                            torch.from_numpy(pos), cfg.sliding_window)
     return np.asarray(want, np.float32), got.float().numpy()
 
 

@@ -34,6 +34,7 @@ from repro_torch.serving import (
     RecoveryPolicy,
     ServerClosed,
     SingleStageEngine,
+    build_eager_stage_fns,
     build_stage_fns,
     fault_injecting_builder,
     gather,
@@ -153,6 +154,37 @@ def test_serve_tiny_cuda_route_matches_reference_pallas_route(setup):
     finally:
         ref.stop()
     for a, b in zip(outs, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
+
+
+def test_serve_with_the_eager_builder_matches_default_and_reference(setup):
+    """``serve(stage_fn_builder=...)`` reaches the server (as the
+    reference's ``serve`` takes it): stage functions run op by op give the
+    default stage functions' bits and the reference server's outputs."""
+    g, params, ref_g, ref_params, images, plan = setup
+    calls = []
+
+    def eager_builder(graph, pl):
+        calls.append(pl.notation())
+        return build_eager_stage_fns(graph, pl, backend="cuda_fused")
+
+    outs = {}
+    for name, builder in (("eager", eager_builder), ("default", None)):
+        server = serve(g, device="cpu", backend="cuda_fused", params=params, batch_size=1,
+                       stage_fn_builder=builder)
+        try:
+            outs[name] = server.run(images)["outputs"]
+        finally:
+            server.stop()
+    assert calls == [plan.notation()]
+    for a, b in zip(outs["eager"], outs["default"]):
+        assert torch.equal(a, b)
+    ref = ref_serve(ref_g, params=ref_params, backend="pallas_fused", batch_size=4)
+    try:
+        want = ref.run([jax.numpy.asarray(i) for i in images])["outputs"]
+    finally:
+        ref.stop()
+    for a, b in zip(outs["eager"], want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
 
 
