@@ -64,6 +64,23 @@ Phases (any failure exits non-zero):
    (teacher-forced from a ``cuda_fused`` forward), bitwise equal to
    ``qfused_route_ref`` and close to ``im2col`` + ``qgemm``, with each
    node's relative error against its f32 output printed (paper Fig. 13);
+5. the plan from the card (``plan_from_card``): a ``ConvAutotuner`` on
+   a cold cache file in a temp directory sweeps B1's tile variants (the
+   kernel's shape heuristic -1 first, then every variant, CUDA events,
+   best of 3 at the served batch 4) at VGG-16's 9 conv geometries, and each layer's
+   conv at batch 4 is timed on the pick and on -1 (bitwise equal); a
+   second tuner on the same file times nothing and picks the same (5a).
+   ``measure_graph_routes`` times every layer at batch 1 on
+   ``cuda_fused`` and ``cuda`` (5b).  ``serve("vgg16",
+   backend="cuda_fused", platform=host_platform(2), tuner=tuner)`` plans
+   from those times and serves as phase 4 does: bitwise equal to phase
+   4's graph server, 13 + 3 launches a micro-batch, its predicted stage
+   times (batch 1) beside the measured p50s and its img/s beside the
+   ``hikey970()`` plan's (5c).  A server with ``plan_store=`` persists
+   its startup plan and the plan ``swap_plan`` moves it to; ``crash()``
+   fails a ticket in flight and ``stop()`` re-raises; ``serve(...,
+   resume_from=)`` makes no ``pipe_it_search`` call (counted) and serves
+   the persisted plan with the same bits (5d);
 6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
@@ -885,6 +902,182 @@ def hot_swap(torch, server, images, want):
     return report
 
 
+def plan_from_card(torch, serve, images, params, want, hikey_report):
+    """Phase 5: the plan from the card.  (a) A ConvAutotuner, on a cache
+    file of its own (cold), sweeps B1's tile variants at every distinct
+    VGG-16 conv geometry at the served micro-batch BATCH; each layer's
+    conv at batch BATCH is then timed on the picked variant and on the
+    heuristic (-1), and a second tuner on the same file must time nothing
+    and pick the same.  (b)
+    measure_graph_routes at batch 1 on ``cuda_fused`` and ``cuda``.  (c)
+    ``serve(..., platform=host_platform(2), tuner=tuner)`` plans from
+    those measurements and serves bitwise equal to phase 4's graph server
+    (``want``), 13 + 3 launches a micro-batch, its steady img/s beside the
+    hikey970() plan's.  (d) A server with ``plan_store=`` persists its
+    plan and the plan a swap_plan moves it to; crash() fails a ticket and
+    stop() re-raises; ``serve(resume_from=)`` makes no pipe_it_search call
+    and serves the persisted plan with the same bits."""
+    import tempfile
+
+    import repro_torch.serving.planner as planner_mod
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.core.pipeline import Pipeline, PipelinePlan
+    from repro_torch.kernels import conv_fused as K
+    from repro_torch.kernels.autotune import ConvAutotuner, descriptor_key
+    from repro_torch.kernels.backend import measure_graph_routes, resolve_backend
+    from repro_torch.serving import AutoPlanner, PlanStore, ServingError, host_platform
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    cache = os.path.join(tmp, "autotune_cache.json")
+    graph = MODELS["vgg16"]()
+    descs = graph.descriptors()
+    convs = [d for d in descs if d.kind == "conv"]
+    dev = torch.device(DEVICE)
+
+    # ------------------------------------------------------- 5a. the sweep
+    tuner = ConvAutotuner(cache_path=cache, device=DEVICE, batch=BATCH)
+    check(tuner.sweep, "the tuner does not sweep on the card")
+    geometries = {}
+    for d in convs:
+        geometries.setdefault(descriptor_key(d), []).append(d.name)
+        tuner.tune(d)
+    check(len(geometries) == 9, f"VGG-16 has {len(geometries)} conv geometries, want 9")
+    n_cands = len(tuner.entry(convs[0])["candidate_s"])
+    check(tuner.timings_run == len(geometries) * n_cands,
+          f"the sweep timed {tuner.timings_run} candidates, want {len(geometries)} x {n_cands}")
+    sweep_rows = []
+    for key, names in geometries.items():
+        e = tuner.entry(next(d for d in convs if descriptor_key(d) == key))
+        check(e["swept"] and e["candidates"] == n_cands, f"{key} was not swept: {e}")
+        sweep_rows.append({"geometry": key, "layers": names, "variant": e["variant"],
+                           "ms": e["time_s"] * 1e3, "heuristic_ms": e["candidate_s"]["-1"] * 1e3,
+                           "candidate_ms": {v: t * 1e3 for v, t in e["candidate_s"].items()}})
+    warm = ConvAutotuner(cache_path=cache, device=DEVICE, batch=BATCH)
+    same = all(warm.tune(d) == tuner.tune(d) for d in convs)
+    check(warm.timings_run == 0 and same,
+          f"a second tuner on the warm cache timed {warm.timings_run} candidates (same picks: {same})")
+    # each layer at the served micro-batch: the picked variant against -1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer_rows, tuned_total, heuristic_total = [], 0.0, 0.0
+    for d in convs:
+        x = torch.randn(BATCH, d.i_h, d.i_w, d.i_d, device=dev, generator=gen)
+        wt = torch.randn(d.f_h, d.f_w, d.i_d, d.ofm, device=dev, generator=gen) * (2.0 / (9 * d.i_d)) ** 0.5
+        b = torch.randn(d.ofm, device=dev, generator=gen) * 0.1
+        v = tuner.tune(d).variant
+        y = K.conv2d_fused(x, wt, b, stride=d.stride, pad=d.pad, relu=True, variant=v)
+        check(bool(torch.equal(y, K.conv2d_fused(x, wt, b, stride=d.stride, pad=d.pad, relu=True))),
+              f"conv2d_fused on tile variant {v} differs from -1 at vgg16:{d.name}")
+        t_v = device_ms(lambda: K.conv2d_fused(x, wt, b, stride=d.stride, pad=d.pad, relu=True, variant=v), torch)
+        t_h = device_ms(lambda: K.conv2d_fused(x, wt, b, stride=d.stride, pad=d.pad, relu=True), torch)
+        tuned_total, heuristic_total = tuned_total + t_v, heuristic_total + t_h
+        layer_rows.append({"layer": d.name, "variant": v, "tuned_device_ms": t_v, "heuristic_device_ms": t_h})
+    print(json.dumps({"autotune_sweep_5a": {
+        "platform": tuner.platform, "repeats": tuner.repeats, "timer": "CUDA events, one call, best of k",
+        "batch": tuner.batch, "geometries": sweep_rows, "warm_tuner_timings_run": warm.timings_run,
+        "layers_at_batch": BATCH, "layers_timer": "device_ms", "layers": layer_rows,
+        "tuned_device_ms_total": tuned_total, "heuristic_device_ms_total": heuristic_total}}))
+
+    # -------------------------------------------------- 5b. measured routes
+    routes = {}
+    for route in ("cuda_fused", "cuda"):
+        measured = measure_graph_routes(graph, resolve_backend(route, tuner=tuner), tuner)
+        per_layer = {d.name: measured[descriptor_key(d)] * 1e3 for d in descs}
+        check(all(t > 0 for t in per_layer.values()), f"{route}: a measured layer time is not positive")
+        routes[route] = {"layer_ms": per_layer, "sum_ms": sum(per_layer.values()), "measured": measured}
+    print(json.dumps({"measured_routes_5b": {
+        "batch": 1, "timer": "CUDA events, one call with its enqueue, best of k",
+        **{r: {k: v for k, v in m.items() if k != "measured"} for r, m in routes.items()}}}))
+
+    # ----------------------------------------- 5c. a plan from the card, served
+    before = tuner.timings_run
+    server, outs, counts, n_batches, report = serve_route(
+        torch, serve, "cuda_fused", images, True, params=params, platform=host_platform(2), tuner=tuner)
+    check(tuner.timings_run == before, f"serve() re-timed {tuner.timings_run - before} entries of a warm tuner")
+    check(counts["conv2d_fused"] == 13 * n_batches and counts["matmul_fused"] == 3 * n_batches,
+          f"card plan: {counts} over {n_batches} micro-batches, want 13 + 3 each")
+    check(all(torch.equal(a, b) for a, b in zip(outs, want)),
+          "the card plan's outputs differ from phase 4's cuda_fused graph server")
+    T = AutoPlanner(platform=host_platform(2), measured=routes["cuda_fused"]["measured"]).time_matrix(graph)
+    plan = server.plan
+    predicted = [t * 1e3 for t in plan.stage_times(T)]
+    measured_sums = [sum(routes["cuda_fused"]["layer_ms"][descs[l].name] for l in a) for a in plan.allocation]
+    print(json.dumps({"card_plan_5c": {
+        "platform": "host_platform(2)", "plan": plan.notation(),
+        "allocation": [[l + 1 for l in a] for a in plan.allocation],
+        "predicted_stage_ms_batch1": predicted, "measured_layer_sum_ms_batch1": measured_sums,
+        "measured_stage_p50_ms_batch": report["stage_p50_ms"], "batch": BATCH,
+        "p50_over_predicted": [m / p for m, p in zip(report["stage_p50_ms"], predicted)],
+        "steady_img_per_s": report["steady_img_per_s"],
+        "hikey970_plan": hikey_report["plan"], "hikey970_steady_img_per_s": hikey_report["steady_img_per_s"],
+        "profiled_window": report["profiled_window"], "launches": counts, "micro_batches": n_batches,
+        "bitwise_vs_phase4": True}}))
+
+    # ------------------------------------------ 5d. persist, swap, crash, resume
+    path = os.path.join(tmp, "last_known_good.json")
+    search_calls = []
+    real_search = planner_mod.pipe_it_search
+
+    def counting_search(*a, **kw):
+        search_calls.append(1)
+        return real_search(*a, **kw)
+
+    planner_mod.pipe_it_search = counting_search
+    try:
+        srv = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                    platform=host_platform(2), tuner=tuner, plan_store=path)
+        cold_calls = len(search_calls)
+        try:
+            check(PlanStore(path).load_plan().as_pipeline_plan() == srv.plan,
+                  "the plan store does not hold the startup plan")
+            n = sum(len(a) for a in srv.plan.allocation)
+            first = srv.plan.pipeline.stages[0]
+            if len(srv.plan.allocation) > 1:  # all layers in one stage
+                new_plan = PipelinePlan(pipeline=Pipeline(stages=(first,)), allocation=(tuple(range(n)),))
+            else:
+                new_plan = PipelinePlan(pipeline=Pipeline(stages=(first, first)),
+                                        allocation=(tuple(range(n // 2)), tuple(range(n // 2, n))))
+            srv.swap_plan(new_plan)
+            check(PlanStore(path).load_plan().as_pipeline_plan() == new_plan,
+                  "the plan store does not hold the plan swap_plan moved to")
+            swapped = [t.result(timeout=600).cpu() for t in [srv.submit(img) for img in images]]
+            check(all(torch.equal(a, b) for a, b in zip(swapped, want)),
+                  "outputs after the persisted swap differ from phase 4's")
+            ticket = srv.submit(images[0])
+            srv.crash()
+            try:
+                ticket.result(timeout=600)
+                ticket_failed = False
+            except ServingError:
+                ticket_failed = True
+            check(ticket_failed, "a ticket in flight at crash() did not fail")
+        finally:
+            try:
+                srv.stop()
+                stop_raised = False
+            except ServingError:
+                stop_raised = True
+        check(stop_raised, "stop() after crash() did not re-raise")
+        resumed = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                        platform=host_platform(2), tuner=tuner, resume_from=path)
+        try:
+            resume_calls = len(search_calls) - cold_calls
+            resumed_plan = resumed.plan
+            outs_r = [t.result(timeout=600).cpu() for t in [resumed.submit(img) for img in images]]
+        finally:
+            resumed.stop()
+    finally:
+        planner_mod.pipe_it_search = real_search
+    check(cold_calls >= 1, "the cold start made no pipe_it_search call (the counter is not wired)")
+    check(resume_calls == 0, f"serve(resume_from=) called pipe_it_search {resume_calls} times")
+    check(resumed_plan == new_plan, f"resumed on {resumed_plan.notation()}, want {new_plan.notation()}")
+    check(all(torch.equal(a, b) for a, b in zip(outs_r, want)), "the resumed server's outputs differ from phase 4's")
+    print(json.dumps({"persist_resume_5d": {
+        "startup_plan": plan.notation(), "swapped_to": new_plan.notation(),
+        "cold_pipe_it_search_calls": cold_calls, "resume_pipe_it_search_calls": resume_calls,
+        "crash_failed_ticket": ticket_failed, "stop_reraised": stop_raised,
+        "resumed_plan": resumed_plan.notation(), "bitwise_after_swap_and_resume": True}}))
+
+
 def main() -> int:
     import torch
 
@@ -1332,6 +1525,8 @@ def main() -> int:
         | {"device_busy_share": r["profiled_window"]["device_busy_share"],
            "profiled_img_per_s": r["profiled_window"]["img_per_s"]}
         for (backend, mode), r in served_reports.items()}}))
+    fused_graph_outs = served_outs[("cuda_fused", "graph")]
+    hikey_report = served_reports[("cuda_fused", "graph")]
     del served_outs, single_engines, plain
 
     # ------------------------- 4c. the quantized path at VGG-16's full width
@@ -1392,6 +1587,11 @@ def main() -> int:
               f"quantized {row['node']} differs from im2col + qgemm beyond tolerance")
     del env, quant_out
     mark("4c")
+
+    # ------------------------------ 5. the plan from the card, persisted
+    plan_from_card(torch, serve, images, params, fused_graph_outs, hikey_report)
+    del fused_graph_outs
+    mark("5")
 
     # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)

@@ -12,4 +12,4 @@
 #   ops.py           entry points of the other kernels (mirrors repro's ops.py)
 #   backend.py       per-node route selection (torch | cuda | cuda_fused)
 #   config.py        device resolution, IEEE f32 for the library convs
-#   autotune.py      descriptor cache keys (the tuner itself comes later)
+#   autotune.py      B1's tile-variant tuner and the route-time cache (CUDA events)

@@ -22,21 +22,29 @@ backends, selectable per node; the counterparts of the JAX package's
     ReLU) fused.  On a CUDA tensor they launch the kernel or raise; on a
     CPU tensor they take their plain PyTorch versions.  Shapes
     `conv_fused.supports` rejects (grouped and depthwise convs) take the
-    plain fused route and are counted in ``fallbacks``.
+    plain fused route and are counted in ``fallbacks``.  With a
+    `ConvAutotuner` attached, each conv runs on the tile variant the
+    tuner picked for its geometry (every variant gives the same bits).
 
 A backend *spec* is a backend name, a ``{node_name: name}`` mapping
 (missing nodes get ``default``), or a callable ``node_name -> name``.
 `resolve_backend` turns a spec into a `KernelBackend`; everything above
 `Graph._apply_node` (stage builders, engines, server, planner) just
 threads the spec through.
+
+:func:`measure_graph_routes` times every major layer of a graph on the
+route this backend selects for it (the paper's T-matrix unit: one
+image, one stream), through the tuner's route cache.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from .autotune import ConvAutotuner, descriptor_key
 from .conv_fused import conv2d_fused, fused_route_ref, matmul_fused, supports
 
 BACKENDS = ("torch", "cuda", "cuda_fused")
@@ -48,12 +56,15 @@ BackendSpec = Union[str, Mapping[str, str], Callable[[str], str], "KernelBackend
 class KernelBackend:
     """Per-node kernel routing.
 
+    ``tuner`` (a :class:`~repro_torch.kernels.autotune.ConvAutotuner`)
+    picks the ``cuda_fused`` conv's tile variant per geometry.
     ``fallbacks`` records nodes the fused kernel declined (a shape it
     does not take) as ``{node_name: reason}``.
     """
 
     spec: BackendSpec = "torch"
     default: str = "torch"
+    tuner: Optional[ConvAutotuner] = None
     fallbacks: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -71,6 +82,22 @@ class KernelBackend:
         if choice not in BACKENDS:
             raise ValueError(f"unknown backend {choice!r} for node {name!r}")
         return choice
+
+    def _tile(self, desc) -> Dict[str, int]:
+        if self.tuner is None:
+            return {}
+        return self.tuner.tune(desc).as_kwargs()
+
+    def tune_graph(self, graph) -> None:
+        """Tune every conv of ``graph`` this backend runs on the fused
+        kernel, so that later lookups, including those made while a CUDA
+        graph captures a stage, are cache hits."""
+        if self.tuner is None:
+            return
+        for d in graph.descriptors():
+            if (d.kind == "conv" and self.for_node(d.name) == "cuda_fused"
+                    and supports(d.f_h, d.f_w, d.stride, d.groups)):
+                self.tuner.tune(d)
 
     # -------------------------------------------------------------- convs
     def conv2d(
@@ -104,7 +131,9 @@ class KernelBackend:
                 ),
                 True,
             )
-        return conv2d_fused(x, w, b, stride=stride, pad=pad, relu=relu), True
+        desc = self._desc(name, x, w, stride, pad, groups)
+        y = conv2d_fused(x, w, b, stride=stride, pad=pad, relu=relu, **self._tile(desc))
+        return y, True
 
     def depthwise(
         self,
@@ -156,6 +185,17 @@ class KernelBackend:
         bias = torch.zeros(w.shape[1], device=w.device) if b is None else b
         return matmul_fused(x2, w, bias, relu=relu), True
 
+    # ------------------------------------------------------------- helpers
+    @staticmethod
+    def _desc(name, x, w, stride, pad, groups):
+        from ..core.descriptors import ConvDescriptor
+
+        fh, fw, _, cout = w.shape
+        return ConvDescriptor(
+            name=name, i_w=x.shape[2], i_h=x.shape[1], i_d=x.shape[3],
+            f_w=fw, f_h=fh, ofm=cout, pad=pad, stride=stride, groups=groups,
+        )
+
 
 def _unfused_conv(
     x: torch.Tensor,
@@ -189,11 +229,14 @@ def _unfused_conv(
     return y + b if b is not None else y
 
 
-def resolve_backend(spec: Optional[BackendSpec]) -> Optional[KernelBackend]:
-    """None passes through (the graph then runs its plain layers)."""
+def resolve_backend(
+    spec: Optional[BackendSpec], *, tuner: Optional[ConvAutotuner] = None
+) -> Optional[KernelBackend]:
+    """None passes through (the graph then runs its plain layers); a
+    resolved backend keeps its own tuner."""
     if spec is None or isinstance(spec, KernelBackend):
         return spec
-    return KernelBackend(spec=spec)
+    return KernelBackend(spec=spec, tuner=tuner)
 
 
 def finish_act(result: Tuple[torch.Tensor, bool]) -> torch.Tensor:
@@ -201,3 +244,51 @@ def finish_act(result: Tuple[torch.Tensor, bool]) -> torch.Tensor:
     and parity comparisons symmetric (same total work on every route)."""
     y, act_done = result
     return y if act_done else torch.relu(y)
+
+
+def measure_graph_routes(
+    graph, kb: KernelBackend, tuner: ConvAutotuner, batch: int = 1
+) -> Dict[str, float]:
+    """Measure (best of k, cached per route name in ``tuner``) the
+    serving-route seconds of every major layer of ``graph`` under backend
+    ``kb``, on the tuner's device — ``batch`` images, one stream, the
+    paper's T-matrix measurement unit.  Inputs are made by numpy from
+    seed 0, as the reference makes them.  Returns {descriptor key:
+    seconds} for exactly the routes this backend selects — the mapping
+    `LayerTimePredictor` consumes.  Every conv the fused route runs is
+    tuned first (:meth:`KernelBackend.tune_graph`)."""
+    rng = np.random.default_rng(0)
+    dev = tuner.device
+    measured: Dict[str, float] = {}
+
+    def tensor(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def timed(desc, fn):
+        measured[descriptor_key(desc)] = tuner.measure_route(
+            desc, fn, route=kb.for_node(desc.name)
+        )
+
+    kb.tune_graph(graph)
+    with torch.no_grad():
+        for desc in graph.descriptors():
+            if desc.kind == "fc":
+                k, m = desc.i_w * desc.i_h * desc.i_d, desc.ofm
+                x, w = tensor((batch, k)), tensor((k, m), 0.02)
+                b = torch.zeros(m, device=dev)
+                timed(desc, lambda x=x, w=w, b=b, n=desc.name: finish_act(
+                    kb.dense(n, x, w, b, relu=True)))
+            elif desc.kind == "depthwise":
+                x = tensor((batch, desc.i_h, desc.i_w, desc.i_d))
+                w = tensor((desc.f_h, desc.f_w, 1, desc.i_d), 0.1)
+                b = torch.zeros(desc.i_d, device=dev)
+                timed(desc, lambda x=x, w=w, b=b, d=desc: finish_act(
+                    kb.depthwise(d.name, x, w, b, stride=d.stride, pad=d.pad, relu=True)))
+            else:
+                x = tensor((batch, desc.i_h, desc.i_w, desc.i_d))
+                w = tensor((desc.f_h, desc.f_w, desc.f_d, desc.ofm), 0.05)
+                b = torch.zeros(desc.ofm, device=dev)
+                timed(desc, lambda x=x, w=w, b=b, d=desc: finish_act(
+                    kb.conv2d(d.name, x, w, b, stride=d.stride, pad=d.pad,
+                              groups=d.groups, relu=True)))
+    return measured

@@ -165,14 +165,21 @@ def conv2d_fused(
     stride: int = 1,
     pad: int = 0,
     relu: bool = False,
+    variant: int = -1,
 ) -> torch.Tensor:
     """Fused conv + bias + ReLU (``groups == 1``).
 
     CPU tensors take :func:`fused_route_ref`; CUDA tensors launch
-    ``csrc/gemm.cu``'s ``conv_fused_f32`` on the current stream."""
+    ``csrc/gemm.cu``'s ``conv_fused_f32`` on the current stream, on tile
+    variant ``variant`` (``-1``: chosen by the kernel from the shape;
+    ``kernels/autotune.py`` picks one by time).  Every variant gives the
+    same bits."""
     if not R.on_card(x, "conv2d_fused"):
         return fused_route_ref(x, w, b, stride=stride, pad=pad, relu=relu)
-    y = _conv_launch(x, w, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused")
+    if not -1 <= variant < G.tile_variants():
+        raise ValueError(f"conv2d_fused: no tile variant {variant}")
+    y = _conv_launch(x, w, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused",
+                     variant=variant)
     R.count("conv2d_fused")
     return y
 

@@ -10,10 +10,13 @@
 * :mod:`.server`   — ``PipelineServer``: persistent stage workers, one
   CUDA stream each, bounded queues, backpressure.
 * :mod:`.planner`  — ``AutoPlanner`` / ``serve()``: perf model → DSE →
-  running server in one call.
+  running server in one call (with an autotuner, from layer times
+  measured on the card).
+* :mod:`.persistence` — ``PlanStore``: the last-known-good plan, saved
+  on startup and after every hot swap, for ``serve(resume_from=)``.
 
-The control plane over servers (adaptive re-planning, the DVFS governor,
-multi-model co-serving, fleets, persistence, load generation) is not
+The rest of the control plane over servers (adaptive re-planning, the
+DVFS governor, multi-model co-serving, fleets, load generation) is not
 ported yet; see ROADMAP.md.
 """
 from .batching import MicroBatch, gather, split_rows, stack_envs
@@ -33,6 +36,7 @@ from .faults import (
     fault_injecting_builder,
 )
 from .metrics import ServerMetrics, StageMetrics, percentile
+from .persistence import PlanStore
 from .planner import AutoPlanner, host_platform, serve
 from .server import (
     Backpressure,
@@ -51,6 +55,7 @@ __all__ = [
     "MicroBatch",
     "PipelineServer",
     "PipelinedGraphEngine",
+    "PlanStore",
     "RecoveryPolicy",
     "ServerClosed",
     "ServerMetrics",

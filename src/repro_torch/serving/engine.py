@@ -72,11 +72,16 @@ def build_eager_stage_fns(
     major layers (``repro_torch.kernels.backend``: "torch",
     "cuda", "cuda_fused", a per-node mapping/callable, or a resolved
     ``KernelBackend``).  The spec is resolved ONCE here so fallback
-    bookkeeping is shared across stages.
+    bookkeeping is shared across stages.  A backend with a tuner has
+    every fused conv of the graph tuned here, before any stage function
+    runs or is captured (the captured graphs and the eager calls then
+    run the same tile variants, and no sweep starts inside a capture).
     """
     from ..kernels.backend import resolve_backend
 
     kb = resolve_backend(backend)
+    if kb is not None:
+        kb.tune_graph(graph)
     fns: List[StageFn] = []
     for start, stop in graph.stage_slices(plan.allocation):
 
@@ -111,6 +116,8 @@ class SingleStageEngine:
         from ..kernels.backend import resolve_backend
 
         self.backend = resolve_backend(backend)
+        if self.backend is not None:
+            self.backend.tune_graph(graph)
         self.graph = graph
         self.params = params
         self.device = resolve_device(device)

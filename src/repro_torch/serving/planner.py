@@ -19,11 +19,14 @@ Time sources
 ``source="calibrated"`` — :func:`repro_torch.core.calibration.calibrate`:
     fits Eq. 5/8 to GEMMs measured on the serving device (cached after
     the first run).
-An explicit ``time_matrix`` overrides both.
+An explicit ``time_matrix`` overrides both.  With an autotuner
+(``serve(autotune=True)`` or ``tuner=``) the layers' serving routes are
+measured on the serving device (``kernels/backend.py::measure_graph_routes``)
+and those times replace the regression for the layers they cover.
 
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the adaptive loop, the power-aware DSE and governor, the
-autotuner, plan persistence and multi-model co-serving.
+item): the adaptive loop, the power-aware DSE and governor, and
+multi-model co-serving.
 """
 from __future__ import annotations
 
@@ -37,7 +40,10 @@ from ..core.dse import pipe_it_search
 from ..core.perfmodel import LayerTimePredictor
 from ..core.pipeline import PipelinePlan, TimeMatrix
 from ..core.platform import CoreType, HeteroPlatform, hikey970
+from ..kernels.autotune import ConvAutotuner
+from ..kernels.backend import measure_graph_routes, resolve_backend
 from ..kernels.config import resolve_device
+from .persistence import PlanStore
 from .server import PipelineServer
 
 
@@ -70,8 +76,11 @@ class AutoPlanner:
     backend : kernel execution backend spec for the stage functions
         ("torch" | "cuda" | "cuda_fused" | per-node mapping | resolved
         ``KernelBackend``).
-    measured : {descriptor key: seconds} measured layer times; they
-        override the Eq. 5 regression in the predictor.
+    measured : {descriptor key: seconds} measured layer times
+        (``measure_graph_routes``); they override the Eq. 5 regression in
+        the predictor, so the time matrix reflects the kernels that serve.
+    tuner : a ``repro_torch.kernels.autotune.ConvAutotuner``; the source
+        of ``measured`` (all routes merged) when no mapping is given.
     device : the serving device; ``None`` means the card.
     """
 
@@ -80,6 +89,7 @@ class AutoPlanner:
     source: str = "synthetic"
     backend: object = None
     measured: object = None
+    tuner: object = None
     device: object = None
 
     def predictor(self) -> LayerTimePredictor:
@@ -89,8 +99,11 @@ class AutoPlanner:
             model = calibrate(device=self.device)
         else:
             raise ValueError(f"unknown time source {self.source!r}")
+        measured = self.measured
+        if measured is None and self.tuner is not None:
+            measured = self.tuner.route_seconds()
         return LayerTimePredictor(
-            model=model, platform=self.platform, measured=self.measured
+            model=model, platform=self.platform, measured=measured
         )
 
     def time_matrix(self, graph: Graph) -> TimeMatrix:
@@ -117,14 +130,18 @@ class AutoPlanner:
         seed: int = 0,
         warmup: bool = True,
         stage_fn_builder=None,
+        plan: Optional[PipelinePlan] = None,
         recovery=None,
     ) -> PipelineServer:
         """Plan the pipeline and construct a (warmed, started) server;
-        ``stage_fn_builder`` goes to :class:`PipelineServer`."""
+        ``stage_fn_builder`` goes to :class:`PipelineServer`.  ``plan``
+        overrides the DSE (``serve(resume_from=)`` hands a persisted one
+        in here)."""
         device = resolve_device(self.device)
         if params is None:
             params = graph.init(seed=seed, device=device)
-        plan = self.plan(graph, time_matrix)
+        if plan is None:
+            plan = self.plan(graph, time_matrix)
         server = PipelineServer(
             graph,
             params,
@@ -189,32 +206,66 @@ def serve(
     ``lambda g, p: build_eager_stage_fns(g, p, backend="cuda_fused")``
     serves op by op.
 
+    ``autotune=True`` attaches a
+    :class:`~repro_torch.kernels.autotune.ConvAutotuner` on the serving
+    device (or pass one as ``tuner``; ``backend`` then defaults to
+    ``"torch"``): on the card it picks each fused conv's tile variant by
+    time, and unless ``time_matrix`` is given it measures every layer's
+    serving route once (JSON-cached per device), and the planner's time
+    matrix is built from those measurements.  ``plan_store`` (a path or
+    :class:`~repro_torch.serving.persistence.PlanStore`) persists the
+    active plan as last-known-good JSON on startup and after every
+    successful hot swap; ``resume_from`` (same types, usually the same
+    path) serves a persisted plan and skips the route measurements, the
+    time matrix and the DSE (the stage functions' convs are still tuned;
+    an absent or unusable file means a normal cold start).
+
     >>> server = serve("vgg16", backend="cuda_fused", batch_size=4)
     >>> logits = server.submit(image).result()
     >>> server.stop()
     """
     if isinstance(model, Mapping):
-        raise _not_ported("{model: ...}", "queue 1 item 8, multi-model co-serving")
+        raise _not_ported("{model: ...}", "queue 1 item 8d, multi-model co-serving")
     if adaptive:
-        raise _not_ported("adaptive=True", "queue 1 item 8, control plane")
+        raise _not_ported("adaptive=True", "queue 1 item 8b, adaptive re-planning")
     if power_cap_w is not None or min_throughput is not None:
         raise _not_ported(
-            "power_cap_w/min_throughput", "queue 1 item 8, governor and power-aware DSE"
+            "power_cap_w/min_throughput", "queue 1 item 8c, governor and power-aware DSE"
         )
-    if autotune or tuner is not None:
-        raise _not_ported("autotune/tuner", "queue 1 item 9, autotuner")
-    if plan_store is not None or resume_from is not None:
-        raise _not_ported("plan_store/resume_from", "queue 1 item 8, persistence")
     dev = resolve_device(device)
     graph = MODELS[model]() if isinstance(model, str) else model
+    if tuner is None and autotune:
+        tuner = ConvAutotuner(device=dev, batch=batch_size)
+    if tuner is not None and tuner.device.type != dev.type:
+        raise ValueError(
+            f"the tuner measures on {tuner.device}, the server runs on {dev}"
+        )
+    if backend is None and tuner is not None:
+        backend = "torch"  # measurements must reflect the route that serves
+    kb = resolve_backend(backend, tuner=tuner)
+    # Warm start: a persisted last-known-good plan skips the measurements,
+    # the time matrix and the DSE (best effort: an absent or unusable
+    # store means a cold start).
+    resume_plan = None
+    if resume_from is not None:
+        ir = PlanStore.coerce(resume_from).load_plan()
+        if ir is not None:
+            resume_plan = ir.as_pipeline_plan()
+    measured = None
+    if kb is not None and tuner is not None and time_matrix is None and resume_plan is None:
+        # skipped when nothing plans from them: the measurements would be
+        # dead startup latency
+        measured = measure_graph_routes(graph, kb, tuner)
     planner = AutoPlanner(
         platform=platform if platform is not None else hikey970(),
         mode=mode,
         source=source,
-        backend=backend,
+        backend=kb,
+        measured=measured,
+        tuner=tuner,
         device=dev,
     )
-    return planner.build(
+    server = planner.build(
         graph,
         params,
         time_matrix=time_matrix,
@@ -224,5 +275,11 @@ def serve(
         seed=seed,
         warmup=warmup,
         stage_fn_builder=stage_fn_builder,
+        plan=resume_plan,
         recovery=recovery,
     )
+    if plan_store is not None:
+        # the startup plan is the first known-good one
+        server.plan_store = PlanStore.coerce(plan_store)
+        server._persist_plan()
+    return server

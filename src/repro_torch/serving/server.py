@@ -256,6 +256,9 @@ class PipelineServer:
         self._inflight: set = set()
         self._epoch = 0
         self.recovery = recovery
+        # Optional PlanStore (serving/persistence.py): the last-known-good
+        # plan is saved after every successful swap (and on attach).
+        self.plan_store = None
         # Worker generation tokens: each spawned/restarted stage worker
         # gets a unique monotone generation; a superseded ("zombie")
         # worker notices its token is stale and exits without forwarding,
@@ -664,7 +667,22 @@ class PipelineServer:
                     self._reset_recovery_state(len(new_fns))
         finally:
             self._sealed = False
+        self._persist_plan()
         return self
+
+    def _persist_plan(self) -> None:
+        """Save the active plan as the last-known-good (best effort: a
+        persistence error must never fail serving — it is logged)."""
+        store = self.plan_store
+        if store is None:
+            return
+        try:
+            store.save_server(self)
+        except Exception:  # noqa: BLE001 — persistence is best-effort
+            logger.exception(
+                "server %r: last-known-good plan persistence failed "
+                "(serving continues)", self.name,
+            )
 
     def stop(self, timeout: float = 10.0) -> None:
         """Flush in-flight work, then shut the workers down.
@@ -708,6 +726,20 @@ class PipelineServer:
                     f"expired with wedged worker(s): {', '.join(wedged)} — "
                     "stage stalled; in-flight tickets remain unresolved"
                 )
+
+    def crash(self, reason: Optional[BaseException] = None) -> None:
+        """Simulate an abrupt server death (power loss, kernel panic).
+
+        Unlike :meth:`stop`, nothing is flushed: the server closes
+        immediately, every in-flight ticket FAILS, and the workers are
+        poisoned.  A later :meth:`stop` re-raises the crash reason (the
+        same contract as any worker failure)."""
+        self._watchdog_stop.set()
+        self._fail(
+            reason
+            if reason is not None
+            else ServingError(f"server {self.name!r}: simulated crash")
+        )
 
     def __enter__(self) -> "PipelineServer":
         return self.start()

@@ -884,3 +884,120 @@ def test_generate_with_graphs_gives_the_eager_tokens(cuda, dtype):
         assert torch.equal(a, b)
     assert per_step[0] == ("prefill", 0, 0)
     assert per_step[1:] == [("decode", 2, 0 if i == 0 else 1) for i in range(6)]
+
+
+# ------------------------------------------------ the autotuner on the card
+# B1's tile variants sum every output in one order, so the tuner picks by
+# time alone: every pick is held bitwise to the heuristic (-1).
+def _vgg16_conv_geometries():
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels.autotune import descriptor_key
+
+    seen = {}
+    for d in MODELS["vgg16"]().descriptors():
+        if d.kind == "conv":
+            seen.setdefault(descriptor_key(d), d)
+    return list(seen.values())
+
+
+def test_autotune_sweep_picks_a_tile_variant(cuda, tmp_path):
+    from repro_torch.core.descriptors import conv_descriptor
+    from repro_torch.kernels.autotune import ConvAutotuner
+
+    tuner = ConvAutotuner(cache_path=str(tmp_path / "tune.json"), repeats=1)
+    assert tuner.sweep and tuner.platform == torch.cuda.get_device_name(0)
+    desc = conv_descriptor("c", 14, 64, 3, 70)
+    cfg = tuner.tune(desc)
+    assert -1 <= cfg.variant < G.tile_variants()
+    entry = tuner.entry(desc)
+    assert entry["swept"] and entry["candidates"] == G.tile_variants() + 1
+    assert tuner.timings_run == entry["candidates"]
+    assert sorted(entry["candidate_s"], key=int) == [str(v) for v in range(-1, G.tile_variants())]
+    assert entry["time_s"] == min(entry["candidate_s"].values())
+
+
+def test_conv_fused_variant_bitwise_equal_heuristic_at_vgg16_geometries(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d in _vgg16_conv_geometries():
+        x = torch.randn(2, d.i_h, d.i_w, d.i_d, device="cuda", generator=gen)
+        w = torch.randn(d.f_h, d.f_w, d.i_d, d.ofm, device="cuda", generator=gen) * 0.05
+        b = torch.randn(d.ofm, device="cuda", generator=gen)
+        want = K.conv2d_fused(x, w, b, stride=d.stride, pad=d.pad, relu=True)
+        for v in range(G.tile_variants()):
+            K.reset_launches()
+            got = K.conv2d_fused(x, w, b, stride=d.stride, pad=d.pad, relu=True, variant=v)
+            assert K.launch_counts()["conv2d_fused"] == 1  # counted as the main path's
+            assert torch.equal(got, want), (d, v)
+    with pytest.raises(ValueError, match="no tile variant"):
+        K.conv2d_fused(x, w, b, variant=G.tile_variants())
+
+
+def test_served_graph_with_a_tuner_bitwise_equal_without(cuda, tmp_path):
+    from repro_torch.kernels.autotune import ConvAutotuner, descriptor_key
+    from repro_torch.serving import host_platform
+
+    g = _tiny()
+    rng = np.random.default_rng(7)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    plain = serve(g, backend="cuda_fused", batch_size=4, seed=1)
+    try:
+        want = [o.cpu() for o in plain.run(images)["outputs"]]
+    finally:
+        plain.stop()
+    tuner = ConvAutotuner(cache_path=str(tmp_path / "tune.json"), repeats=1, batch=4)
+    server = serve(g, backend="cuda_fused", batch_size=4, params=plain.params,
+                   platform=host_platform(2), tuner=tuner)
+    try:
+        K.reset_launches()
+        got = [o.cpu() for o in server.run(images)["outputs"]]
+        batches = server.metrics.stages[0].snapshot()["batches"]
+        counts = K.launch_counts()
+    finally:
+        server.stop()
+    assert counts["conv2d_fused"] == 3 * batches and counts["matmul_fused"] == 2 * batches
+    assert all(tuner.entry(d)["swept"] and tuner.entry(d)["batch"] == 4
+               for d in g.descriptors() if d.kind == "conv")
+    assert set(tuner.route_seconds("cuda_fused")) == {
+        descriptor_key(d) for d in g.descriptors()}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_autotune_refuses_to_time_under_a_capture(cuda, tmp_path):
+    """A miss inside a CUDA-graph capture raises (it would enqueue timing
+    kernels and synchronise); a hit returns the cached variant."""
+    from repro_torch.core.descriptors import conv_descriptor
+    from repro_torch.kernels.autotune import ConvAutotuner
+
+    tuner = ConvAutotuner(cache_path=str(tmp_path / "tune.json"), repeats=1)
+    hit, miss = conv_descriptor("a", 8, 4, 3, 8), conv_descriptor("b", 10, 4, 3, 8)
+    cfg = tuner.tune(hit)
+    y = torch.zeros(4, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y.add_(1.0)
+        assert tuner.tune(hit) == cfg
+        with pytest.raises(RuntimeError, match="capturing"):
+            tuner.tune(miss)
+        with pytest.raises(RuntimeError, match="capturing"):
+            tuner.measure_route(miss, lambda: y.add_(1.0), route="cuda_fused")
+    assert tuner.entry(miss) is None
+
+
+def test_warm_cache_times_nothing_on_the_card(cuda, tmp_path):
+    """A route-only entry does not suppress the sweep; a second tuner on the
+    file picks the same variants and times nothing."""
+    from repro_torch.kernels.autotune import ConvAutotuner
+
+    cache = str(tmp_path / "tune.json")
+    geos = _vgg16_conv_geometries()[-3:]
+    first = ConvAutotuner(cache_path=cache, repeats=1)
+    first.measure_route(geos[0], lambda: None, route="cuda")
+    before = first.timings_run
+    picks = [first.tune(d) for d in geos]
+    assert first.timings_run == before + len(geos) * (G.tile_variants() + 1)
+    assert "cuda" in first.entry(geos[0])["routes"]
+    warm = ConvAutotuner(cache_path=cache, repeats=1)
+    assert [warm.tune(d) for d in geos] == picks
+    assert warm.measured_route(geos[0], "cuda") == first.measured_route(geos[0], "cuda")
+    assert warm.timings_run == 0

@@ -203,9 +203,6 @@ def test_serve_defaults_to_the_card():
         dict(adaptive=True),
         dict(power_cap_w=5.0),
         dict(min_throughput=1.0),
-        dict(autotune=True),
-        dict(plan_store="plans.json"),
-        dict(resume_from="plans.json"),
     ],
     ids=lambda kw: next(iter(kw)),
 )
