@@ -66,7 +66,7 @@ Phases (any failure exits non-zero):
    node's relative error against its f32 output printed (paper Fig. 13);
 5. the plan from the card (``plan_from_card``): a ``ConvAutotuner`` on
    a cold cache file in a temp directory sweeps B1's tile variants (the
-   kernel's shape heuristic -1 first, then every variant, CUDA events,
+   kernel's shape heuristic -1 first, then every variant, CUDA events behind a sleep kernel,
    best of 3 at the served batch 4) at VGG-16's 9 conv geometries, and each layer's
    conv at batch 4 is timed on the pick and on -1 (bitwise equal); a
    second tuner on the same file times nothing and picks the same (5a).
@@ -972,7 +972,7 @@ def plan_from_card(torch, serve, images, params, want, hikey_report):
         tuned_total, heuristic_total = tuned_total + t_v, heuristic_total + t_h
         layer_rows.append({"layer": d.name, "variant": v, "tuned_device_ms": t_v, "heuristic_device_ms": t_h})
     print(json.dumps({"autotune_sweep_5a": {
-        "platform": tuner.platform, "repeats": tuner.repeats, "timer": "CUDA events, one call, best of k",
+        "platform": tuner.platform, "repeats": tuner.repeats, "timer": "CUDA events behind a sleep kernel, one call, best of k",
         "batch": tuner.batch, "geometries": sweep_rows, "warm_tuner_timings_run": warm.timings_run,
         "layers_at_batch": BATCH, "layers_timer": "device_ms", "layers": layer_rows,
         "tuned_device_ms_total": tuned_total, "heuristic_device_ms_total": heuristic_total}}))
@@ -985,7 +985,7 @@ def plan_from_card(torch, serve, images, params, want, hikey_report):
         check(all(t > 0 for t in per_layer.values()), f"{route}: a measured layer time is not positive")
         routes[route] = {"layer_ms": per_layer, "sum_ms": sum(per_layer.values()), "measured": measured}
     print(json.dumps({"measured_routes_5b": {
-        "batch": 1, "timer": "CUDA events, one call with its enqueue, best of k",
+        "batch": 1, "timer": "CUDA events behind a sleep kernel, one call, best of k",
         **{r: {k: v for k, v in m.items() if k != "measured"} for r, m in routes.items()}}}))
 
     # ----------------------------------------- 5c. a plan from the card, served

@@ -30,12 +30,14 @@ Two kinds of measurement, both cached:
   numbers `LayerTimePredictor` consumes as measured single-stream layer
   times (core/perfmodel.py).
 
-What a time is: one call, its enqueue included, best of ``repeats``
-after one warm call.  On a CUDA device the call is bracketed by a pair of
-``torch.cuda.Event(enable_timing=True)`` on the current stream, after a
-``torch.cuda.synchronize``, so the device time between them includes any
-wait for the host to enqueue the kernels; on the CPU it is
-``time.perf_counter`` around the call.  Nothing is timed while the
+What a time is: one call's device time, best of ``repeats`` after one
+warm call.  On a CUDA device the call is bracketed by a pair of
+``torch.cuda.Event(enable_timing=True)`` on the current stream, enqueued
+behind a sleep kernel that outlasts the host's enqueue of the call, so
+the time between the events is the device's work and not the host's
+launch rate (a graph-replayed server never pays the per-call dispatch,
+and a bias from it would be larger than the gaps between tile variants);
+on the CPU it is ``time.perf_counter`` around the call.  Nothing is timed while the
 current stream is being captured into a CUDA graph: a cache miss there
 raises, so every descriptor a graph runs is tuned before its capture
 (``KernelBackend.tune_graph``).
@@ -117,7 +119,11 @@ def _capturing(device: torch.device) -> bool:
 
 
 def _best_of_k(fn: Callable[[], object], k: int, device: torch.device) -> float:
-    """Seconds of one call of ``fn``, best of ``k`` after one warm call."""
+    """Seconds of one call of ``fn``, best of ``k`` after one warm call.
+
+    On a CUDA device each call is enqueued behind ``torch.cuda._sleep``
+    for at least twice the host's slowest enqueue seen so far (cycles at
+    <= 2 GHz), so the events time the device's work alone."""
     fn()  # warm: loads the kernel, sizes the allocator's pool
     ts = []
     if device.type != "cuda":
@@ -126,14 +132,21 @@ def _best_of_k(fn: Callable[[], object], k: int, device: torch.device) -> float:
             fn()
             ts.append(time.perf_counter() - t0)
         return float(min(ts))
-    torch.cuda.synchronize(device)
     stream = torch.cuda.current_stream(device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # the enqueue: nothing waits for the device
     for _ in range(k):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(int(2 * host_s * 2.0e9) + 200_000)
+        t0 = time.perf_counter()
         start.record(stream)
         fn()
         end.record(stream)
+        host_s = max(host_s, time.perf_counter() - t0)
         end.synchronize()
         ts.append(start.elapsed_time(end) * 1e-3)
     return float(min(ts))
@@ -158,7 +171,6 @@ class ConvAutotuner:
     def __init__(
         self,
         cache_path: Optional[str] = None,
-        platform: Optional[str] = None,
         repeats: int = 3,
         sweep: Optional[bool] = None,
         device: DeviceLike = None,
@@ -176,9 +188,9 @@ class ConvAutotuner:
                 "the fused conv's tile variants run on the card only"
             )
         self.cache_path = cache_path or os.environ.get(_ENV_CACHE) or _DEFAULT_CACHE
-        if platform is None:
-            platform = torch.cuda.get_device_name(self.device) if on_card else CPU_PLATFORM
-        self.platform = platform
+        # the cache's platform key: the card's name, or the port's own CPU
+        # key (never the JAX tuner's ``"cpu"``)
+        self.platform = torch.cuda.get_device_name(self.device) if on_card else CPU_PLATFORM
         self.repeats = repeats
         self.sweep = sweep
         self.batch = batch

@@ -44,6 +44,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.descriptors import ConvDescriptor
 from .autotune import ConvAutotuner, descriptor_key
 from .conv_fused import conv2d_fused, fused_route_ref, matmul_fused, supports
 
@@ -83,9 +84,16 @@ class KernelBackend:
             raise ValueError(f"unknown backend {choice!r} for node {name!r}")
         return choice
 
-    def _tile(self, desc) -> Dict[str, int]:
+    def _tile(self, name, x, w, stride, pad, groups) -> Dict[str, int]:
+        """The tuner's tile variant for this conv's geometry ({} with no
+        tuner: the kernel's own choice)."""
         if self.tuner is None:
             return {}
+        fh, fw, _, cout = w.shape
+        desc = ConvDescriptor(
+            name=name, i_w=x.shape[2], i_h=x.shape[1], i_d=x.shape[3],
+            f_w=fw, f_h=fh, ofm=cout, pad=pad, stride=stride, groups=groups,
+        )
         return self.tuner.tune(desc).as_kwargs()
 
     def tune_graph(self, graph) -> None:
@@ -131,8 +139,8 @@ class KernelBackend:
                 ),
                 True,
             )
-        desc = self._desc(name, x, w, stride, pad, groups)
-        y = conv2d_fused(x, w, b, stride=stride, pad=pad, relu=relu, **self._tile(desc))
+        tile = self._tile(name, x, w, stride, pad, groups)
+        y = conv2d_fused(x, w, b, stride=stride, pad=pad, relu=relu, **tile)
         return y, True
 
     def depthwise(
@@ -184,17 +192,6 @@ class KernelBackend:
         x2 = x.reshape(x.shape[0], -1)  # NHWC flatten: (h, w, c) order
         bias = torch.zeros(w.shape[1], device=w.device) if b is None else b
         return matmul_fused(x2, w, bias, relu=relu), True
-
-    # ------------------------------------------------------------- helpers
-    @staticmethod
-    def _desc(name, x, w, stride, pad, groups):
-        from ..core.descriptors import ConvDescriptor
-
-        fh, fw, _, cout = w.shape
-        return ConvDescriptor(
-            name=name, i_w=x.shape[2], i_h=x.shape[1], i_d=x.shape[3],
-            f_w=fw, f_h=fh, ofm=cout, pad=pad, stride=stride, groups=groups,
-        )
 
 
 def _unfused_conv(

@@ -74,17 +74,9 @@ class PlanStore:
             raise
         return self.path
 
-    def save_plan(
-        self,
-        plan: Any,
-        *,
-        epoch: Optional[int] = None,
-        stage_freqs=None,
-    ) -> str:
+    def save_plan(self, plan: Any, *, epoch: Optional[int] = None) -> str:
         """Persist a single-model plan (any legacy plan type or the IR)."""
         ir = plan if isinstance(plan, Plan) else Plan.from_legacy(plan)
-        if stage_freqs is not None:
-            ir = ir.with_freqs(stage_freqs)
         return self._write({"kind": "plan", "epoch": epoch, "plan": ir.to_dict()})
 
     def save_partition(
@@ -110,13 +102,7 @@ class PlanStore:
             return self.save_partition(
                 partition, epoch=getattr(server, "partition_epoch", None)
             )
-        governor = getattr(server, "governor", None)
-        pplan = getattr(governor, "power_plan", None) if governor else None
-        return self.save_plan(
-            server.plan,
-            epoch=getattr(server, "epoch", None),
-            stage_freqs=None if pplan is None else pplan.stage_freqs,
-        )
+        return self.save_plan(server.plan, epoch=getattr(server, "epoch", None))
 
     # ------------------------------------------------------------------ read
     def load(self) -> Optional[Dict[str, Any]]:

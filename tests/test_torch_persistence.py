@@ -72,7 +72,7 @@ def _as_tuples(plan):
 def test_plan_store_plan_round_trip(setup, tmp_path):
     _, _, _, _, plan = setup
     store = PlanStore(tmp_path / "plan.json")
-    store.save_plan(plan, epoch=3, stage_freqs=(None,) * plan.pipeline.p)
+    store.save_plan(plan, epoch=3)
     ir = store.load_plan()
     assert ir is not None and ir.as_pipeline_plan() == plan
     assert store.load()["epoch"] == 3
