@@ -80,7 +80,28 @@ Phases (any failure exits non-zero):
    its startup plan and the plan ``swap_plan`` moves it to; ``crash()``
    fails a ticket in flight and ``stop()`` re-raises; ``serve(...,
    resume_from=)`` makes no ``pipe_it_search`` call (counted) and serves
-   the persisted plan with the same bits (5d);
+   the persisted plan with the same bits (5d).  The closed loop
+   (``closed_loop``): 5e serves VGG-16 on ``cuda_fused`` (graphs) under
+   ``serve(adaptive=True)`` on ``host_platform(2)`` with 5b's measured
+   layer times as the prior on both core types, behind
+   ``delayed_stage_fn_builder`` (a sleep kernel of BATCH x the truth's
+   stage time after each stage's replay); after a window the truth of
+   core type ``L`` slows 2x, and windows of 256 images run until the
+   monitor thread has hot-swapped (then one more) or 8 pass.  Gated: a
+   swap after the drift, every ticket resolved once, every output
+   bitwise equal to phase 4's, no monitor error, a quiet ``stop()``, 13
+   + 3 launches a micro-batch and warm-up, and the reserved memory after
+   the last swap no higher than after the first plus one epoch's (also
+   over six swaps of a static server on the drifted truth between its
+   plan and the oracle's, ``pipe_it_search`` on the drifted truth, whose
+   img/s it prints).  5e-ii runs the loop on 5c's card plan with its
+   default prior (Eq. 6-8 with the measurements), without delay or drift:
+   gated on correctness and swaps <= rounds.  5f serves on
+   ``hikey970()`` with ``power_cap_w=1.05 x`` its modeled envelope and a
+   plan store, then ``governor.throttle`` to the reference test's deep
+   cap (0.08 x) with 128 images in flight: no ticket lost, epoch 1, the
+   capped plan and its clocks on the governor and in the store, the same
+   bits.  Its clocks and watts are ``hikey970()``'s modeled ones;
 6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
@@ -160,6 +181,12 @@ SWAP_IMAGES = 128  # submitted by a thread while swap_plan runs
 BATCH = 4
 SEED = 0
 DEVICE = "cuda"
+# the closed loop (phases 5e, 5f): windows of LOOP_IMAGES, at most
+# LOOP_WINDOWS after the drift in 5e, LOOP_WINDOWS_II in 5e-ii
+LOOP_IMAGES = 256
+LOOP_WINDOWS = 8
+LOOP_WINDOWS_II = 6
+THROTTLE_IMAGES = 128  # submitted by a thread while the governor throttles
 
 # Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
 # bytes/s and int8 tensor-core op/s; the SXM part unless the card names
@@ -1076,6 +1103,317 @@ def plan_from_card(torch, serve, images, params, want, hikey_report):
         "cold_pipe_it_search_calls": cold_calls, "resume_pipe_it_search_calls": resume_calls,
         "crash_failed_ticket": ticket_failed, "stop_reraised": stop_raised,
         "resumed_plan": resumed_plan.notation(), "bitwise_after_swap_and_resume": True}}))
+    return tuner, routes["cuda_fused"]["measured"], tmp
+
+
+def loop_window(torch, server, images, want, n=None):
+    """Submit ``n`` images (LOOP_IMAGES by default; ``images`` cycled),
+    wait for every ticket and hold each output bitwise against phase 4's
+    (``want``); returns the window's img/s, the tickets that failed and
+    the outputs that differ."""
+    n = LOOP_IMAGES if n is None else n
+    t0 = time.perf_counter()
+    tickets = [(i, server.submit(images[i % len(images)])) for i in range(n)]
+    failed, differ = 0, []
+    for i, t in tickets:
+        try:
+            out = t.result(timeout=600).cpu()
+        except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+            failed += 1
+            continue
+        if not torch.equal(out, want[i % len(want)]):
+            differ.append(i)
+    return n / (time.perf_counter() - t0), failed, differ
+
+
+def served_batches(server):
+    """Micro-batches stage 0 ran over every epoch of ``server``."""
+    snaps = [epoch[0] for epoch in server.metrics.stage_history]
+    return sum(s["batches"] for s in snaps) + server.metrics.stages[0].snapshot()["batches"]
+
+
+def stop_quietly(server):
+    """``server.stop()``; returns what it raised (None when nothing)."""
+    try:
+        server.stop()
+    except Exception as e:  # noqa: BLE001 — reported and gated by the caller
+        return repr(e)
+    return None
+
+
+def loop_report(server, monitor, windows, reserved):
+    ctrl = monitor.controller
+    return {
+        "rounds": ctrl.rounds, "swaps": ctrl.swaps, "epochs": server.epoch,
+        "events": [{"round": e.round, "old_plan": e.old_plan.notation(), "new_plan": e.new_plan.notation(),
+                    "deviation": e.deviation, "predicted_gain": e.predicted_gain, "swapped": e.swapped}
+                   for e in ctrl.history],
+        "corrections": dict(ctrl.calibrator.correction),
+        "windows": windows, "reserved_bytes_after_swaps": reserved,
+        "monitor_error": None if monitor.error is None else repr(monitor.error),
+    }
+
+
+def check_launches(name, counts, micro_batches):
+    check(counts["conv2d_fused"] == 13 * micro_batches and counts["matmul_fused"] == 3 * micro_batches,
+          f"{name}: {counts} over {micro_batches} micro-batches (served and warm-ups), want 13 + 3 each")
+
+
+def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
+    """Phases 5e and 5f: the closed control loop over VGG-16 served on
+    ``cuda_fused`` with CUDA-graph stage functions.  Returns the B1 and B2
+    launches counted in their runs.
+
+    5e: the prior is 5b's measured batch-1 layer times, the same on both
+    core types of ``host_platform(2)`` (no Eq. 6-8 terms); the stages run
+    behind ``delayed_stage_fn_builder`` (a sleep kernel after each stage's
+    graph replay of BATCH x the truth's stage time, ``truth`` starting at
+    the prior) under ``serve(adaptive=True)``, the monitor thread running.
+    A window, then ``truth.scale("L", 2.0)``, then windows until the loop
+    has swapped (and one more) or LOOP_WINDOWS pass.  Beside it a static
+    server on the same builder at the drifted truth, then swapped to the
+    plan ``pipe_it_search`` makes from the drifted truth (the oracle) and
+    back, six swaps, with the reserved memory after each.  5e-ii: the loop
+    on 5c's card plan with its default prior (Eq. 6-8 with the
+    measurements) and no delay or drift.  5f: ``serve(power_cap_w=cap0,
+    plan_store=)`` on ``hikey970()``, then ``governor.throttle(cap1)`` with
+    images in flight; the clocks and watts are ``hikey970()``'s modeled
+    ones, never the card's."""
+    import gc
+    import threading
+
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.core import hikey970, pipe_it_search, power_aware_search
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.autotune import descriptor_key
+    from repro_torch.serving import (AdaptiveConfig, AutoPlanner, DriftingMatrix, PlanStore,
+                                     delayed_stage_fn_builder, host_platform)
+    from repro_torch.serving.adaptive import StageDelay
+
+    dev = torch.device(DEVICE)
+    graph = MODELS["vgg16"]()
+    descs = graph.descriptors()
+    plat = host_platform(2)
+    cfg = AdaptiveConfig(alpha=0.5, threshold=0.3, patience=2, min_gain=1.05, interval_s=0.2,
+                         min_items=8 * BATCH)
+    cfg_line = {k: getattr(cfg, k) for k in ("alpha", "threshold", "patience", "min_gain", "interval_s",
+                                             "min_items")}
+    path_launches = {"conv2d_fused": 0, "matmul_fused": 0}
+
+    def add(counts):
+        for k in path_launches:
+            path_launches[k] += counts[k]
+
+    def reserved():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved()
+
+    def baseline():  # before a server starts: nothing of an earlier one left cached
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    # ------------------------------------------ 5e. the adaptive loop, drifted
+    T = [{st: measured[descriptor_key(d)] for st in plat.stage_vocabulary()} for d in descs]
+    plan0 = pipe_it_search(len(T), plat, T, mode="best")
+    truth = DriftingMatrix(T)
+    r_start = baseline()
+    server = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                   platform=plat, time_matrix=T, adaptive=True, adaptive_config=cfg,
+                   stage_fn_builder=delayed_stage_fn_builder(truth, scale=BATCH, backend="cuda_fused"))
+    epoch_bytes = reserved() - r_start
+    monitor = server.monitor
+    check(server.plan == plan0, f"5e served {server.plan.notation()}, the DSE made {plan0.notation()}")
+    runtime.reset_launches()
+    completed0, submitted, lost, differ = server.metrics.completed, 0, 0, []
+    windows, after_swaps, swaps_at_drift, swapped_in = [], [], None, None
+    try:
+        for w in range(1 + LOOP_WINDOWS):
+            if w == 1:
+                swaps_at_drift = monitor.controller.swaps
+                truth.scale("L", 2.0)
+            epoch = server.epoch
+            rate, failed, bad = loop_window(torch, server, images, want)
+            submitted, lost, differ = submitted + LOOP_IMAGES, lost + failed, differ + bad
+            windows.append({"window": w, "drifted": w >= 1, "img_per_s": rate, "epoch": server.epoch,
+                            "plan": server.plan.notation()})
+            if server.epoch != epoch:
+                after_swaps.append(reserved())
+            if swapped_in is not None:
+                break  # this window ran on the plan the loop swapped to
+            if w >= 1 and monitor.controller.swaps > swaps_at_drift:
+                swapped_in = w
+    finally:
+        stop_error = stop_quietly(server)
+    counts = runtime.launch_counts()
+    swaps = monitor.controller.swaps
+    report = loop_report(server, monitor, windows, after_swaps)
+    report["launches"] = counts
+    check_launches("5e", counts, served_batches(server) + swaps)
+    add(counts)
+    completed = server.metrics.completed - completed0
+    del server, monitor
+
+    # the same drift on a static server, then the oracle's plan and back
+    truth_s = DriftingMatrix(T)
+    truth_s.scale("L", 2.0)
+    oracle = pipe_it_search(len(T), plat, truth_s.T, mode="best")
+    r_start = baseline()
+    static = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                   platform=plat, time_matrix=T,
+                   stage_fn_builder=delayed_stage_fn_builder(truth_s, scale=BATCH, backend="cuda_fused"))
+    static_epoch_bytes = reserved() - r_start
+    runtime.reset_launches()
+    static_reserved, static_lost, static_differ, n_static = [], 0, [], 0
+    try:
+        static_rate, failed, bad = loop_window(torch, static, images, want)
+        static_lost, static_differ, n_static = failed, bad, LOOP_IMAGES
+        for k, p in enumerate((oracle, plan0) * 3):
+            static.swap_plan(p)
+            static_reserved.append(reserved())
+            n = LOOP_IMAGES if k == 0 else len(images)
+            rate, failed, bad = loop_window(torch, static, images, want, n=n)
+            static_lost, static_differ, n_static = static_lost + failed, static_differ + bad, n_static + n
+            if k == 0:
+                oracle_rate = rate
+    finally:
+        static_stop_error = stop_quietly(static)
+    static_counts = runtime.launch_counts()
+    check_launches("5e static", static_counts, served_batches(static) + 6)
+    add(static_counts)
+    del static
+    report.update({
+        "platform": "host_platform(2)", "prior": "5b's measured batch-1 layer times (cuda_fused), both core types",
+        "delay": f"sleep kernel after each stage's graph replay: {BATCH} x stage_time(truth)",
+        "sleep_kernel_cycles_per_s": StageDelay().cycles_per_s(dev), "config": cfg_line,
+        "plan0": plan0.notation(), "drift": "truth.scale('L', 2.0) after window 0",
+        "swaps_after_drift": swaps - swaps_at_drift, "final_plan": windows[-1]["plan"],
+        "submitted": submitted, "completed": completed, "lost": lost, "not_bitwise": differ[:8],
+        "stop_error": stop_error, "epoch_bytes": epoch_bytes, "static_launches": static_counts,
+        "static_img_per_s": static_rate, "oracle_plan": oracle.notation(), "oracle_img_per_s": oracle_rate,
+        "recovery_vs_oracle": windows[-1]["img_per_s"] / oracle_rate,
+        "static_swaps_reserved_bytes": static_reserved, "static_epoch_bytes": static_epoch_bytes,
+        "static_lost": static_lost, "static_not_bitwise": static_differ[:8],
+    })
+    print(json.dumps({"adaptive_5e": report}))
+    check(report["swaps_after_drift"] >= 1, "5e: the loop did not swap after the 2x drift")
+    check(lost == 0 and completed == submitted, f"5e: {lost} lost, {completed} resolved of {submitted}")
+    check(not differ, f"5e: outputs of tickets {differ[:8]} differ from phase 4's")
+    check(report["monitor_error"] is None and stop_error is None,
+          f"5e: monitor error {report['monitor_error']}, stop() raised {stop_error}")
+    check(not after_swaps or after_swaps[-1] <= after_swaps[0] + epoch_bytes,
+          f"5e: reserved memory grew across swaps {after_swaps} (one epoch {epoch_bytes})")
+    check(static_lost == 0 and not static_differ and static_stop_error is None,
+          f"5e static: {static_lost} lost, {static_differ[:8]} differ, stop() raised {static_stop_error}")
+    check(static_reserved[-1] <= static_reserved[0] + static_epoch_bytes,
+          f"5e static: reserved memory grew across six swaps {static_reserved} (one epoch {static_epoch_bytes})")
+
+    # ----------------------------- 5e-ii. the loop on the card plan's prior
+    server = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                   platform=plat, tuner=tuner, adaptive=True, adaptive_config=cfg)
+    monitor = server.monitor
+    runtime.reset_launches()
+    completed0, submitted, lost, differ, windows, after_swaps = server.metrics.completed, 0, 0, [], [], []
+    try:
+        for w in range(LOOP_WINDOWS_II):
+            epoch = server.epoch
+            rate, failed, bad = loop_window(torch, server, images, want)
+            submitted, lost, differ = submitted + LOOP_IMAGES, lost + failed, differ + bad
+            windows.append({"window": w, "img_per_s": rate, "epoch": server.epoch, "plan": server.plan.notation()})
+            if server.epoch != epoch:
+                after_swaps.append(reserved())
+    finally:
+        stop_error = stop_quietly(server)
+    counts = runtime.launch_counts()
+    report = loop_report(server, monitor, windows, after_swaps)
+    check_launches("5e-ii", counts, served_batches(server) + monitor.controller.swaps)
+    add(counts)
+    completed = server.metrics.completed - completed0
+    report.update({"platform": "host_platform(2)", "prior": "default: Eq. 6-8 (synthetic_model) with 5b's measurements",
+                   "config": cfg_line, "drift": None, "submitted": submitted, "completed": completed,
+                   "lost": lost, "not_bitwise": differ[:8], "stop_error": stop_error, "launches": counts,
+                   "predicted_stage_ms_batch1": [t * 1e3 for t in monitor.controller.plan.stage_times(
+                       monitor.controller.calibrator.prior)],
+                   "stage_p50_ms_batch": [st["service_p50_s"] * 1e3 for st in server.metrics.snapshot()["stages"]]})
+    print(json.dumps({"adaptive_5e_ii": report}))
+    check(lost == 0 and completed == submitted, f"5e-ii: {lost} lost, {completed} resolved of {submitted}")
+    check(not differ, f"5e-ii: outputs of tickets {differ[:8]} differ from phase 4's")
+    check(report["monitor_error"] is None and stop_error is None,
+          f"5e-ii: monitor error {report['monitor_error']}, stop() raised {stop_error}")
+    check(report["swaps"] <= report["rounds"], f"5e-ii: {report['swaps']} swaps in {report['rounds']} rounds")
+    del server, monitor
+
+    # -------------------------------------------- 5f. the governor, throttled
+    hk = hikey970()
+    T_h = AutoPlanner(platform=hk).time_matrix(graph)
+    envelope = hk.max_power_w()
+    cap0 = 1.05 * envelope
+    p0 = power_aware_search(len(T_h), hk, T_h, mode="best", power_cap_w=cap0)
+    for frac in (0.08, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5):  # the reference test's deep throttle first
+        p1 = power_aware_search(len(T_h), hk, T_h, mode="best", power_cap_w=frac * envelope)
+        if p1.plan != p0.plan:
+            break
+    check(p1.plan != p0.plan, "5f: no cap moves the plan")
+    cap1 = frac * envelope
+    path = os.path.join(tmp, "governor_plan.json")
+    server = serve("vgg16", backend="cuda_fused", batch_size=BATCH, device=DEVICE, params=params,
+                   power_cap_w=cap0, plan_store=path)
+    stored0 = PlanStore(path).load_plan()
+    runtime.reset_launches()
+    completed0, tickets = server.metrics.completed, []
+
+    def feed():
+        for i in range(THROTTLE_IMAGES):
+            tickets.append((i, server.submit(images[i % len(images)])))
+
+    try:
+        start_plan = server.plan
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        while len(tickets) < THROTTLE_IMAGES // 4 and feeder.is_alive():
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        got = server.governor.throttle(cap1)
+        throttle_s = time.perf_counter() - t0
+        feeder.join(timeout=600)
+        lost, differ = THROTTLE_IMAGES - len(tickets), []
+        for i, t in tickets:
+            try:
+                if not torch.equal(t.result(timeout=600).cpu(), want[i % len(want)]):
+                    differ.append(i)
+            except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+                lost += 1
+        snap = server.governor.snapshot()
+        stage_freqs = server.governor.stage_freqs
+    finally:
+        stop_error = stop_quietly(server)
+    counts = runtime.launch_counts()
+    check_launches("5f", counts, served_batches(server) + 1)
+    add(counts)
+    stored = PlanStore(path).load_plan()
+    completed = server.metrics.completed - completed0
+    print(json.dumps({"governor_5f": {
+        "platform": "hikey970(): its modeled OPP clocks and watts, not the card's", "time_matrix": "synthetic",
+        "envelope_w_modeled": envelope, "cap0_w": cap0, "cap1_w": cap1,
+        "plan0": p0.notation(), "plan0_avg_power_w_modeled": p0.avg_power_w,
+        "plan1": p1.notation(), "plan1_avg_power_w_modeled": p1.avg_power_w,
+        "served_plan_before": start_plan.notation(), "served_plan_after": server.plan.notation(),
+        "throttle_s": throttle_s, "epoch": server.epoch, "submitted": THROTTLE_IMAGES,
+        "completed": completed, "lost": lost, "not_bitwise": differ[:8], "stop_error": stop_error,
+        "governor": snap, "stored_before": stored0.notation(), "stored_after": stored.notation(),
+        "launches": counts}}))
+    check(start_plan == p0.plan and stored0.stage_freqs == tuple(p0.stage_freqs),
+          f"5f: started on {start_plan.notation()} (stored {stored0.notation()}), want {p0.notation()}")
+    check(lost == 0 and completed == THROTTLE_IMAGES, f"5f: {lost} lost, {completed} resolved")
+    check(server.epoch == 1 and server.plan == p1.plan and got.plan == p1.plan,
+          f"5f: epoch {server.epoch} on {server.plan.notation()}, want epoch 1 on {p1.notation()}")
+    check(not differ, f"5f: outputs of tickets {differ[:8]} differ from phase 4's")
+    check(tuple(stage_freqs) == tuple(p1.stage_freqs), f"5f: clocks {stage_freqs}, the search's {p1.stage_freqs}")
+    check(stored.as_pipeline_plan() == p1.plan and stored.stage_freqs == tuple(p1.stage_freqs),
+          f"5f: the plan store holds {stored.notation()}, want {p1.notation()}")
+    check(stop_error is None, f"5f: stop() raised {stop_error}")
+    return path_launches
 
 
 def main() -> int:
@@ -1589,9 +1927,14 @@ def main() -> int:
     mark("4c")
 
     # ------------------------------ 5. the plan from the card, persisted
-    plan_from_card(torch, serve, images, params, fused_graph_outs, hikey_report)
-    del fused_graph_outs
+    tuner, measured, tmp = plan_from_card(torch, serve, images, params, fused_graph_outs, hikey_report)
     mark("5")
+
+    # ------------------- 5e, 5f. the closed loop: adaptive and governed
+    for name, n in closed_loop(torch, serve, images, params, fused_graph_outs, tuner, measured, tmp).items():
+        path_counts[name] += n
+    del fused_graph_outs
+    mark("5e,5f")
 
     # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)

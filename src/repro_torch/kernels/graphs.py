@@ -34,6 +34,10 @@ A :class:`Captured` graph
   caller's current stream, replaying there, and returning clones of its
   static outputs: the next replay overwrites them, while the server has
   handed the last ones to the next stage;
+- gives its pool back when it is dropped: the pool stays in the
+  allocator's cache until the next capture, which empties the cache as
+  it begins (``torch.cuda.graph``), so a server that swaps plans holds
+  at most one retired epoch's pools;
 - replays one call at a time: a lock serialises the callers on the host,
   and each replay's stream waits for the previous replay's clones on the
   device, so a stalled stage worker and its replacement

@@ -14,17 +14,47 @@
   measured on the card).
 * :mod:`.persistence` — ``PlanStore``: the last-known-good plan, saved
   on startup and after every hot swap, for ``serve(resume_from=)``.
+* :mod:`.adaptive` — the closed loop: online calibrator → drift detector
+  → re-plan → hot-swap (``serve(adaptive=True)``).
+* :mod:`.governor` — frequency/power: ``DvfsGovernor`` applies the
+  power-aware DSE's per-stage OPP assignment (the planning platform's
+  modeled clocks, not the card's), normalizes observations back to
+  f_max, and re-plans on throttle events (``serve(power_cap_w=...)``).
 
-The rest of the control plane over servers (adaptive re-planning, the
-DVFS governor, multi-model co-serving, fleets, load generation) is not
-ported yet; see ROADMAP.md.
+The rest of the control plane over servers (multi-model co-serving,
+fleets, load generation) is not ported yet; see ROADMAP.md.
 """
+from .adaptive import (
+    AdaptiveConfig,
+    AdaptiveController,
+    AdaptiveMonitor,
+    DriftDetector,
+    DriftingMatrix,
+    OnlineCalibrator,
+    OpenLoopServing,
+    QueueController,
+    QueuePolicy,
+    ReplanEvent,
+    ServerSampler,
+    SimulatedServing,
+    StageObservation,
+    attach_adaptive,
+    delayed_stage_fn_builder,
+    run_adaptive_loop,
+)
 from .batching import MicroBatch, gather, split_rows, stack_envs
 from .engine import (
     PipelinedGraphEngine,
     SingleStageEngine,
     build_eager_stage_fns,
     build_stage_fns,
+)
+from .governor import (
+    DvfsGovernor,
+    attach_governor,
+    governed_stage_fn_builder,
+    run_governed_loop,
+    run_slo_governed_loop,
 )
 from .faults import (
     FaultEvent,
@@ -47,30 +77,51 @@ from .server import (
 )
 
 __all__ = [
+    "AdaptiveConfig",
+    "AdaptiveController",
+    "AdaptiveMonitor",
     "AutoPlanner",
     "Backpressure",
+    "DriftDetector",
+    "DriftingMatrix",
+    "DvfsGovernor",
     "FaultEvent",
     "FaultInjector",
     "FaultPlan",
     "MicroBatch",
+    "OnlineCalibrator",
+    "OpenLoopServing",
     "PipelineServer",
     "PipelinedGraphEngine",
     "PlanStore",
+    "QueueController",
+    "QueuePolicy",
     "RecoveryPolicy",
+    "ReplanEvent",
     "ServerClosed",
     "ServerMetrics",
+    "ServerSampler",
     "ServingError",
+    "SimulatedServing",
     "SingleStageEngine",
     "StageMetrics",
+    "StageObservation",
     "Ticket",
     "TransientStageError",
     "WorkerCrash",
+    "attach_adaptive",
+    "attach_governor",
     "build_eager_stage_fns",
     "build_stage_fns",
+    "delayed_stage_fn_builder",
     "fault_injecting_builder",
     "gather",
+    "governed_stage_fn_builder",
     "host_platform",
     "percentile",
+    "run_adaptive_loop",
+    "run_governed_loop",
+    "run_slo_governed_loop",
     "serve",
     "split_rows",
     "stack_envs",

@@ -42,9 +42,10 @@ class PlanStore:
 
     ``save_server`` is duck-typed over both server kinds (anything with
     ``.partition`` persists as a partition; anything with ``.plan`` as a
-    single plan), which is what ``PipelineServer._persist_plan`` calls
-    after every successful swap (the multi-model server, which persists
-    partitions, is not ported yet).
+    single plan, with the governor's clocks when it has one), which is
+    what ``PipelineServer._persist_plan`` calls after every successful
+    swap (the multi-model server, which persists partitions, is not
+    ported yet).
     """
 
     def __init__(self, path: Union[str, os.PathLike]):
@@ -74,9 +75,17 @@ class PlanStore:
             raise
         return self.path
 
-    def save_plan(self, plan: Any, *, epoch: Optional[int] = None) -> str:
+    def save_plan(
+        self,
+        plan: Any,
+        *,
+        epoch: Optional[int] = None,
+        stage_freqs=None,
+    ) -> str:
         """Persist a single-model plan (any legacy plan type or the IR)."""
         ir = plan if isinstance(plan, Plan) else Plan.from_legacy(plan)
+        if stage_freqs is not None:
+            ir = ir.with_freqs(stage_freqs)
         return self._write({"kind": "plan", "epoch": epoch, "plan": ir.to_dict()})
 
     def save_partition(
@@ -102,7 +111,19 @@ class PlanStore:
             return self.save_partition(
                 partition, epoch=getattr(server, "partition_epoch", None)
             )
-        return self.save_plan(server.plan, epoch=getattr(server, "epoch", None))
+        # The clocks are the controller's plan's: a throttle or a re-plan
+        # hot-swaps (and so persists) before the governor applies them.
+        governor = getattr(server, "governor", None)
+        pplan = governor.controller.power_plan if governor else None
+        return self.save_plan(
+            server.plan,
+            epoch=getattr(server, "epoch", None),
+            stage_freqs=(
+                pplan.stage_freqs
+                if pplan is not None and pplan.plan == server.plan
+                else None
+            ),
+        )
 
     # ------------------------------------------------------------------ read
     def load(self) -> Optional[Dict[str, Any]]:

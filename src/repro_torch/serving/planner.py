@@ -23,10 +23,6 @@ An explicit ``time_matrix`` overrides both.  With an autotuner
 (``serve(autotune=True)`` or ``tuner=``) the layers' serving routes are
 measured on the serving device (``kernels/backend.py::measure_graph_routes``)
 and those times replace the regression for the layers they cover.
-
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the adaptive loop, the power-aware DSE and governor, and
-multi-model co-serving.
 """
 from __future__ import annotations
 
@@ -36,13 +32,15 @@ from typing import Mapping, Optional, Union
 from ..cnn.graph import Graph
 from ..cnn.models import MODELS
 from ..core.calibration import calibrate, synthetic_model
-from ..core.dse import pipe_it_search
+from ..core.dse import PowerAwarePlan, pipe_it_search, power_aware_search
 from ..core.perfmodel import LayerTimePredictor
 from ..core.pipeline import PipelinePlan, TimeMatrix
 from ..core.platform import CoreType, HeteroPlatform, hikey970
 from ..kernels.autotune import ConvAutotuner
 from ..kernels.backend import measure_graph_routes, resolve_backend
 from ..kernels.config import resolve_device
+from .adaptive import AdaptiveConfig, attach_adaptive
+from .governor import attach_governor
 from .persistence import PlanStore
 from .server import PipelineServer
 
@@ -118,6 +116,24 @@ class AutoPlanner:
         T = self.time_matrix(graph) if T is None else T
         return self.search(len(graph.descriptors()), T)
 
+    def power_plan(
+        self,
+        graph: Graph,
+        T: Optional[TimeMatrix] = None,
+        *,
+        power_cap_w: Optional[float] = None,
+        objective: str = "throughput",
+        min_throughput: Optional[float] = None,
+    ) -> PowerAwarePlan:
+        """The DVFS-extended DSE: plan + per-stage OPP assignment under an
+        average-power cap (:func:`repro_torch.core.dse.power_aware_search`)."""
+        T = self.time_matrix(graph) if T is None else T
+        return power_aware_search(
+            len(graph.descriptors()), self.platform, T, mode=self.mode,
+            power_cap_w=power_cap_w, objective=objective,
+            min_throughput=min_throughput,
+        )
+
     def build(
         self,
         graph: Graph,
@@ -159,12 +175,6 @@ class AutoPlanner:
         return server.start()
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"serve({option}) is not ported to repro_torch yet (ROADMAP.md, {item})"
-    )
-
-
 def serve(
     model: Union[str, Graph, Mapping],
     *,
@@ -183,7 +193,9 @@ def serve(
     device=None,
     recovery=None,
     adaptive: bool = False,
+    adaptive_config: Optional[AdaptiveConfig] = None,
     power_cap_w: Optional[float] = None,
+    power_objective: str = "throughput",
     min_throughput: Optional[float] = None,
     autotune: bool = False,
     tuner=None,
@@ -216,21 +228,33 @@ def serve(
     :class:`~repro_torch.serving.persistence.PlanStore`) persists the
     active plan as last-known-good JSON on startup and after every
     successful hot swap; ``resume_from`` (same types, usually the same
-    path) serves a persisted plan and skips the route measurements, the
-    time matrix and the DSE (the stage functions' convs are still tuned;
-    an absent or unusable file means a normal cold start).
+    path) serves a persisted plan and skips the DSE, and unless the
+    adaptive loop or the power path needs the time matrix also the route
+    measurements and the matrix (the stage functions' convs are still
+    tuned; an absent or unusable file means a normal cold start).
+
+    ``power_cap_w`` (watts of modeled average active power on the
+    planning platform, e.g. ``hikey970()``'s OPP tables; nothing of the
+    card's own power) and/or ``power_objective`` and ``min_throughput``
+    switch the DSE to the DVFS-extended search
+    (:func:`repro_torch.core.dse.power_aware_search`) and give the server
+    a :class:`~repro_torch.serving.governor.DvfsGovernor` on
+    ``server.governor`` (``server.governor.throttle(new_cap)`` re-plans
+    under a new cap and hot-swaps); its clocks are bookkeeping over
+    full-speed stage functions.  ``adaptive=True`` attaches the closed
+    loop of :mod:`repro_torch.serving.adaptive` (``server.monitor``, a
+    thread that calibrates the time matrix against the observed stage
+    times and hot-swaps when the bottleneck drifts; ``adaptive_config``
+    sets its knobs); ``server.stop()`` stops it first.
 
     >>> server = serve("vgg16", backend="cuda_fused", batch_size=4)
     >>> logits = server.submit(image).result()
     >>> server.stop()
     """
     if isinstance(model, Mapping):
-        raise _not_ported("{model: ...}", "queue 1 item 8d, multi-model co-serving")
-    if adaptive:
-        raise _not_ported("adaptive=True", "queue 1 item 8b, adaptive re-planning")
-    if power_cap_w is not None or min_throughput is not None:
-        raise _not_ported(
-            "power_cap_w/min_throughput", "queue 1 item 8c, governor and power-aware DSE"
+        raise NotImplementedError(
+            "serve({model: ...}) is not ported to repro_torch yet "
+            "(ROADMAP.md, queue 1 item 8d, multi-model co-serving)"
         )
     dev = resolve_device(device)
     graph = MODELS[model]() if isinstance(model, str) else model
@@ -243,18 +267,27 @@ def serve(
     if backend is None and tuner is not None:
         backend = "torch"  # measurements must reflect the route that serves
     kb = resolve_backend(backend, tuner=tuner)
-    # Warm start: a persisted last-known-good plan skips the measurements,
-    # the time matrix and the DSE (best effort: an absent or unusable
-    # store means a cold start).
+    # Warm start: a persisted last-known-good plan skips the DSE (best
+    # effort: an absent or unusable store means a cold start).
     resume_plan = None
     if resume_from is not None:
         ir = PlanStore.coerce(resume_from).load_plan()
         if ir is not None:
             resume_plan = ir.as_pipeline_plan()
+    # min_throughput alone also arms the power path: the floor is enforced
+    # as DVFS-feasibility, never silently dropped
+    power_aware = (
+        power_cap_w is not None
+        or power_objective != "throughput"
+        or min_throughput is not None
+    )
+    # The time matrix, and the route measurements it is made from, only
+    # when something still needs it: the DSE (no resume), the power-aware
+    # frequency search, or the adaptive loop's prior.  A resumed static
+    # server at fixed clocks skips both.
+    need_T = resume_plan is None or power_aware or adaptive
     measured = None
-    if kb is not None and tuner is not None and time_matrix is None and resume_plan is None:
-        # skipped when nothing plans from them: the measurements would be
-        # dead startup latency
+    if kb is not None and tuner is not None and time_matrix is None and need_T:
         measured = measure_graph_routes(graph, kb, tuner)
     planner = AutoPlanner(
         platform=platform if platform is not None else hikey970(),
@@ -265,21 +298,53 @@ def serve(
         tuner=tuner,
         device=dev,
     )
+    T = time_matrix
+    if T is None and need_T:
+        T = planner.time_matrix(graph)
+    pplan = None
+    if power_aware:
+        pplan = planner.power_plan(
+            graph, T, power_cap_w=power_cap_w, objective=power_objective,
+            min_throughput=min_throughput,
+        )
     server = planner.build(
         graph,
         params,
-        time_matrix=time_matrix,
+        time_matrix=T,
         batch_size=batch_size,
         flush_timeout_s=flush_timeout_s,
         queue_depth=queue_depth,
         seed=seed,
         warmup=warmup,
         stage_fn_builder=stage_fn_builder,
-        plan=resume_plan,
+        plan=pplan.plan if pplan is not None else resume_plan,
         recovery=recovery,
     )
+    if power_aware:
+        # the governor owns the clocks; its monitor thread only runs when
+        # the caller asked for the adaptive loop (throttle() works either way)
+        attach_governor(
+            server,
+            prior=T,
+            platform=planner.platform,
+            power_cap_w=power_cap_w,
+            objective=power_objective,
+            min_throughput=min_throughput,
+            mode=mode,
+            config=adaptive_config,
+            start=adaptive,
+        )
+    elif adaptive:
+        attach_adaptive(
+            server,
+            prior=T,
+            platform=planner.platform,
+            mode=mode,
+            config=adaptive_config,
+        )
     if plan_store is not None:
-        # the startup plan is the first known-good one
+        # after the governor is attached, so the persisted plan carries
+        # its clocks; the startup plan is the first known-good one
         server.plan_store = PlanStore.coerce(plan_store)
         server._persist_plan()
     return server

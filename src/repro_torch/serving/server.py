@@ -273,6 +273,12 @@ class PipelineServer:
         self._abandoned: List[threading.Thread] = []  # watchdog-shot zombies
         self._watchdog: Optional[threading.Thread] = None
         self._watchdog_stop = threading.Event()
+        # Optional adaptive-control attachment (serving/adaptive.py); when
+        # set, stop() shuts it down before draining the pipeline.
+        self.monitor = None
+        # Optional DVFS attachment (serving/governor.py): owns the live
+        # per-stage frequency assignment; passive (no thread of its own).
+        self.governor = None
         self._lock = threading.Lock()
         # Serializes ingress puts against stop()'s shutdown sentinel: a
         # submit that passed the closed-check is guaranteed to land its
@@ -698,6 +704,8 @@ class PipelineServer:
         :class:`ServingError` naming the wedged stage thread(s), so a
         hung pipeline is loud at shutdown instead of hanging the caller.
         """
+        if self.monitor is not None:
+            self.monitor.stop()
         self._watchdog_stop.set()
         with self._lock:
             already_closed = self._closed
@@ -718,6 +726,12 @@ class PipelineServer:
                 t.join(timeout=max(0.0, deadline - time.perf_counter()))
         if self._error is not None:
             raise self._error
+        # A dead adaptive loop must be as loud as a dead worker: if the
+        # monitor gave up on an error (and no worker error explains it),
+        # surface it here rather than let adaptation fail silently.
+        monitor_error = getattr(self.monitor, "error", None)
+        if monitor_error is not None:
+            raise ServingError("adaptive monitor failed") from monitor_error
         if started:
             wedged = [t.name for t in self._threads if t.is_alive()]
             if wedged:

@@ -24,6 +24,7 @@ length read on the device to B5 with an int.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -1001,3 +1002,176 @@ def test_warm_cache_times_nothing_on_the_card(cuda, tmp_path):
     assert [warm.tune(d) for d in geos] == picks
     assert warm.measured_route(geos[0], "cuda") == first.measured_route(geos[0], "cuda")
     assert warm.timings_run == 0
+
+
+def _hikey_tiny():
+    """The tiny net on hikey970()'s synthetic time matrix, and 16 seeded images."""
+    from repro_torch.core import LayerTimePredictor, hikey970
+    from repro_torch.core.calibration import synthetic_model
+
+    g = _tiny()
+    plat = hikey970()
+    T = LayerTimePredictor(model=synthetic_model(), platform=plat).time_matrix(g.descriptors())
+    rng = np.random.default_rng(9)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(16)]
+    return g, plat, T, images
+
+
+def _static_outputs(g, plat, T, images):
+    server = serve(g, backend="cuda_fused", batch_size=4, seed=1, platform=plat, time_matrix=T)
+    try:
+        return server.params, [o.cpu() for o in server.run(images)["outputs"]]
+    finally:
+        server.stop()
+
+
+def test_adaptive_loop_swaps_after_a_drift_with_the_static_bits(cuda):
+    """serve(adaptive=True) on cuda_fused behind the delayed builder (the
+    delay a sleep kernel on the stage's stream): a hand-stepped monitor
+    hot-swaps after the Big cluster's truth slows 2x, the new epoch's
+    graphs replay 3 conv and 2 fc launches a micro-batch, and every output
+    keeps a static server's bits."""
+    from repro_torch.serving import AdaptiveConfig, DriftingMatrix, delayed_stage_fn_builder
+
+    g, plat, T, images = _hikey_tiny()
+    params, want = _static_outputs(g, plat, T, images)
+    truth = DriftingMatrix(T)
+    cfg = AdaptiveConfig(alpha=0.5, threshold=0.3, patience=1, min_gain=1.02,
+                         interval_s=3600.0, min_items=8)  # the thread never steps
+    server = serve(g, backend="cuda_fused", batch_size=4, params=params, platform=plat,
+                   time_matrix=T, adaptive=True, adaptive_config=cfg,
+                   stage_fn_builder=delayed_stage_fn_builder(truth, scale=200.0, backend="cuda_fused"))
+    monitor, outs = server.monitor, []
+    try:
+        outs += server.run(images)["outputs"]
+        monitor.step()  # absorbs the static bias (compute atop the delays)
+        base = monitor.controller.swaps
+        truth.scale("B", 2.0)
+        for _ in range(6):
+            outs += server.run(images)["outputs"]
+            if monitor.step() is not None:
+                break
+        swaps, plan = monitor.controller.swaps, monitor.controller.plan
+        K.reset_launches()
+        outs += server.run(images)["outputs"]
+        batches = server.metrics.stages[0].snapshot()["batches"]
+        counts = K.launch_counts()
+    finally:
+        server.stop()
+    history = [(e.round, e.old_plan.notation(), e.new_plan.notation(), e.predicted_gain, e.swapped)
+               for e in monitor.controller.history]
+    assert swaps > base and server.plan == plan and server.epoch >= 1, history
+    assert monitor.error is None
+    assert counts["conv2d_fused"] == 3 * batches and counts["matmul_fused"] == 2 * batches
+    for i, o in enumerate(outs):
+        assert torch.equal(o.cpu(), want[i % len(images)]), i
+
+
+def test_governor_throttle_swaps_with_zero_drops(cuda):
+    """serve(power_cap_w=...) on cuda_fused: a throttle mid-stream moves
+    to the capped plan (another allocation, re-captured) with its clocks,
+    no ticket is lost and every output keeps a static server's bits."""
+    from repro_torch.core import power_aware_search
+
+    g, plat, T, images = _hikey_tiny()
+    params, want = _static_outputs(g, plat, T, images)
+    envelope = plat.max_power_w()
+    cap0, cap1 = 1.05 * envelope, 0.5 * envelope
+    n = len(T)
+    p0 = power_aware_search(n, plat, T, mode="best", power_cap_w=cap0)
+    p1 = power_aware_search(n, plat, T, mode="best", power_cap_w=cap1)
+    assert p1.plan != p0.plan  # the throttle must force a hot swap
+    server = serve(g, backend="cuda_fused", batch_size=4, params=params, platform=plat,
+                   time_matrix=T, power_cap_w=cap0)
+    tickets = []
+
+    def feed():
+        for i in range(64):
+            tickets.append((i, server.submit(images[i % len(images)])))
+
+    try:
+        assert server.plan == p0.plan
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        while len(tickets) < 16 and feeder.is_alive():
+            time.sleep(0.001)
+        got = server.governor.throttle(cap1)
+        feeder.join(timeout=120)
+        outs = [(i, t.result(timeout=120).cpu()) for i, t in tickets]
+    finally:
+        server.stop()
+    assert len(outs) == 64
+    assert server.epoch == 1 and server.plan == p1.plan and got.plan == p1.plan
+    assert server.governor.stage_freqs == p1.stage_freqs
+    for i, o in outs:
+        assert torch.equal(o, want[i % len(images)]), i
+
+
+def test_device_delay_follows_truth_after_the_capture(cuda):
+    """The delayed builder's delay runs after the stage's graph replay, not
+    inside it: scaling ``truth`` after the capture changes the next
+    replayed call's time by the scripted amount."""
+    from repro_torch.core import pipe_it_search
+    from repro_torch.core.pipeline import stage_time
+    from repro_torch.serving import DriftingMatrix, delayed_stage_fn_builder
+
+    g, plat, T, images = _hikey_tiny()
+    plan = pipe_it_search(len(T), plat, T, mode="best")
+    layers, stage = tuple(plan.allocation[0]), plan.pipeline.stages[0]
+    scale = 0.02 / stage_time(T, layers, stage)  # stage 0 sleeps 20 ms a call
+    truth = DriftingMatrix(T)
+    fn = delayed_stage_fn_builder(truth, scale=scale, backend="cuda_fused")(g, plan)[0]
+    params = g.init(seed=1, device="cuda")
+    x = torch.from_numpy(np.concatenate(images[:4])).cuda()
+
+    def call():
+        t0 = time.perf_counter()
+        out = fn(params, {"input": x})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    call()  # eager, then the capture
+    runtime.reset_launches()
+    times, outs = [], []
+    for drift in (None, None, 3.0, None):
+        if drift is not None:
+            truth.scale(stage[0], drift)
+        dt, out = call()
+        times.append(dt)
+        outs.append(out)
+    assert runtime.graph_launches() == 4  # every timed call replayed the one capture
+    assert 0.018 < min(times[:2]) < 0.03
+    assert 0.055 < min(times[2:]) < 0.07  # 3x the delay, replay unchanged
+    for out in outs[1:]:
+        assert all(torch.equal(out[k], outs[0][k]) for k in out)
+
+
+def test_swaps_free_the_old_epochs_graph_pools(cuda):
+    """Alternating hot swaps on a graph server: the reserved memory after
+    the last of six is no higher than after the first plus one epoch's
+    (the server's startup warm-up and capture), so old epochs' graphs and
+    their pools are given back (at the next capture)."""
+    g, plan, params = _tiny_plan("cuda_fused")
+    n = sum(len(a) for a in plan.allocation)
+    one_stage = PipelinePlan(pipeline=Pipeline(stages=(plan.pipeline.stages[0],)),
+                             allocation=(tuple(range(n)),))
+    images = [np.zeros((1, 16, 16, 3), np.float32)] * 8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    server = PipelineServer(g, params, plan, batch_size=64, backend="cuda_fused")
+    server.warmup()
+    torch.cuda.synchronize()
+    epoch_bytes = torch.cuda.memory_reserved() - before
+    reserved = []
+    try:
+        with server:
+            for new_plan in (one_stage, plan) * 3:
+                server.swap_plan(new_plan)
+                server.run(images)
+                torch.cuda.synchronize()
+                reserved.append(torch.cuda.memory_reserved())
+    finally:
+        server.stop()
+    assert epoch_bytes > 0
+    assert reserved[-1] <= reserved[0] + epoch_bytes, (reserved, epoch_bytes)

@@ -197,20 +197,6 @@ def test_serve_defaults_to_the_card():
         SingleStageEngine(tiny(), {}, backend="cuda_fused")
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        dict(adaptive=True),
-        dict(power_cap_w=5.0),
-        dict(min_throughput=1.0),
-    ],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_serve_refuses_options_not_ported_yet(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve("vgg16", device="cpu", **kwargs)
-
-
 def test_serve_refuses_a_model_dict():
     with pytest.raises(NotImplementedError, match="multi-model"):
         serve({"a": "vgg16", "b": "alexnet"}, device="cpu")
