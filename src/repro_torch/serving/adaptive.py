@@ -362,7 +362,7 @@ class AdaptiveController:
 
     def rejoin(self) -> PipelinePlan:
         """Lost cores came back: restore the remembered pre-fault plan
-        (the ISSUE's contract — rejoin returns to the original operating
+        (the contract: rejoin returns to the original operating
         point; drift since then re-triggers the normal loop)."""
         if self._pre_degrade is None:
             raise ValueError("rejoin() without a preceding degrade()")
@@ -1012,7 +1012,7 @@ class QueueController:
 
     ``service_s`` is the per-image bottleneck service time and
     ``base_latency_s`` the zero-queue pipeline latency of the ACTIVE plan
-    (update via :meth:`update_plan` after a hot-swap).  The live driver
+    (update via :meth:`update_plan` after a hot-swap).  The live path
     (``serving.loadgen.run_open_loop``) calls ``observe_arrival`` /
     ``should_admit`` per request; the simulator path plugs
     ``should_admit`` straight into ``simulate(admit=...)`` — one policy,
@@ -1060,7 +1060,7 @@ class QueueController:
 
         Signature doubles as ``simulate(admit=...)``'s
         ``(arrival, predicted_wait)`` callback — the simulator passes
-        (arrival, wait) positionally, the live driver passes wait alone —
+        (arrival, wait) positionally, the live path passes wait alone —
         so both paths shed by the identical rule."""
         wait = max(queue_wait_s, _arrival_s) if _arrival_s else queue_wait_s
         ok = (
