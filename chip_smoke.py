@@ -101,7 +101,33 @@ Phases (any failure exits non-zero):
    plan store, then ``governor.throttle`` to the reference test's deep
    cap (0.08 x) with 128 images in flight: no ticket lost, epoch 1, the
    capped plan and its clocks on the governor and in the store, the same
-   bits.  Its clocks and watts are ``hikey970()``'s modeled ones;
+   bits.  Its clocks and watts are ``hikey970()``'s modeled ones.
+   5g (``co_serving``): ``serve({"vgg16": ModelEntry(<phase 4's
+   weights>), "mobilenet": "mobilenet"}, backend="cuda_fused",
+   platform=host_platform(4), tuner=<phase 5's>, batch_size=4,
+   plan_store=)``, the partition planned from the routes
+   ``measure_graph_routes`` times under ``cuda_fused`` for both models
+   (VGG-16's are cache hits: the tuner may time only MobileNet's new
+   geometries).  32 images per model through ``run()``: each model
+   bitwise equal to its single-stage engine, VGG-16 also to phase 4, 13
+   + 3 (VGG-16) and 14 + 1 (MobileNet's ``groups == 1`` convs and fc;
+   its 13 depthwise convs run ``F.conv2d``) launches a micro-batch, one
+   graph launch per stage.  Three steady windows of 1024 images per
+   model, both streams fed at once (aggregate and per-model img/s beside
+   phase 4's VGG-16 alone), a profiled window of 256 (the device's busy
+   share), then the ``TimeSlicedEngine`` (quantum 4,
+   each model on its own ``host_platform(4)`` plan) against the
+   co-served partition, both at batch 1 over 256 images per model, on
+   one ``multimodel`` line (rates recorded, bits gated).  While a thread
+   submits 128 images per model, ``swap_partition`` moves to the
+   ``fairness="max-min"`` partition (or else the best-scored assignment
+   whose plans differ): no ticket lost, the same bits, epoch 1, the
+   store holding it; four more swaps back and forth, the reserved memory
+   after the last no higher than after the first plus one epoch's.
+   ``serve({...}, resume_from=)`` makes no ``partition_search`` call
+   (counted) and serves the stored partition with the same bits; a short
+   ``serve({...}, adaptive=True)`` run: no monitor error, a quiet
+   ``stop()``, the same bits;
 6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
@@ -187,6 +213,11 @@ LOOP_IMAGES = 256
 LOOP_WINDOWS = 8
 LOOP_WINDOWS_II = 6
 THROTTLE_IMAGES = 128  # submitted by a thread while the governor throttles
+# co-serving (phase 5g): the time-sliced baseline's images per model and
+# quantum, and the short adaptive run's windows (of LOOP_IMAGES per model)
+COSERVE_SLICED_IMAGES = 256
+SLICE_QUANTUM = 4
+COSERVE_LOOP_WINDOWS = 3
 
 # Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
 # bytes/s and int8 tensor-core op/s; the SXM part unless the card names
@@ -1154,6 +1185,22 @@ def loop_report(server, monitor, windows, reserved):
     }
 
 
+def reserved_bytes(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.memory_reserved()
+
+
+def baseline_bytes(torch):
+    """Reserved bytes before a server starts: nothing of an earlier one
+    left in the allocator's cache."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
 def check_launches(name, counts, micro_batches):
     check(counts["conv2d_fused"] == 13 * micro_batches and counts["matmul_fused"] == 3 * micro_batches,
           f"{name}: {counts} over {micro_batches} micro-batches (served and warm-ups), want 13 + 3 each")
@@ -1179,7 +1226,6 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
     plan_store=)`` on ``hikey970()``, then ``governor.throttle(cap1)`` with
     images in flight; the clocks and watts are ``hikey970()``'s modeled
     ones, never the card's."""
-    import gc
     import threading
 
     from repro_torch.cnn.models import MODELS
@@ -1205,14 +1251,10 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
             path_launches[k] += counts[k]
 
     def reserved():
-        torch.cuda.synchronize()
-        return torch.cuda.memory_reserved()
+        return reserved_bytes(torch)
 
-    def baseline():  # before a server starts: nothing of an earlier one left cached
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_reserved()
+    def baseline():
+        return baseline_bytes(torch)
 
     # ------------------------------------------ 5e. the adaptive loop, drifted
     T = [{st: measured[descriptor_key(d)] for st in plat.stage_vocabulary()} for d in descs]
@@ -1413,6 +1455,339 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
     check(stored.as_pipeline_plan() == p1.plan and stored.stage_freqs == tuple(p1.stage_freqs),
           f"5f: the plan store holds {stored.notation()}, want {p1.notation()}")
     check(stop_error is None, f"5f: stop() raised {stop_error}")
+    return path_launches
+
+
+def other_partition(Ts, plat, current):
+    """The best-scored share assignment of ``plat`` (the utilitarian sum,
+    each share's plan from ``pipe_it_search``) whose plans differ from
+    ``current``'s."""
+    from repro_torch.core import enumerate_shares, partition_objective, pipe_it_search
+    from repro_torch.core.dse import ModelPlan, PartitionPlan
+
+    best = None
+    for assignment in enumerate_shares(plat, len(Ts)):
+        mps = []
+        for (name, T), share in zip(Ts.items(), assignment):
+            sub = plat.subset(dict(share))
+            plan = pipe_it_search(len(T), sub, T, mode="best")
+            mps.append(ModelPlan(name=name, share=sub, plan=plan, throughput=plan.throughput(T)))
+        cand = PartitionPlan(assignments=tuple(mps), feasible=True,
+                             objective=partition_objective([m.throughput for m in mps]))
+        if cand.plans() != current.plans() and (best is None or cand.objective > best.objective):
+            best = cand
+    return best
+
+
+def co_serving(torch, serve, images, params, want, tuner, tmp, vgg_single_img_per_s):
+    """Phase 5g: VGG-16 (phase 4's weights) and MobileNet (weights from
+    seed 0) co-served on ``cuda_fused`` graphs at micro-batch BATCH, on a
+    partition of ``host_platform(4)`` planned from phase 5's tuner: the
+    routes ``measure_graph_routes`` times for both models under
+    ``cuda_fused`` (VGG-16's are cache hits, so the tuner times only
+    MobileNet's new geometries).  Gated: each model bitwise equal to its
+    single-stage engine (VGG-16 also to phase 4, ``want``), 13 + 3 and 14
+    + 1 launches a micro-batch and one graph launch per stage; no ticket
+    lost across a ``swap_partition`` with traffic in flight, the bits
+    kept, the store holding the new partition, reserved memory after four
+    more swaps no higher than after the first plus one epoch's; a resume
+    with no ``partition_search`` call and the same bits; a short adaptive
+    run with no monitor error.  Recorded, not gated: the co-served img/s
+    over three steady windows, and the time-sliced baseline against the
+    co-served partition at batch 1.  Returns the B1 and B2 launches of
+    its gated served runs."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.serving.planner as planner_mod
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.autotune import descriptor_key
+    from repro_torch.kernels.backend import resolve_backend
+    from repro_torch.kernels.conv_fused import supports
+    from repro_torch.serving import (AdaptiveConfig, AutoPlanner, ModelEntry, MultiModelServer,
+                                     PipelinedGraphEngine, PlanStore, SingleStageEngine,
+                                     TimeSlicedEngine, host_platform)
+
+    dev = torch.device(DEVICE)
+    plat = host_platform(4)
+    names = ("vgg16", "mobilenet")
+    per_batch = {"vgg16": (13, 3), "mobilenet": (14, 1)}
+    vgg = MODELS["vgg16"]()
+    store = os.path.join(tmp, "partition.json")
+    path_launches = {"conv2d_fused": 0, "matmul_fused": 0}
+
+    def spec():
+        return {"vgg16": ModelEntry(name="vgg16", graph=vgg, params=params), "mobilenet": "mobilenet"}
+
+    def served_counts(mm, tag, b0=None):
+        """Launches since the last reset against each model's micro-batches
+        since ``b0`` (one graph launch per stage and micro-batch)."""
+        counts, graph_launches = runtime.launch_counts(), runtime.graph_launches()
+        nb = {n: mm.servers[n].metrics.stages[0].snapshot()["batches"] - (b0 or {}).get(n, 0) for n in names}
+        want_conv = sum(per_batch[n][0] * nb[n] for n in names)
+        want_fc = sum(per_batch[n][1] * nb[n] for n in names)
+        want_graphs = sum(len(mm.servers[n].plan.allocation) * nb[n] for n in names)
+        check(counts["conv2d_fused"] == want_conv and counts["matmul_fused"] == want_fc
+              and graph_launches == want_graphs,
+              f"5g {tag}: {counts} and {graph_launches} graph launches over micro-batches {nb}, "
+              f"want {want_conv} conv, {want_fc} fc, {want_graphs} graph launches")
+        return {"micro_batches": nb, "conv2d_fused": counts["conv2d_fused"],
+                "matmul_fused": counts["matmul_fused"], "graph_launches": graph_launches}
+
+    def differing(outs, ref):
+        """Indices of ``outs`` (cycled over ``ref``) not bitwise equal."""
+        return [i for i, o in enumerate(outs) if not torch.equal(o.cpu(), ref[i % len(ref)])]
+
+    # what the shared tuner must still time: MobileNet's geometries alone
+    mob = MODELS["mobilenet"]()
+    n_cands = tuner.entry(vgg.descriptors()[0])["candidates"]
+
+    def swept(d):
+        e = tuner.entry(d)
+        return e is not None and "variant" in e and e.get("batch") == tuner.batch
+
+    new_sweeps = {descriptor_key(d) for d in mob.descriptors()
+                  if d.kind == "conv" and supports(d.f_h, d.f_w, d.stride, d.groups) and not swept(d)}
+    new_routes = {descriptor_key(d) for d in mob.descriptors() if tuner.measured_route(d, "cuda_fused") is None}
+    want_timings = len(new_sweeps) * n_cands + len(new_routes)
+    vgg_entries = {descriptor_key(d): json.dumps(tuner.entry(d), sort_keys=True) for d in vgg.descriptors()}
+
+    search_calls = []
+    real_search = planner_mod.partition_search
+
+    def counting_search(*a, **kw):
+        search_calls.append(1)
+        return real_search(*a, **kw)
+
+    planner_mod.partition_search = counting_search
+    try:
+        # ------------------------------------------------ the server, planned
+        r0 = baseline_bytes(torch)
+        t_before = tuner.timings_run
+        t0 = time.perf_counter()
+        mm = serve(spec(), backend="cuda_fused", platform=plat, tuner=tuner, batch_size=BATCH,
+                   device=DEVICE, plan_store=store)
+        setup_s = time.perf_counter() - t0
+        cold_calls, new_timings = len(search_calls), tuner.timings_run - t_before
+        vgg_hits = all(json.dumps(tuner.entry(d), sort_keys=True) == vgg_entries[descriptor_key(d)]
+                       for d in vgg.descriptors())
+        part0 = mm.partition
+        epoch_bytes = baseline_bytes(torch) - r0
+        graphs = {n: mm.registry[n].graph for n in names}
+        measured = tuner.route_seconds("cuda_fused")
+        planner = AutoPlanner(platform=plat, measured=measured)
+        Ts = planner.time_matrices(graphs)
+        replanned = planner.partition(graphs, Ts)
+        kb = resolve_backend("cuda_fused", tuner=tuner)
+        single = {n: [o.cpu() for o in SingleStageEngine(graphs[n], mm.registry[n].params, backend=kb,
+                                                          device=dev).run(images)["outputs"]]
+                  for n in names}
+        try:
+            # ------------------------------------- bits and launches, then rates
+            runtime.reset_launches()
+            res = mm.run({n: images for n in names}, timeout=600)
+            run_counts = served_counts(mm, "run()")
+            outs = {n: [o.cpu() for o in res["outputs"][n]] for n in names}
+
+            def window(n_img):
+                done = {}
+
+                def feed(n):
+                    t1 = time.perf_counter()
+                    ts = [mm.submit(n, images[i % len(images)], timeout=600) for i in range(n_img)]
+                    for t in ts:
+                        t.result(timeout=600)
+                    done[n] = time.perf_counter() - t1
+
+                threads = [threading.Thread(target=feed, args=(n,), daemon=True) for n in names]
+                t1 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall = time.perf_counter() - t1
+                check(sorted(done) == sorted(names), f"5g: a steady window's feeder failed ({sorted(done)})")
+                return {"seconds": wall, "aggregate_img_per_s": len(names) * n_img / wall,
+                        **{f"{n}_img_per_s": n_img / done[n] for n in names}}
+
+            windows = [window(STEADY_IMAGES) for _ in range(STEADY_REPS)]
+            steady_counts = served_counts(mm, "steady windows")
+            snap = mm.metrics()
+            # one more window under the profiler (after the counts, as in phase 4)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiled = window(PROFILE_IMAGES)
+            busy = device_busy(prof, profiled["seconds"])
+            del prof
+            for k in path_launches:
+                path_launches[k] += steady_counts[k]
+
+            # -------------- the time-sliced baseline against the partition, batch 1
+            sliced_images = [images[i % len(images)] for i in range(COSERVE_SLICED_IMAGES)]
+            streams = {n: sliced_images for n in names}
+            engines = {n: PipelinedGraphEngine(graphs[n], mm.registry[n].params, planner.plan(graphs[n]),
+                                               backend=kb, device=dev) for n in names}
+            sliced = TimeSlicedEngine(engines, quantum=SLICE_QUANTUM)
+            sliced.warmup({n: images[0] for n in names})
+            ts_res = sliced.run(streams)
+            mm1 = MultiModelServer(mm.registry, part0, batch_size=1, backend=kb, device=dev)
+            mm1.warmup()
+            mm1.start()
+            try:
+                mm1_res = mm1.run(streams, timeout=600)
+            finally:
+                mm1_stop = stop_quietly(mm1)
+            sliced_differ = {n: differing(ts_res["outputs"][n], single[n]) for n in names}
+            mm1_differ = {n: differing(mm1_res["outputs"][n], single[n]) for n in names}
+            multimodel = {
+                "models": list(names), "platform": "host_platform(4)", "partition": part0.notation(),
+                "batch": 1, "images_per_model": COSERVE_SLICED_IMAGES,
+                "time_sliced": {"quantum": SLICE_QUANTUM, "slices": ts_res["slices"],
+                                "plans": {n: e.plan.notation() for n, e in engines.items()},
+                                "aggregate_img_per_s": ts_res["throughput"], "seconds": ts_res["seconds"]},
+                "coserved": {"aggregate_img_per_s": mm1_res["throughput"], "seconds": mm1_res["seconds"]},
+                "coserved_over_time_sliced": mm1_res["throughput"] / ts_res["throughput"],
+                "bitwise_vs_single_stage": {"time_sliced": not any(sliced_differ.values()),
+                                            "coserved": not any(mm1_differ.values())},
+            }
+            print(json.dumps({"multimodel": multimodel}))
+            del engines, sliced, mm1, ts_res, mm1_res
+
+            # ------------------------------------ swap_partition with traffic
+            alt, alt_from = planner.partition(graphs, Ts, fairness="max-min"), "max-min"
+            if alt.plans() == part0.plans():
+                alt, alt_from = other_partition(Ts, plat, part0), "best-scored other assignment"
+            tickets = []
+
+            def feed_swap():
+                for i in range(SWAP_IMAGES):
+                    for n in names:
+                        tickets.append((n, i, mm.submit(n, images[i % len(images)], timeout=600)))
+
+            feeder = threading.Thread(target=feed_swap, daemon=True)
+            feeder.start()
+            while len(tickets) < SWAP_IMAGES // 2 and feeder.is_alive():
+                time.sleep(0.001)
+            t1 = time.perf_counter()
+            mm.swap_partition(alt)
+            swap_s = time.perf_counter() - t1
+            feeder.join(timeout=600)
+            lost = len(names) * SWAP_IMAGES - len(tickets)
+            swap_differ = []
+            for n, i, t in tickets:
+                try:
+                    if not torch.equal(t.result(timeout=600).cpu(), single[n][i % len(images)]):
+                        swap_differ.append((n, i))
+                except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+                    lost += 1
+            swap_epoch = mm.partition_epoch
+            stored = PlanStore(store).load_partition(plat)
+            after_swaps, back_differ = [reserved_bytes(torch)], []
+            for p in (part0, alt) * 2:
+                mm.swap_partition(p)
+                got = mm.run({n: images for n in names}, timeout=600)["outputs"]
+                back_differ += [(n, i) for n in names for i in differing(got[n], single[n])]
+                after_swaps.append(reserved_bytes(torch))
+        finally:
+            stop_error = stop_quietly(mm)
+
+        # ----------------------------------------------- resume: no DSE call
+        resume_calls0, t_before = len(search_calls), tuner.timings_run
+        mm2 = serve(spec(), backend="cuda_fused", platform=plat, tuner=tuner, batch_size=BATCH,
+                    device=DEVICE, resume_from=store)
+        try:
+            resume_calls = len(search_calls) - resume_calls0
+            resume_timings = tuner.timings_run - t_before
+            resumed = mm2.partition
+            runtime.reset_launches()
+            got = mm2.run({n: images for n in names}, timeout=600)["outputs"]
+            resume_counts = served_counts(mm2, "resume")
+            resume_differ = {n: differing(got[n], single[n]) for n in names}
+        finally:
+            resume_stop = stop_quietly(mm2)
+        for k in path_launches:
+            path_launches[k] += resume_counts[k]
+    finally:
+        planner_mod.partition_search = real_search
+
+    # ------------------------------------------ the partition loop, short
+    cfg = AdaptiveConfig(interval_s=0.2, min_items=8 * BATCH)
+    mm3 = serve(spec(), backend="cuda_fused", platform=plat, tuner=tuner, batch_size=BATCH,
+                device=DEVICE, adaptive=True, adaptive_config=cfg)
+    loop_windows, loop_differ = [], []
+    try:
+        for w in range(COSERVE_LOOP_WINDOWS):
+            t1 = time.perf_counter()
+            got = mm3.run({n: [images[i % len(images)] for i in range(LOOP_IMAGES)] for n in names},
+                          timeout=600)["outputs"]
+            loop_windows.append({"window": w, "aggregate_img_per_s": len(names) * LOOP_IMAGES
+                                 / (time.perf_counter() - t1),
+                                 "epoch": mm3.partition_epoch, "partition": mm3.partition.notation()})
+            loop_differ += [(w, n, i) for n in names for i in differing(got[n], single[n])]
+        ctrl = mm3.monitor.controller
+        loop = {"rounds": ctrl.rounds, "swaps": ctrl.swaps, "windows": loop_windows,
+                "events": [{"round": e.round, "triggered_by": list(e.triggered_by),
+                            "new_partition": e.new_partition.notation(), "predicted_gain": e.predicted_gain,
+                            "swapped": e.swapped} for e in ctrl.history]}
+    finally:
+        loop_stop = stop_quietly(mm3)
+    loop["monitor_error"] = None if mm3.monitor.error is None else repr(mm3.monitor.error)
+
+    report = {
+        "models": list(names), "platform": "host_platform(4)", "batch": BATCH, "setup_s": setup_s,
+        "partition": part0.notation(),
+        "shares": {mp.name: [(c.name, c.count) for c in mp.share.core_types] for mp in part0.assignments},
+        "predicted_img_per_s_batch1": part0.throughputs(), "objective": part0.objective,
+        "cold_partition_search_calls": cold_calls, "replanned_from_the_served_routes": replanned.notation(),
+        "tuner_timings": new_timings, "tuner_timings_expected": want_timings,
+        "mobilenet_new_sweeps": len(new_sweeps), "mobilenet_new_routes": len(new_routes),
+        "vgg16_entries_unchanged": vgg_hits,
+        "bitwise": {n: {"vs_single_stage": not differing(outs[n], single[n]),
+                        "vs_phase4": (not differing(outs[n], want)) if n == "vgg16" else None}
+                    for n in names},
+        "launches_run": run_counts, "launches_steady": steady_counts,
+        "steady_images_per_model": STEADY_IMAGES, "steady_windows": windows,
+        "vgg16_alone_phase4_steady_img_per_s": vgg_single_img_per_s,
+        "profiled_window": {"images_per_model": PROFILE_IMAGES, **profiled, **busy},
+        "stage_p50_ms": {n: [st["service_p50_s"] * 1e3 for st in snap["models"][n]["stages"]] for n in names},
+        "swap": {"to": alt.notation(), "from": alt_from, "swap_s": swap_s, "submitted": len(names) * SWAP_IMAGES,
+                 "lost": lost, "not_bitwise": swap_differ[:8], "epoch": swap_epoch,
+                 "store_holds_new": stored is not None and stored.plans() == alt.plans(),
+                 "back_and_forth_not_bitwise": back_differ[:8], "reserved_bytes_after_swaps": after_swaps,
+                 "epoch_bytes": epoch_bytes, "stop_error": stop_error},
+        "resume": {"partition": resumed.notation(), "partition_search_calls": resume_calls,
+                   "tuner_timings": resume_timings, "launches": resume_counts,
+                   "not_bitwise": {n: v[:8] for n, v in resume_differ.items()}, "stop_error": resume_stop},
+        "adaptive": {**loop, "not_bitwise": loop_differ[:8], "stop_error": loop_stop},
+    }
+    print(json.dumps({"coserve_5g": report}))
+    check(replanned.notation() == part0.notation(),
+          f"5g: served {part0.notation()}, the served routes plan {replanned.notation()}")
+    check(cold_calls >= 1, "5g: the cold start made no partition_search call (the counter is not wired)")
+    check(vgg_hits and new_timings == want_timings,
+          f"5g: the tuner timed {new_timings}, want {want_timings} (MobileNet's new geometries); "
+          f"VGG-16's entries unchanged: {vgg_hits}")
+    for n in names:
+        check(report["bitwise"][n]["vs_single_stage"], f"5g: served {n} differs from its single-stage engine")
+    check(report["bitwise"]["vgg16"]["vs_phase4"], "5g: served VGG-16 differs from phase 4's")
+    check(multimodel["bitwise_vs_single_stage"]["time_sliced"] and multimodel["bitwise_vs_single_stage"]["coserved"],
+          f"5g: batch-1 outputs differ: time-sliced {sliced_differ}, co-served {mm1_differ}")
+    check(mm1_stop is None, f"5g: the batch-1 co-served server's stop() raised {mm1_stop}")
+    check(alt.plans() != part0.plans(), "5g: the swap's partition changes no model's plan")
+    check(lost == 0 and not swap_differ, f"5g swap: {lost} lost, {swap_differ[:8]} differ")
+    check(swap_epoch == 1 and report["swap"]["store_holds_new"],
+          f"5g swap: epoch {swap_epoch}, store {None if stored is None else stored.notation()}")
+    check(not back_differ and stop_error is None, f"5g swaps: {back_differ[:8]} differ, stop() raised {stop_error}")
+    check(after_swaps[-1] <= after_swaps[0] + epoch_bytes,
+          f"5g: reserved memory grew across the swaps {after_swaps} (one epoch {epoch_bytes})")
+    check(resume_calls == 0 and resumed.plans() == alt.plans(),
+          f"5g resume: {resume_calls} partition_search calls, resumed {resumed.notation()}")
+    check(not any(resume_differ.values()) and resume_stop is None,
+          f"5g resume: {resume_differ}, stop() raised {resume_stop}")
+    check(loop["monitor_error"] is None and loop_stop is None and not loop_differ,
+          f"5g adaptive: monitor error {loop['monitor_error']}, stop() raised {loop_stop}, "
+          f"{loop_differ[:8]} differ")
     return path_launches
 
 
@@ -1933,8 +2308,14 @@ def main() -> int:
     # ------------------- 5e, 5f. the closed loop: adaptive and governed
     for name, n in closed_loop(torch, serve, images, params, fused_graph_outs, tuner, measured, tmp).items():
         path_counts[name] += n
-    del fused_graph_outs
     mark("5e,5f")
+
+    # ------------- 5g. VGG-16 and MobileNet co-served on host_platform(4)
+    for name, n in co_serving(torch, serve, images, params, fused_graph_outs, tuner, tmp,
+                              hikey_report["steady_img_per_s"]).items():
+        path_counts[name] += n
+    del fused_graph_outs
+    mark("5g")
 
     # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)

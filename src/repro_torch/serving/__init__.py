@@ -1,8 +1,9 @@
 """Serving runtime for Pipe-it pipelines, on PyTorch and CUDA.
 
 * :mod:`.engine`   — the stage functions (CUDA graphs on the card) and the
-  one-shot engines: ``SingleStageEngine`` (kernel-level baseline) and
-  ``PipelinedGraphEngine`` (per-image pipeline, Fig. 2).
+  one-shot engines: ``SingleStageEngine`` (kernel-level baseline),
+  ``PipelinedGraphEngine`` (per-image pipeline, Fig. 2) and
+  ``TimeSlicedEngine`` (several models time-sliced on one machine).
 * :mod:`.batching` — fixed-shape micro-batches with size-or-deadline flush.
 * :mod:`.metrics`  — per-stage p50/p95/p99 service times, occupancy
   (Eq. 10/12 observed live), end-to-end latency.
@@ -11,7 +12,13 @@
   CUDA stream each, bounded queues, backpressure.
 * :mod:`.planner`  — ``AutoPlanner`` / ``serve()``: perf model → DSE →
   running server in one call (with an autotuner, from layer times
-  measured on the card).
+  measured on the card); a dict of models gives a ``MultiModelServer``.
+* :mod:`.registry` — ``ModelRegistry``: the co-resident models, their
+  params, weights and SLO floors.
+* :mod:`.multimodel` — ``MultiModelServer``: several CNNs on disjoint
+  shares of the platform (the two-level partition DSE), one pipeline per
+  model behind an admission-controlled router, ``swap_partition``, and
+  the global re-partition loop (``PartitionController``).
 * :mod:`.persistence` — ``PlanStore``: the last-known-good plan, saved
   on startup and after every hot swap, for ``serve(resume_from=)``.
 * :mod:`.adaptive` — the closed loop: online calibrator → drift detector
@@ -21,8 +28,8 @@
   modeled clocks, not the card's), normalizes observations back to
   f_max, and re-plans on throttle events (``serve(power_cap_w=...)``).
 
-The rest of the control plane over servers (multi-model co-serving,
-fleets, load generation) is not ported yet; see ROADMAP.md.
+The rest of the control plane over servers (fleets, load generation) is
+not ported yet; see ROADMAP.md.
 """
 from .adaptive import (
     AdaptiveConfig,
@@ -46,6 +53,7 @@ from .batching import MicroBatch, gather, split_rows, stack_envs
 from .engine import (
     PipelinedGraphEngine,
     SingleStageEngine,
+    TimeSlicedEngine,
     build_eager_stage_fns,
     build_stage_fns,
 )
@@ -65,9 +73,18 @@ from .faults import (
     WorkerCrash,
     fault_injecting_builder,
 )
-from .metrics import ServerMetrics, StageMetrics, percentile
+from .metrics import RouterMetrics, ServerMetrics, StageMetrics, percentile
+from .multimodel import (
+    AdmissionError,
+    MultiModelMonitor,
+    MultiModelServer,
+    PartitionController,
+    PartitionEvent,
+    attach_partition_adaptive,
+)
 from .persistence import PlanStore
 from .planner import AutoPlanner, host_platform, serve
+from .registry import ModelEntry, ModelRegistry
 from .server import (
     Backpressure,
     PipelineServer,
@@ -80,6 +97,7 @@ __all__ = [
     "AdaptiveConfig",
     "AdaptiveController",
     "AdaptiveMonitor",
+    "AdmissionError",
     "AutoPlanner",
     "Backpressure",
     "DriftDetector",
@@ -89,8 +107,14 @@ __all__ = [
     "FaultInjector",
     "FaultPlan",
     "MicroBatch",
+    "ModelEntry",
+    "ModelRegistry",
+    "MultiModelMonitor",
+    "MultiModelServer",
     "OnlineCalibrator",
     "OpenLoopServing",
+    "PartitionController",
+    "PartitionEvent",
     "PipelineServer",
     "PipelinedGraphEngine",
     "PlanStore",
@@ -98,6 +122,7 @@ __all__ = [
     "QueuePolicy",
     "RecoveryPolicy",
     "ReplanEvent",
+    "RouterMetrics",
     "ServerClosed",
     "ServerMetrics",
     "ServerSampler",
@@ -107,10 +132,12 @@ __all__ = [
     "StageMetrics",
     "StageObservation",
     "Ticket",
+    "TimeSlicedEngine",
     "TransientStageError",
     "WorkerCrash",
     "attach_adaptive",
     "attach_governor",
+    "attach_partition_adaptive",
     "build_eager_stage_fns",
     "build_stage_fns",
     "delayed_stage_fn_builder",

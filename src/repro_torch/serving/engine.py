@@ -1,5 +1,5 @@
-"""One-shot serving engines — the kernel-level baseline and the original
-per-image pipelined engine.
+"""One-shot serving engines — the kernel-level baseline, the original
+per-image pipelined engine, and the time-sliced multi-model baseline.
 
 Each pipeline stage owns (a) a contiguous node range of the CNN graph
 (from a Pipe-it layer allocation, Eq. 10: the stage's service time is the
@@ -238,4 +238,71 @@ class PipelinedGraphEngine:
             "seconds": dt,
             "throughput": done / dt,
             "stages": self.plan.pipeline.notation(),
+        }
+
+
+class TimeSlicedEngine:
+    """Multi-model baseline: ONE full-width machine, time-sliced per model.
+
+    A :class:`PipelineServer`/:class:`PipelinedGraphEngine` executes one
+    graph; a single full-width deployment serving several CNNs must
+    therefore *alternate* — run a slice of model A's stream, drain the
+    pipeline, switch graphs, run a slice of model B's, and so on.  Every
+    switch pays the pipeline fill/drain term of Eq. 11 again, and the
+    slice quantum cannot grow without bound because the co-resident
+    model's requests age for a whole foreign slice (the quantum-vs-latency
+    trade PICO 2206.08662 §III describes).  This engine measures exactly
+    that: round-robin slices of ``quantum`` images through per-model
+    full-width engines, strictly serialized.
+
+    The co-serving alternative (``MultiModelServer`` on a
+    :func:`~repro_torch.core.dse.partition_search` cluster partition)
+    keeps one always-full pipeline per model instead.
+    """
+
+    def __init__(self, engines: Dict[str, PipelinedGraphEngine], quantum: int = 4):
+        if quantum < 1:
+            raise ValueError("quantum must be >= 1")
+        if not engines:
+            raise ValueError("need >= 1 engine")
+        self.engines = dict(engines)
+        self.quantum = quantum
+
+    def warmup(self, images: Dict[str, Any]) -> None:
+        for name, eng in self.engines.items():
+            eng.warmup(images[name])
+
+    def run(self, streams: Dict[str, Sequence[Any]]) -> Dict[str, Any]:
+        """Serve every per-model stream to completion, one slice at a time.
+
+        Returns per-model ordered outputs plus the aggregate wall-clock
+        throughput (total images / total serialized seconds)."""
+        cursors = {name: 0 for name in streams}
+        outputs: Dict[str, List[Any]] = {name: [] for name in streams}
+        slices = 0
+        t0 = time.perf_counter()
+        while True:
+            progressed = False
+            for name, images in streams.items():
+                lo = cursors[name]
+                if lo >= len(images):
+                    continue
+                hi = min(lo + self.quantum, len(images))
+                # each slice fills AND drains the pipeline: run() spawns
+                # workers, streams the slice, and joins them
+                res = self.engines[name].run(images[lo:hi])
+                outputs[name].extend(res["outputs"])
+                cursors[name] = hi
+                slices += 1
+                progressed = True
+            if not progressed:
+                break
+        dt = time.perf_counter() - t0
+        total = sum(len(v) for v in streams.values())
+        return {
+            "outputs": outputs,
+            "seconds": dt,
+            "throughput": total / dt,
+            "slices": slices,
+            "quantum": self.quantum,
         }

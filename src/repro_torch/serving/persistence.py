@@ -43,9 +43,9 @@ class PlanStore:
     ``save_server`` is duck-typed over both server kinds (anything with
     ``.partition`` persists as a partition; anything with ``.plan`` as a
     single plan, with the governor's clocks when it has one), which is
-    what ``PipelineServer._persist_plan`` calls after every successful
-    swap (the multi-model server, which persists partitions, is not
-    ported yet).
+    what ``PipelineServer._persist_plan`` and
+    ``MultiModelServer._persist_partition`` call after every successful
+    swap.
     """
 
     def __init__(self, path: Union[str, os.PathLike]):

@@ -27,12 +27,18 @@ and those times replace the regression for the layers they cover.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 from ..cnn.graph import Graph
 from ..cnn.models import MODELS
 from ..core.calibration import calibrate, synthetic_model
-from ..core.dse import PowerAwarePlan, pipe_it_search, power_aware_search
+from ..core.dse import (
+    PartitionPlan,
+    PowerAwarePlan,
+    partition_search,
+    pipe_it_search,
+    power_aware_search,
+)
 from ..core.perfmodel import LayerTimePredictor
 from ..core.pipeline import PipelinePlan, TimeMatrix
 from ..core.platform import CoreType, HeteroPlatform, hikey970
@@ -41,7 +47,9 @@ from ..kernels.backend import measure_graph_routes, resolve_backend
 from ..kernels.config import resolve_device
 from .adaptive import AdaptiveConfig, attach_adaptive
 from .governor import attach_governor
+from .multimodel import MultiModelServer, attach_partition_adaptive
 from .persistence import PlanStore
+from .registry import ModelRegistry
 from .server import PipelineServer
 
 
@@ -134,6 +142,97 @@ class AutoPlanner:
             min_throughput=min_throughput,
         )
 
+    # ------------------------------------------------------- multi-model path
+    def time_matrices(
+        self, graphs: Mapping[str, Graph]
+    ) -> Dict[str, TimeMatrix]:
+        """Per-model predicted time matrices with one shared per-geometry
+        memo (co-resident zoo CNNs share many conv shapes)."""
+        return self.predictor().time_matrices(
+            {name: g.descriptors() for name, g in graphs.items()}
+        )
+
+    def partition(
+        self,
+        graphs: Mapping[str, Graph],
+        Ts: Optional[Mapping[str, TimeMatrix]] = None,
+        *,
+        weights: Optional[Mapping[str, float]] = None,
+        slo_rates: Optional[Mapping[str, float]] = None,
+        exact_threshold: int = 8,
+        fairness: str = "sum",
+        power_cap_w: Optional[float] = None,
+        power_objective: str = "throughput",
+    ) -> PartitionPlan:
+        """Two-level DSE: clusters across models, layers within each share
+        (:func:`repro_torch.core.dse.partition_search`)."""
+        if Ts is None:
+            Ts = self.time_matrices(graphs)
+        return partition_search(
+            {name: Ts[name] for name in graphs},  # graph order defines model order
+            self.platform,
+            weights=weights,
+            slo_rates=slo_rates,
+            mode=self.mode,
+            exact_threshold=exact_threshold,
+            fairness=fairness,
+            power_cap_w=power_cap_w,
+            power_objective=power_objective,
+        )
+
+    def build_multi(
+        self,
+        registry: ModelRegistry,
+        *,
+        time_matrices: Optional[Mapping[str, TimeMatrix]] = None,
+        batch_size: int = 1,
+        flush_timeout_s: float = 0.01,
+        queue_depth: int = 2,
+        max_inflight=None,
+        warmup: bool = True,
+        stage_fn_builders=None,
+        fairness: str = "sum",
+        power_cap_w: Optional[float] = None,
+        power_objective: str = "throughput",
+        partition: Optional[PartitionPlan] = None,
+        recovery=None,
+    ) -> MultiModelServer:
+        """Partition the platform across the registry's models and
+        construct a (warmed, started) :class:`MultiModelServer` on this
+        planner's device.
+
+        ``partition`` overrides the two-level DSE (the ``resume_from``
+        warm-start path hands a persisted partition in here); ``recovery``
+        arms every inner pipeline's fault-recovery layer
+        (:class:`~repro_torch.serving.faults.RecoveryPolicy`)."""
+        if partition is None:
+            partition = self.partition(
+                registry.graphs(),
+                time_matrices,
+                weights=registry.weights(),
+                slo_rates=registry.slo_rates(),
+                fairness=fairness,
+                power_cap_w=power_cap_w,
+                power_objective=power_objective,
+            )
+        mserver = MultiModelServer(
+            registry,
+            partition,
+            batch_size=batch_size,
+            flush_timeout_s=flush_timeout_s,
+            queue_depth=queue_depth,
+            max_inflight=max_inflight,
+            stage_fn_builders=stage_fn_builders,
+            backend=self.backend,
+            tuner=self.tuner,
+            fairness=fairness,
+            recovery=recovery,
+            device=self.device,
+        )
+        if warmup:
+            mserver.warmup()
+        return mserver.start()
+
     def build(
         self,
         graph: Graph,
@@ -176,7 +275,7 @@ class AutoPlanner:
 
 
 def serve(
-    model: Union[str, Graph, Mapping],
+    model: Union[str, Graph, Mapping, ModelRegistry],
     *,
     mode: str = "best",
     source: str = "synthetic",
@@ -199,9 +298,11 @@ def serve(
     min_throughput: Optional[float] = None,
     autotune: bool = False,
     tuner=None,
+    max_inflight=None,
+    fairness: Optional[str] = None,
     plan_store=None,
     resume_from=None,
-) -> PipelineServer:
+) -> Union[PipelineServer, MultiModelServer]:
     """One call from model name (or Graph) to a running PipelineServer.
 
     ``device=None`` serves on the card and raises on a host without CUDA;
@@ -247,26 +348,68 @@ def serve(
     times and hot-swaps when the bottleneck drifts; ``adaptive_config``
     sets its knobs); ``server.stop()`` stops it first.
 
+    **Multi-model co-serving**: pass a dict (or
+    :class:`~repro_torch.serving.registry.ModelRegistry`) instead of one
+    model and ``serve`` returns a
+    :class:`~repro_torch.serving.multimodel.MultiModelServer` — the
+    two-level partition DSE splits the platform's clusters across the
+    models, one pipeline worker set per model runs on its share behind
+    the admission-controlled router, every model's route measurements
+    share ONE autotuner cache, and ``adaptive=True`` attaches the global
+    re-partition loop.  Parameters a dict's entries lack are made from
+    their seed (0) on ``device``.  ``max_inflight`` (an int or ``{model:
+    bound}``) arms the router's per-model admission bound and
+    ``fairness`` ("sum" | "max-min") selects the partition objective —
+    both are multi-model-only and rejected for a single model.
+
     >>> server = serve("vgg16", backend="cuda_fused", batch_size=4)
     >>> logits = server.submit(image).result()
     >>> server.stop()
+
+    >>> mm = serve({"vgg16": "vgg16", "mobilenet": "mobilenet"}, backend="cuda_fused")
+    >>> logits = mm.submit("mobilenet", image).result()
+    >>> mm.stop()
     """
-    if isinstance(model, Mapping):
-        raise NotImplementedError(
-            "serve({model: ...}) is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 8d, multi-model co-serving)"
+    if isinstance(model, (Mapping, ModelRegistry)):
+        if min_throughput is not None:
+            raise ValueError(
+                "min_throughput is a single-model option; multi-model "
+                "throughput floors are per-model SLOs — set slo_rate on the "
+                "registry entries instead"
+            )
+        return _serve_multi(
+            model,
+            mode=mode,
+            source=source,
+            platform=platform,
+            time_matrix=time_matrix,
+            batch_size=batch_size,
+            flush_timeout_s=flush_timeout_s,
+            queue_depth=queue_depth,
+            warmup=warmup,
+            adaptive=adaptive,
+            adaptive_config=adaptive_config,
+            stage_fn_builder=stage_fn_builder,
+            backend=backend,
+            device=device,
+            autotune=autotune,
+            tuner=tuner,
+            max_inflight=max_inflight,
+            fairness=fairness if fairness is not None else "sum",
+            power_cap_w=power_cap_w,
+            power_objective=power_objective,
+            recovery=recovery,
+            plan_store=plan_store,
+            resume_from=resume_from,
+        )
+    if max_inflight is not None or fairness is not None:
+        raise ValueError(
+            "max_inflight/fairness are multi-model options; pass a dict of "
+            "models (or a ModelRegistry) to serve()"
         )
     dev = resolve_device(device)
     graph = MODELS[model]() if isinstance(model, str) else model
-    if tuner is None and autotune:
-        tuner = ConvAutotuner(device=dev, batch=batch_size)
-    if tuner is not None and tuner.device.type != dev.type:
-        raise ValueError(
-            f"the tuner measures on {tuner.device}, the server runs on {dev}"
-        )
-    if backend is None and tuner is not None:
-        backend = "torch"  # measurements must reflect the route that serves
-    kb = resolve_backend(backend, tuner=tuner)
+    tuner, kb = _tuner_and_backend(dev, batch_size, autotune, tuner, backend)
     # Warm start: a persisted last-known-good plan skips the DSE (best
     # effort: an absent or unusable store means a cold start).
     resume_plan = None
@@ -348,3 +491,137 @@ def serve(
         server.plan_store = PlanStore.coerce(plan_store)
         server._persist_plan()
     return server
+
+
+def _tuner_and_backend(dev, batch_size: int, autotune: bool, tuner, backend):
+    """The autotuner (made on ``dev`` at ``batch_size`` when ``autotune``
+    asks for one) and the resolved backend; with a tuner the backend
+    defaults to ``"torch"``, so the measurements reflect the route that
+    serves."""
+    if tuner is None and autotune:
+        tuner = ConvAutotuner(device=dev, batch=batch_size)
+    if tuner is not None and tuner.device.type != dev.type:
+        raise ValueError(
+            f"the tuner measures on {tuner.device}, the server runs on {dev}"
+        )
+    if backend is None and tuner is not None:
+        backend = "torch"
+    return tuner, resolve_backend(backend, tuner=tuner)
+
+
+def _serve_multi(
+    model: Union[Mapping, ModelRegistry],
+    *,
+    mode: str,
+    source: str,
+    platform: Optional[HeteroPlatform],
+    time_matrix,
+    batch_size: int,
+    flush_timeout_s: float,
+    queue_depth: int,
+    warmup: bool,
+    adaptive: bool,
+    adaptive_config: Optional[AdaptiveConfig],
+    stage_fn_builder,
+    backend,
+    device,
+    autotune: bool,
+    tuner,
+    max_inflight,
+    fairness: str,
+    power_cap_w: Optional[float] = None,
+    power_objective: str = "throughput",
+    recovery=None,
+    plan_store=None,
+    resume_from=None,
+) -> MultiModelServer:
+    """The multi-model arm of :func:`serve`.
+
+    Mirrors the single-model chain per co-resident model — measure,
+    predict, search, run — but with the two-level partition DSE in the
+    middle and exactly ONE :class:`ConvAutotuner` shared by every model's
+    route measurements: descriptor keys are geometry-keyed, so a conv
+    shape two models share is measured once.  The time matrices are made
+    from the routes that serve: the dicts ``measure_graph_routes``
+    returns for each model under ``backend``, merged, never the tuner's
+    fastest route per key (a tuner that also measured another route would
+    plan on times that do not serve).
+    """
+    if len(model) == 0:
+        raise ValueError("serve() got an empty model registry")
+    dev = resolve_device(device)
+    registry = ModelRegistry.coerce(model, device=dev)
+    tuner, kb = _tuner_and_backend(dev, batch_size, autotune, tuner, backend)
+    plat = platform if platform is not None else hikey970()
+    # Warm start: a persisted last-known-good partition skips the
+    # two-level DSE (best effort: an absent or unusable store, or one
+    # saved for another set of models, means a cold start).
+    resume_partition = None
+    if resume_from is not None:
+        resume_partition = PlanStore.coerce(resume_from).load_partition(plat)
+        if resume_partition is not None and sorted(
+            resume_partition.names
+        ) != sorted(e.name for e in registry):
+            resume_partition = None
+    # The time matrices, and the route measurements they are made from,
+    # only when something still needs them: the partition DSE (no resume)
+    # or the adaptive loop's priors.
+    need_T = resume_partition is None or adaptive
+    measured = None
+    if kb is not None and tuner is not None and time_matrix is None and need_T:
+        measured = {}
+        for entry in registry:  # one shared cache: common shapes time once
+            measured.update(measure_graph_routes(entry.graph, kb, tuner))
+    planner = AutoPlanner(
+        platform=plat,
+        mode=mode,
+        source=source,
+        backend=kb,
+        measured=measured,
+        tuner=tuner,
+        device=dev,
+    )
+    Ts = None
+    if time_matrix is None:
+        if need_T:
+            Ts = planner.time_matrices(registry.graphs())
+    elif isinstance(time_matrix, Mapping):
+        Ts = {e.name: time_matrix[e.name] for e in registry}
+    else:
+        raise ValueError(
+            "multi-model serve() needs time_matrix as {model: TimeMatrix}"
+        )
+    builders = None
+    if stage_fn_builder is not None:
+        # a single builder callable applies to every model; per-model
+        # overrides go through AutoPlanner.build_multi directly
+        builders = {e.name: stage_fn_builder for e in registry}
+    mserver = planner.build_multi(
+        registry,
+        time_matrices=Ts,
+        batch_size=batch_size,
+        flush_timeout_s=flush_timeout_s,
+        queue_depth=queue_depth,
+        warmup=warmup,
+        stage_fn_builders=builders,
+        max_inflight=max_inflight,
+        fairness=fairness,
+        power_cap_w=power_cap_w,
+        power_objective=power_objective,
+        partition=resume_partition,
+        recovery=recovery,
+    )
+    if adaptive:
+        attach_partition_adaptive(
+            mserver,
+            priors=Ts,
+            platform=planner.platform,
+            mode=mode,
+            config=adaptive_config,
+            power_cap_w=power_cap_w,
+            power_objective=power_objective,
+        )
+    if plan_store is not None:
+        mserver.plan_store = PlanStore.coerce(plan_store)
+        mserver._persist_partition()
+    return mserver

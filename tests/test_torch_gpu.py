@@ -46,8 +46,12 @@ from repro_torch.kernels import runtime
 from repro_torch.launch.serve import generate
 from repro_torch.models import init_params
 from repro_torch.serving import (
+    AdmissionError,
+    AutoPlanner,
     FaultEvent,
     FaultPlan,
+    ModelRegistry,
+    MultiModelServer,
     PipelineServer,
     RecoveryPolicy,
     SingleStageEngine,
@@ -1175,3 +1179,128 @@ def test_swaps_free_the_old_epochs_graph_pools(cuda):
         server.stop()
     assert epoch_bytes > 0
     assert reserved[-1] <= reserved[0] + epoch_bytes, (reserved, epoch_bytes)
+
+
+# ------------------------------------------------- multi-model co-serving
+def _tiny2():
+    """A second co-resident net: other widths, a 1x1 conv, a global pool
+    and one fc (4 conv + 1 dense launches a micro-batch)."""
+    g = Graph("tiny2", (16, 16, 3))
+    a = g.conv("c1", "input", 12, 3)
+    a = g.conv("c2", a, 12, 3, stride=2)
+    a = g.conv("c3", a, 24, 1)
+    a = g.pool_max("p1", a, 2, 2)
+    a = g.conv("c4", a, 24, 3)
+    a = g.gap("gap", a)
+    a = g.fc("fc", a, 10)
+    g.softmax("sm", a)
+    return g
+
+
+# launches a micro-batch of each co-served tiny net on cuda_fused
+_PER_BATCH = {"a": (3, 2), "b": (4, 1)}
+
+
+def _duo(cuda, **kw):
+    """The two tiny nets (seeded weights on the card), two partitions of
+    ``hikey970()`` whose plans differ, and a server on the first."""
+    from repro_torch.core import hikey970, partition_search
+
+    reg = ModelRegistry()
+    reg.add("a", _tiny(), seed=1)
+    reg.add("b", _tiny2(), seed=2)
+    Ts = AutoPlanner(platform=hikey970()).time_matrices(reg.graphs())
+    part1 = partition_search(Ts, hikey970(), weights={"a": 5.0, "b": 1.0})
+    part2 = partition_search(Ts, hikey970(), weights={"a": 1.0, "b": 5.0})
+    assert part1.plans() != part2.plans()
+    mm = MultiModelServer(reg, part1, backend="cuda_fused", **kw)
+    return reg, part1, part2, mm
+
+
+def _single(reg, images):
+    return {n: [o.cpu() for o in SingleStageEngine(reg[n].graph, reg[n].params, backend="cuda_fused")
+                .run(images)["outputs"]] for n in reg.names}
+
+
+def test_coserved_graphs_keep_single_stage_bits_across_a_partition_swap(cuda):
+    """Two nets co-served on cuda_fused graphs at micro-batch 4: while a
+    thread submits to both, swap_partition moves each model's plan; every
+    ticket resolves with its single-stage bits, and after the swap each
+    micro-batch replays its model's kernels and one graph per stage."""
+    reg, part1, part2, mm = _duo(cuda, batch_size=4, queue_depth=4)
+    rng = np.random.default_rng(8)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(48)]
+    want = _single(reg, images)
+    mm.warmup()
+    tickets = []
+
+    def feed():
+        for i, img in enumerate(images):
+            for n in reg.names:
+                tickets.append((n, i, mm.submit(n, img, timeout=120.0)))
+
+    try:
+        with mm:
+            feeder = threading.Thread(target=feed, daemon=True)
+            feeder.start()
+            while len(tickets) < len(images) // 2 and feeder.is_alive():
+                time.sleep(0.001)
+            mm.swap_partition(part2)
+            feeder.join(timeout=300.0)
+            assert not feeder.is_alive()
+            for n, i, t in tickets:
+                assert torch.equal(t.result(timeout=300.0).cpu(), want[n][i]), (n, i)
+            assert len(tickets) == 2 * len(images) and mm.partition_epoch == 1
+            assert all(mm.servers[n].plan == part2[n].plan for n in reg.names)
+            b0 = {n: mm.servers[n].metrics.stages[0].snapshot()["batches"] for n in reg.names}
+            K.reset_launches()
+            res = mm.run({n: images for n in reg.names}, timeout=300.0)
+            batches = {n: mm.servers[n].metrics.stages[0].snapshot()["batches"] - b0[n] for n in reg.names}
+            counts, graph_launches = K.launch_counts(), runtime.graph_launches()
+    finally:
+        mm.stop()
+    for n in reg.names:
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(res["outputs"][n], want[n]))
+    assert counts["conv2d_fused"] == sum(_PER_BATCH[n][0] * batches[n] for n in reg.names)
+    assert counts["matmul_fused"] == sum(_PER_BATCH[n][1] * batches[n] for n in reg.names)
+    assert graph_launches == sum(len(part2[n].plan.allocation) * batches[n] for n in reg.names)
+
+
+def test_router_flood_on_one_model_sheds_only_its_tickets(cuda):
+    """A flood of non-blocking submits to one model past its in-flight
+    bound sheds that model's tickets only: the other model, fed at the
+    same time, is admitted in full, and every admitted ticket keeps its
+    single-stage bits."""
+    reg, part1, _, mm = _duo(cuda, batch_size=4, flush_timeout_s=0.05, max_inflight={"a": 2})
+    rng = np.random.default_rng(9)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(200)]
+    want = _single(reg, images[:16])
+    mm.warmup()
+    admitted, shed, b_tickets = [], 0, []
+
+    def feed_b():
+        for i in range(16):
+            b_tickets.append((i, mm.submit("b", images[i], timeout=120.0)))
+
+    try:
+        with mm:
+            feeder = threading.Thread(target=feed_b, daemon=True)
+            feeder.start()
+            for i, img in enumerate(images):
+                try:
+                    admitted.append((i, mm.submit("a", img, block=False)))
+                except AdmissionError:
+                    shed += 1
+            feeder.join(timeout=300.0)
+            assert not feeder.is_alive()
+            outs_a = [(i, t.result(timeout=300.0).cpu()) for i, t in admitted]
+            outs_b = [(i, t.result(timeout=300.0).cpu()) for i, t in b_tickets]
+    finally:
+        mm.stop()
+    assert shed > 0 and len(admitted) + shed == len(images)
+    assert mm.router.rejected("a") == shed and mm.router.admitted("a") == len(admitted)
+    assert mm.router.rejected("b") == 0 and mm.router.admitted("b") == 16
+    single_a = SingleStageEngine(reg["a"].graph, reg["a"].params, backend="cuda_fused")
+    got_a = single_a.run([images[i] for i, _ in outs_a])["outputs"]
+    assert all(torch.equal(o, w.cpu()) for (_, o), w in zip(outs_a, got_a))
+    assert all(torch.equal(o, want["b"][i]) for i, o in outs_b)

@@ -197,11 +197,6 @@ def test_serve_defaults_to_the_card():
         SingleStageEngine(tiny(), {}, backend="cuda_fused")
 
 
-def test_serve_refuses_a_model_dict():
-    with pytest.raises(NotImplementedError, match="multi-model"):
-        serve({"a": "vgg16", "b": "alexnet"}, device="cpu")
-
-
 @pytest.mark.parametrize("route", ["torch", "cuda_fused", "cuda"])
 def test_pipelined_engine_matches_single_stage(setup, route):
     g, params, _, _, images, plan = setup
