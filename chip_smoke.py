@@ -127,7 +127,31 @@ Phases (any failure exits non-zero):
    ``serve({...}, resume_from=)`` makes no ``partition_search`` call
    (counted) and serves the stored partition with the same bits; a short
    ``serve({...}, adaptive=True)`` run: no monitor error, a quiet
-   ``stop()``, the same bits;
+   ``stop()``, the same bits.
+   5h (``open_loop``): phase 4's ``cuda_fused`` graph server (an ingress of
+   16 micro-batches, a flush timeout of 10 ms) under ``run_open_loop``:
+   seeded Poisson traces at 0.5x and 0.85x phase 4's mean img/s (2048
+   arrivals each), an MMPP (calm 0.3x, bursts 1.2x, mean dwells 0.5 s and
+   0.2 s, 3 s), and the same MMPP behind a ``QueueController`` with an SLO
+   of twice the 0.5x run's p99.  A wrapper around the server records each
+   submitted ticket with its arrival: every one must complete, bitwise
+   equal to phase 4's output for its image, nothing may be shed at 0.5x,
+   and each micro-batch replays 13 + 3 launches; the latencies, sheds,
+   goodput and how late each submission left behind its trace time go on
+   the ``open_loop_5h`` line.  5i (``fleet``): two ``host_platform(4)``
+   boards on the card, ``fleet_search`` with two replicas a model over
+   5g's measured routes and ``verify_placement``; a ``FleetRouter`` of
+   5g's registry on ``cuda_fused`` graphs at micro-batch 4, warmed up
+   (every graph capture counted with its thread: none may come from a
+   stage worker); three windows of 512 images a model fed at once; three
+   times the seeded victim fails from a thread in the middle of a window,
+   rejoins, and a window follows (reserved memory after each cycle, no
+   higher after the last than after the first plus one board's epoch);
+   ``apply_plan`` to one replica a model, then ``FleetAutoscaler.step()``
+   in the middle of a window; ``apply_plan`` with the same plan changes
+   no board's generation.  No ticket lost or failed, every output bitwise
+   equal to its model's single-stage engine (5g's), 13 + 3 and 14 + 1
+   launches a micro-batch; the ``fleet_5i`` line;
 6. the transformer slice (``hymba_phases``): 6a holds the decode-attention
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
@@ -218,6 +242,18 @@ THROTTLE_IMAGES = 128  # submitted by a thread while the governor throttles
 COSERVE_SLICED_IMAGES = 256
 SLICE_QUANTUM = 4
 COSERVE_LOOP_WINDOWS = 3
+# open-loop load (phase 5h): the server's ingress holds OPEN_LOOP_QUEUE_DEPTH
+# micro-batches, and a micro-batch leaves when full or OPEN_LOOP_FLUSH_S after
+# its first image (serve()'s default); each Poisson trace has
+# OPEN_LOOP_ARRIVALS arrivals, the MMPP traces MMPP_S seconds
+OPEN_LOOP_QUEUE_DEPTH = 16
+OPEN_LOOP_FLUSH_S = 0.01
+OPEN_LOOP_ARRIVALS = 2048
+MMPP_S = 3.0
+# the fleet (phase 5i): images a model in each window, and the loss/rejoin
+# cycles of the seeded victim board
+FLEET_IMAGES = 512
+FLEET_CYCLES = 3
 
 # Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
 # bytes/s and int8 tensor-core op/s; the SXM part unless the card names
@@ -1495,7 +1531,9 @@ def co_serving(torch, serve, images, params, want, tuner, tmp, vgg_single_img_pe
     run with no monitor error.  Recorded, not gated: the co-served img/s
     over three steady windows, and the time-sliced baseline against the
     co-served partition at batch 1.  Returns the B1 and B2 launches of
-    its gated served runs."""
+    its gated served runs, and for phase 5i the registry it served (VGG-16
+    on phase 4's weights, MobileNet's from seed 0), each model's
+    single-stage outputs on ``images`` and its steady windows."""
     import threading
 
     from torch.profiler import ProfilerActivity, profile
@@ -1788,6 +1826,393 @@ def co_serving(torch, serve, images, params, want, tuner, tmp, vgg_single_img_pe
     check(loop["monitor_error"] is None and loop_stop is None and not loop_differ,
           f"5g adaptive: monitor error {loop['monitor_error']}, stop() raised {loop_stop}, "
           f"{loop_differ[:8]} differ")
+    return path_launches, {"registry": mm.registry, "single": single, "steady_windows": windows}
+
+
+class Arrivals:
+    """``images`` cycled over the ``n`` arrivals of a trace, indexed as
+    ``run_open_loop`` indexes them (``images[z % len(images)]``; with a
+    length of ``n`` that is ``z`` itself): remembers the last index read."""
+
+    def __init__(self, images, n):
+        self.images, self.n, self.z = images, n, None
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, z):
+        self.z = z
+        return self.images[z % len(self.images)]
+
+
+class Recording:
+    """A server seen through ``run_open_loop``'s interface (which returns
+    only a report): each submit is passed on, and its arrival index, the
+    time of the call and its ticket are recorded."""
+
+    def __init__(self, server, arrivals):
+        self.server, self.arrivals = server, arrivals
+        self.attempts, self.tickets = [], []
+
+    def ingress_depth(self):
+        return self.server.ingress_depth()
+
+    def set_batching(self, **kw):
+        self.server.set_batching(**kw)
+
+    def submit(self, image, *, block=True):
+        z = self.arrivals.z
+        self.attempts.append((z, time.perf_counter()))
+        ticket = self.server.submit(image, block=block)
+        self.tickets.append((z, ticket))
+        return ticket
+
+
+def open_loop(torch, serve, images, params, want, vgg_img_per_s):
+    """Phase 5h: VGG-16 under open-loop arrivals.  Phase 4's ``cuda_fused``
+    graph server (``hikey970()``'s plan, micro-batch BATCH, phase 4's
+    weights; an ingress of OPEN_LOOP_QUEUE_DEPTH micro-batches, a flush
+    timeout of OPEN_LOOP_FLUSH_S) takes seeded traces through
+    ``run_open_loop`` at shares of phase 4's mean steady img/s in this run:
+    Poisson at 0.5x and 0.85x (OPEN_LOOP_ARRIVALS each), an MMPP (calm
+    0.3x, bursts 1.2x, mean dwells 0.5 s and 0.2 s, MMPP_S seconds), and
+    the same MMPP behind a ``QueueController`` whose SLO is twice the 0.5x
+    run's p99.  Gated: every submitted ticket completes, bitwise equal to
+    phase 4's output for its image; nothing is shed at 0.5x; 13 + 3
+    launches and one graph launch a stage per micro-batch.  Recorded, not
+    gated: the latencies, goodput, sheds, and how late each submission
+    left behind its trace time (the pacing thread shares the interpreter
+    lock with the workers).  Returns the B1 and B2 launches of its runs."""
+    from repro_torch.kernels import runtime
+    from repro_torch.serving import (QueueController, QueuePolicy, mmpp_trace, percentile, poisson_trace,
+                                     run_open_loop)
+
+    rate = sum(vgg_img_per_s) / len(vgg_img_per_s)
+    server = serve("vgg16", backend="cuda_fused", batch_size=BATCH, params=params, device=DEVICE,
+                   queue_depth=OPEN_LOOP_QUEUE_DEPTH, flush_timeout_s=OPEN_LOOP_FLUSH_S)
+    n_stages = len(server.plan.allocation)
+    runs = []
+
+    def drive(name, trace, controller=None):
+        arrivals = Arrivals(images, trace.n)
+        rec = Recording(server, arrivals)
+        st0 = server.metrics.stages[0].snapshot()
+        runtime.reset_launches()
+        t_start = time.perf_counter()
+        report = run_open_loop(rec, trace, arrivals, controller=controller, result_timeout_s=600)
+        counts, graph_launches = runtime.launch_counts(), runtime.graph_launches()
+        st1 = server.metrics.stages[0].snapshot()
+        batches = st1["batches"] - st0["batches"]
+        failed, differ = 0, []
+        for z, ticket in rec.tickets:
+            try:
+                out = ticket.result(timeout=600).cpu()
+            except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+                failed += 1
+                continue
+            if not torch.equal(out, want[z % len(want)]):
+                differ.append(z)
+        late = [t - (t_start + trace.times[z]) for z, t in rec.attempts]
+        row = {
+            "run": name, "kind": trace.kind, "offered": report.offered,
+            "offered_img_per_s": trace.offered_rate(), "submitted": report.submitted,
+            "completed": report.completed, "tickets_recorded": len(rec.tickets),
+            "shed_admission": report.shed_admission, "shed_backpressure": report.shed_backpressure,
+            "failed": failed, "not_bitwise": differ[:8], "n_not_bitwise": len(differ),
+            "latency_p50_ms": report.latency_p50_s * 1e3, "latency_p95_ms": report.latency_p95_s * 1e3,
+            "latency_p99_ms": report.latency_p99_s * 1e3, "goodput_img_per_s": report.goodput,
+            "duration_s": report.duration_s,
+            "lateness_p50_ms": percentile(late, 50) * 1e3, "lateness_p99_ms": percentile(late, 99) * 1e3,
+            "lateness_max_ms": max(late) * 1e3 if late else None,
+            "micro_batches": batches,
+            "mean_fill": (st1["items"] - st0["items"]) / (BATCH * batches) if batches else None,
+            "launches": {k: counts[k] for k in ("conv2d_fused", "matmul_fused")},
+            "graph_launches": graph_launches,
+            "launches_per_micro_batch_ok": (counts["conv2d_fused"] == 13 * batches
+                                            and counts["matmul_fused"] == 3 * batches
+                                            and graph_launches == n_stages * batches),
+        }
+        runs.append(row)
+        return row
+
+    mmpp = {"duration_s": MMPP_S, "calm_s": 0.5, "burst_s": 0.2}
+    ctrl_meta = {}
+    try:
+        base = drive("poisson_0.5x", poisson_trace(0.5 * rate, n=OPEN_LOOP_ARRIVALS, seed=SEED))
+        drive("poisson_0.85x", poisson_trace(0.85 * rate, n=OPEN_LOOP_ARRIVALS, seed=SEED + 1))
+        drive("mmpp", mmpp_trace(0.3 * rate, 1.2 * rate, seed=SEED + 2, **mmpp))
+        slo_s = 2.0 * base["latency_p99_ms"] / 1e3
+        ctrl = QueueController(QueuePolicy(slo_p99_s=slo_s), base_latency_s=base["latency_p50_ms"] / 1e3,
+                               service_s=1.0 / rate)
+        row = drive("mmpp_queue_controller", mmpp_trace(0.3 * rate, 1.2 * rate, seed=SEED + 2, **mmpp), ctrl)
+        ctrl_meta = {"slo_p99_ms": slo_s * 1e3, "base_latency_ms": ctrl.base_latency_s * 1e3,
+                     "service_ms": ctrl.service_s * 1e3, "admitted": ctrl.admitted, "shed": ctrl.shed,
+                     "last_flush_timeout_ms": server.flush_timeout_s * 1e3,
+                     "p99_within_slo": row["latency_p99_ms"] <= slo_s * 1e3}
+        server.set_batching(flush_timeout_s=OPEN_LOOP_FLUSH_S)
+    finally:
+        stop_error = stop_quietly(server)
+    report = {
+        "model": "vgg16", "backend": "cuda_fused", "plan": server.plan.notation(), "batch": BATCH,
+        "queue_depth": OPEN_LOOP_QUEUE_DEPTH, "ingress_images": OPEN_LOOP_QUEUE_DEPTH * BATCH,
+        "flush_timeout_ms": OPEN_LOOP_FLUSH_S * 1e3, "phase4_mean_steady_img_per_s": rate,
+        "mmpp": {"calm": 0.3, "burst": 1.2, **mmpp}, "queue_controller": ctrl_meta, "runs": runs,
+        "stop_error": stop_error,
+    }
+    print(json.dumps({"open_loop_5h": report}))
+    for row in runs:
+        check(row["failed"] == 0 and row["completed"] == row["submitted"] == row["tickets_recorded"],
+              f"5h {row['run']}: {row['failed']} failed, {row['completed']} of {row['submitted']} completed")
+        check(not row["not_bitwise"], f"5h {row['run']}: outputs of arrivals {row['not_bitwise']} differ "
+              "from phase 4's")
+        check(row["launches_per_micro_batch_ok"],
+              f"5h {row['run']}: {row['launches']} and {row['graph_launches']} graph launches over "
+              f"{row['micro_batches']} micro-batches, want 13 + 3 and {n_stages} each")
+    check(runs[0]["shed_admission"] == runs[0]["shed_backpressure"] == 0,
+          f"5h: the 0.5x run shed {runs[0]['shed_admission']} + {runs[0]['shed_backpressure']}")
+    check(stop_error is None, f"5h: stop() raised {stop_error}")
+    return {k: sum(row["launches"][k] for row in runs) for k in ("conv2d_fused", "matmul_fused")}
+
+
+def fleet(torch, images, tuner, coserved):
+    """Phase 5i: a two-board fleet of VGG-16 and MobileNet on the card.
+    Both boards are ``host_platform(4)`` (they share the one card, as the
+    reference's boards share one host); the time matrices come from phase
+    5's tuner, the routes measured under ``cuda_fused`` (5g's).
+    ``fleet_search(replicas={"vgg16": 2, "mobilenet": 2})``, then
+    ``verify_placement``; a ``FleetRouter`` (``cuda_fused`` graphs,
+    micro-batch BATCH, 5g's registry) warmed up, with every ``Captured``
+    graph counted by the thread that captured it.  Served: three windows of
+    FLEET_IMAGES a model, both models fed at once from a thread each;
+    FLEET_CYCLES times the seeded victim (``FaultPlan.seeded_board_cycle(11,
+    ...)``) fails from a thread in the middle of a window, then rejoins, and
+    a window follows; the fleet is moved to one replica a model
+    (``apply_plan``), and ``FleetAutoscaler.step()`` runs in the middle of a
+    window; ``apply_plan`` with the same plan; a last window.  Gated: no
+    ticket lost or failed, each client ticket resolved once, every output
+    bitwise equal to its model's single-stage engine (5g's), 13 + 3 and 14 +
+    1 launches and one graph launch a stage per micro-batch (steady and last
+    windows), no graph captured by a stage worker, the same plan leaves
+    every board's generation as it was, and the reserved memory after the
+    last cycle no higher than after the first plus one board's epoch.
+    Returns the B1 and B2 launches of its counted windows."""
+    import gc
+    import threading
+
+    from repro_torch.core import BoardSpec, fleet_search, verify_placement
+    from repro_torch.kernels import graphs as graphs_mod
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.backend import resolve_backend
+    from repro_torch.serving import AutoPlanner, FaultPlan, FleetAutoscaler, FleetRouter, host_platform
+
+    names = ("vgg16", "mobilenet")
+    per_batch = {"vgg16": (13, 3), "mobilenet": (14, 1)}
+    reg, single = coserved["registry"], coserved["single"]
+    plat = host_platform(4)
+    boards = (BoardSpec("b0", plat), BoardSpec("b1", plat))
+    Ts = AutoPlanner(platform=plat, measured=tuner.route_seconds("cuda_fused")).time_matrices(reg.graphs())
+    plan22 = fleet_search(Ts, boards, replicas={"vgg16": 2, "mobilenet": 2})
+    verdicts = verify_placement(plan22, Ts)
+    plan11 = fleet_search(Ts, boards, replicas={"vgg16": 1, "mobilenet": 1})
+    kb = resolve_backend("cuda_fused", tuner=tuner)
+    victim = FaultPlan.seeded_board_cycle(11, [b.name for b in boards]).events[0].board
+    path_launches = {"conv2d_fused": 0, "matmul_fused": 0}
+
+    captured_on = []
+    real_captured = graphs_mod.Captured
+
+    class Counting(real_captured):
+        def __init__(self, *a, **kw):
+            captured_on.append(threading.current_thread().name)
+            super().__init__(*a, **kw)
+
+    def window(router, n_img, during=None):
+        """One window: a thread a model submits ``n_img`` images (blocking
+        fleet submits, ``images`` cycled) and waits for them; ``during()``
+        runs on this thread once half the images are submitted."""
+        tickets, done = {n: [] for n in names}, {}
+
+        def feed(n):
+            t1 = time.perf_counter()
+            for i in range(n_img):
+                tickets[n].append((i, router.submit(n, images[i % len(images)], timeout=600)))
+            for _, t in tickets[n]:
+                try:
+                    t.result(timeout=600)
+                except Exception:  # noqa: BLE001 — counted below
+                    pass
+            done[n] = time.perf_counter() - t1
+
+        threads = [threading.Thread(target=feed, args=(n,), daemon=True) for n in names]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if during is not None:
+            while (sum(len(v) for v in tickets.values()) < len(names) * n_img // 2
+                   and any(t.is_alive() for t in threads)):
+                time.sleep(0.001)
+            during()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t1
+        check(sorted(done) == sorted(names), f"5i: a window's feeder failed ({sorted(done)})")
+        lost, differ = 0, []
+        for n in names:
+            lost += n_img - len(tickets[n])
+            for i, t in tickets[n]:
+                try:
+                    out = t.result(timeout=0).cpu()
+                except Exception:  # noqa: BLE001 — a failed ticket is a lost one
+                    lost += 1
+                    continue
+                if not torch.equal(out, single[n][i % len(images)]):
+                    differ.append((n, i))
+        return {"seconds": wall, "aggregate_img_per_s": len(names) * n_img / wall,
+                **{f"{n}_img_per_s": n_img / done[n] for n in names},
+                "lost": lost, "n_not_bitwise": len(differ), "not_bitwise": differ[:8]}
+
+    def servers(router):
+        """Every (board, model) -> its live inner server."""
+        return {(b, n): srv for b, st in router._boards.items() if st.server is not None
+                for n, srv in st.server.servers.items()}
+
+    def counted(router, fn):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after, against the micro-batches every live inner server ran."""
+        b0 = {k: srv.metrics.stages[0].snapshot()["batches"] for k, srv in servers(router).items()}
+        runtime.reset_launches()
+        out = fn()
+        counts, graph_launches = runtime.launch_counts(), runtime.graph_launches()
+        nb = {k: srv.metrics.stages[0].snapshot()["batches"] - b0.get(k, 0)
+              for k, srv in servers(router).items()}
+        want_conv = sum(per_batch[n][0] * v for (_, n), v in nb.items())
+        want_fc = sum(per_batch[n][1] * v for (_, n), v in nb.items())
+        want_graphs = sum(len(servers(router)[k].plan.allocation) * v for k, v in nb.items())
+        ok = (counts["conv2d_fused"] == want_conv and counts["matmul_fused"] == want_fc
+              and graph_launches == want_graphs)
+        for k in path_launches:
+            path_launches[k] += counts[k]
+        return out, {"micro_batches": {f"{b}/{n}": v for (b, n), v in nb.items()},
+                     "conv2d_fused": counts["conv2d_fused"], "matmul_fused": counts["matmul_fused"],
+                     "graph_launches": graph_launches, "per_micro_batch_ok": ok}
+
+    graphs_mod.Captured = Counting
+    try:
+        r0 = baseline_bytes(torch)
+        router = FleetRouter(reg, plan22, backend=kb, batch_size=BATCH, boards=boards, device=DEVICE)
+        router.start()
+        try:
+            t0 = time.perf_counter()
+            router.warmup()
+            warmup_s = time.perf_counter() - t0
+            warm_captures = len(captured_on)
+            fleet_bytes = baseline_bytes(torch) - r0
+            steady, steady_counts = counted(router, lambda: [window(router, FLEET_IMAGES)
+                                                              for _ in range(STEADY_REPS)])
+            cycles, board_bytes = [], None
+            for c in range(FLEET_CYCLES):
+                loss = {}
+
+                def lose():
+                    def run():
+                        t2 = time.perf_counter()
+                        loss["redispatched"] = router.fail_board(victim)
+                        loss["fail_board_s"] = time.perf_counter() - t2
+
+                    loss["thread"] = threading.Thread(target=run, daemon=True)
+                    loss["thread"].start()
+
+                w_loss = window(router, FLEET_IMAGES, during=lose)
+                loss["thread"].join(timeout=600)
+                check(not loss["thread"].is_alive() and "redispatched" in loss,
+                      f"5i cycle {c}: fail_board did not finish")
+                after_loss = router.metrics()["boards"][victim]
+                if c == 0:
+                    # what one full collection costs at this heap (fail_board
+                    # runs one to free the lost board; nothing is left here)
+                    t1 = time.perf_counter()
+                    gc.collect()
+                    gc_collect_s = time.perf_counter() - t1
+                    r_loss = baseline_bytes(torch)
+                n_cap = len(captured_on)
+                t1 = time.perf_counter()
+                router.rejoin_board(victim)
+                rejoin_s = time.perf_counter() - t1
+                if c == 0:
+                    board_bytes = baseline_bytes(torch) - r_loss
+                w_after = window(router, FLEET_IMAGES)
+                cycles.append({"cycle": c, "redispatched": loss["redispatched"],
+                               "fail_board_s": loss["fail_board_s"],
+                               "victim_alive_after_loss": after_loss["alive"], "rejoin_s": rejoin_s,
+                               "rejoin_captures": len(captured_on) - n_cap, "window_with_loss": w_loss,
+                               "window_after_rejoin": w_after,
+                               "generation": router.metrics()["boards"][victim]["generation"],
+                               "reserved_bytes": reserved_bytes(torch)})
+            # ------------------------------------- autoscaling from one replica a model
+            n_cap = len(captured_on)
+            t1 = time.perf_counter()
+            router.apply_plan(plan11)
+            to_one_s = time.perf_counter() - t1
+            scaler = FleetAutoscaler(router, Ts)
+            scaled = {}
+
+            def scale():
+                scaled["desired"] = scaler.desired_replicas()
+                t2 = time.perf_counter()
+                scaled["replanned"] = scaler.step() is not None
+                scaled["step_s"] = time.perf_counter() - t2
+
+            w_scale = window(router, FLEET_IMAGES, during=scale)
+            scale_captures = len(captured_on) - n_cap
+            # ------------------------------------------------ hot swap, same plan
+            gens = {b: d["generation"] for b, d in router.metrics()["boards"].items()}
+            router.apply_plan(router.plan)
+            gens_after = {b: d["generation"] for b, d in router.metrics()["boards"].items()}
+            last, last_counts = counted(router, lambda: window(router, FLEET_IMAGES))
+            snap = router.metrics()
+        finally:
+            stop_error = stop_quietly(router)
+    finally:
+        graphs_mod.Captured = real_captured
+
+    windows = [*steady, *(w for c in cycles for w in (c["window_with_loss"], c["window_after_rejoin"])),
+               w_scale, last]
+    stage_captures = [t for t in captured_on if "-stage" in t]
+    after_cycles = [c["reserved_bytes"] for c in cycles]
+    report = {
+        "models": list(names), "boards": [b.name for b in boards], "platform": "host_platform(4)",
+        "batch": BATCH, "backend": "cuda_fused (phase 5's tuner)",
+        "plan": plan22.notation(), "predicted_img_per_s_batch1": plan22.throughputs(),
+        "objective": plan22.objective, "feasible": plan22.feasible,
+        "verified_replicas": sorted(f"{b}/{n}" for b, n in verdicts),
+        "warmup_s": warmup_s, "warmup_captures": warm_captures, "fleet_bytes": fleet_bytes,
+        "steady_images_per_model": FLEET_IMAGES, "steady_windows": steady, "launches_steady": steady_counts,
+        "single_board_5g_steady_windows": coserved["steady_windows"],
+        "victim": victim, "cycles": cycles, "board_epoch_bytes": board_bytes, "gc_collect_s": gc_collect_s,
+        "autoscale": {"from": plan11.notation(), "to_one_replica_s": to_one_s, **scaled,
+                      "decisions": scaler.decisions, "window": w_scale, "captures": scale_captures,
+                      "plan_after": router.plan.notation()},
+        "hot_swap_same_plan": {"generations_before": gens, "generations_after": gens_after},
+        "last_window": last, "launches_last": last_counts,
+        "captures": len(captured_on), "captures_on_stage_workers": stage_captures[:8],
+        "router": {k: snap[k] for k in ("submitted", "completed", "failed", "redispatched",
+                                        "duplicates_discarded", "inflight")},
+        "stop_error": stop_error,
+    }
+    print(json.dumps({"fleet_5i": report}))
+    check(all(w["lost"] == 0 for w in windows), f"5i: tickets lost {[w['lost'] for w in windows]}")
+    check(all(w["n_not_bitwise"] == 0 for w in windows),
+          f"5i: outputs differ from the single-stage engines {[w['not_bitwise'] for w in windows if w['not_bitwise']]}")
+    check(snap["failed"] == 0 and snap["completed"] == snap["submitted"] == len(names) * FLEET_IMAGES * len(windows)
+          and snap["inflight"] == 0, f"5i: router counters {report['router']}")
+    check(steady_counts["per_micro_batch_ok"] and last_counts["per_micro_batch_ok"],
+          f"5i: launches {steady_counts}, {last_counts}; want 13 + 3 and 14 + 1 a micro-batch")
+    check(warm_captures > 0 and not stage_captures, f"5i: graphs captured on stage workers {stage_captures[:8]}")
+    check(all(not c["victim_alive_after_loss"] for c in cycles), "5i: the victim stayed alive after fail_board")
+    check(gens == gens_after, f"5i: the same plan rebuilt boards: {gens} -> {gens_after}")
+    check(after_cycles[-1] <= after_cycles[0] + board_bytes,
+          f"5i: reserved memory grew across the cycles {after_cycles} (one board {board_bytes})")
+    check(stop_error is None, f"5i: stop() raised {stop_error}")
     return path_launches
 
 
@@ -2311,11 +2736,24 @@ def main() -> int:
     mark("5e,5f")
 
     # ------------- 5g. VGG-16 and MobileNet co-served on host_platform(4)
-    for name, n in co_serving(torch, serve, images, params, fused_graph_outs, tuner, tmp,
-                              hikey_report["steady_img_per_s"]).items():
+    coserve_launches, coserved = co_serving(torch, serve, images, params, fused_graph_outs, tuner, tmp,
+                                            hikey_report["steady_img_per_s"])
+    for name, n in coserve_launches.items():
+        path_counts[name] += n
+    mark("5g")
+
+    # ------------- 5h. VGG-16 under open-loop arrivals
+    for name, n in open_loop(torch, serve, images, params, fused_graph_outs,
+                             hikey_report["steady_img_per_s"]).items():
         path_counts[name] += n
     del fused_graph_outs
-    mark("5g")
+    mark("5h")
+
+    # ------------- 5i. a two-board fleet of VGG-16 and MobileNet
+    for name, n in fleet(torch, images, tuner, coserved).items():
+        path_counts[name] += n
+    del coserved
+    mark("5i")
 
     # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)

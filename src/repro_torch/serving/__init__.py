@@ -27,9 +27,12 @@
   power-aware DSE's per-stage OPP assignment (the planning platform's
   modeled clocks, not the card's), normalizes observations back to
   f_max, and re-plans on throttle events (``serve(power_cap_w=...)``).
-
-The rest of the control plane over servers (fleets, load generation) is
-not ported yet; see ROADMAP.md.
+* :mod:`.loadgen`  — seeded open-loop arrival traces (Poisson, MMPP,
+  diurnal) and ``run_open_loop``, which paces one into a live server.
+* :mod:`.fleet`    — ``FleetRouter``: one ``MultiModelServer`` per board
+  of a fleet plan (``core/fleet.py``) behind one ingress, with board
+  loss, re-dispatch and rejoin; ``FleetAutoscaler`` re-plans the replica
+  counts from the observed arrival rates.
 """
 from .adaptive import (
     AdaptiveConfig,
@@ -57,6 +60,7 @@ from .engine import (
     build_eager_stage_fns,
     build_stage_fns,
 )
+from .fleet import FleetAutoscaler, FleetRouter, NoReplica
 from .governor import (
     DvfsGovernor,
     attach_governor,
@@ -72,6 +76,14 @@ from .faults import (
     TransientStageError,
     WorkerCrash,
     fault_injecting_builder,
+)
+from .loadgen import (
+    ArrivalTrace,
+    OpenLoopReport,
+    diurnal_trace,
+    mmpp_trace,
+    poisson_trace,
+    run_open_loop,
 )
 from .metrics import RouterMetrics, ServerMetrics, StageMetrics, percentile
 from .multimodel import (
@@ -98,6 +110,7 @@ __all__ = [
     "AdaptiveController",
     "AdaptiveMonitor",
     "AdmissionError",
+    "ArrivalTrace",
     "AutoPlanner",
     "Backpressure",
     "DriftDetector",
@@ -106,12 +119,16 @@ __all__ = [
     "FaultEvent",
     "FaultInjector",
     "FaultPlan",
+    "FleetAutoscaler",
+    "FleetRouter",
     "MicroBatch",
     "ModelEntry",
     "ModelRegistry",
     "MultiModelMonitor",
     "MultiModelServer",
+    "NoReplica",
     "OnlineCalibrator",
+    "OpenLoopReport",
     "OpenLoopServing",
     "PartitionController",
     "PartitionEvent",
@@ -141,13 +158,17 @@ __all__ = [
     "build_eager_stage_fns",
     "build_stage_fns",
     "delayed_stage_fn_builder",
+    "diurnal_trace",
     "fault_injecting_builder",
     "gather",
     "governed_stage_fn_builder",
     "host_platform",
+    "mmpp_trace",
     "percentile",
+    "poisson_trace",
     "run_adaptive_loop",
     "run_governed_loop",
+    "run_open_loop",
     "run_slo_governed_loop",
     "serve",
     "split_rows",

@@ -76,6 +76,7 @@ from repro_torch.serving import (
     governed_stage_fn_builder,
     run_adaptive_loop,
     run_governed_loop,
+    mmpp_trace,
     run_slo_governed_loop,
     serve,
 )
@@ -316,13 +317,22 @@ def _gt_tiny():
     return gt_time_matrix(bench_tiny("tinyA", 8).descriptors())
 
 
+def _mmpp_as_the_reference(*args, **kw):
+    """The port's MMPP trace, held equal to the reference generator's on
+    the same arguments, so both packages' tests run on the same arrivals."""
+    trace = mmpp_trace(*args, **kw)
+    want = ref_serving.mmpp_trace(*args, **kw)
+    assert (trace.times, trace.kind, trace.meta) == (want.times, want.kind, want.meta)
+    return trace
+
+
 def test_slo_governed_loop_on_an_mmpp_trace_is_the_references():
-    """One seeded MMPP trace (the reference's generator: the port has no
-    loadgen yet) through both packages' SLO-aware governor with admission:
-    identical per-window records."""
+    """One seeded MMPP trace, drawn by each package from its own
+    generator (the two traces are equal), through both packages'
+    SLO-aware governor with admission: identical per-window records."""
     T = _gt_tiny()
     n = len(T)
-    trace = None
+    traces = []
     out = []
     for core, serving, plat in ((None, None, PLAT), (ref_core, ref_serving, REF_PLAT)):
         search = pipe_it_search if core is None else core.pipe_it_search
@@ -330,9 +340,9 @@ def test_slo_governed_loop_on_an_mmpp_trace_is_the_references():
         S = ref_serving if serving is not None else None
         plan = search(n, plat, T, mode="best")
         cap = plan.throughput(T)
-        if trace is None:
-            trace = ref_serving.mmpp_trace(0.1 * cap, 0.45 * cap, duration_s=30.0,
-                                           calm_s=5.0, burst_s=3.0, seed=5)
+        trace = (S.mmpp_trace if S else mmpp_trace)(0.1 * cap, 0.45 * cap, duration_s=30.0,
+                                                    calm_s=5.0, burst_s=3.0, seed=5)
+        traces.append((trace.times, trace.kind, trace.meta))
         slo_s = 0.004
         ctrl = (S.AdaptiveController if S else AdaptiveController)(
             prior=T, plan=plan, platform=plat, objective="min_energy",
@@ -348,6 +358,7 @@ def test_slo_governed_loop_on_an_mmpp_trace_is_the_references():
         loop = S.run_slo_governed_loop if S else run_slo_governed_loop
         Env = S.OpenLoopServing if S else OpenLoopServing
         out.append(loop(gov, Env(T, plat), trace, window_s=1.0, admission=admission))
+    assert traces[0] == traces[1]
     assert any(r["n_arrivals"] for r in out[0])
     assert out[0] == out[1]
 
@@ -833,7 +844,7 @@ def test_slo_governor_never_downclocks_into_violation():
     plan = pipe_it_search(n, PLAT, T, mode="best")
     cap = plan.throughput(T)
     slo_s, window_s = 0.004, 1.0
-    trace = ref_serving.mmpp_trace(0.1 * cap, 0.45 * cap, duration_s=60.0,
+    trace = _mmpp_as_the_reference(0.1 * cap, 0.45 * cap, duration_s=60.0,
                                    calm_s=5.0, burst_s=3.0, seed=5)
 
     def slo_run():
@@ -879,7 +890,7 @@ def test_cap_throttle_during_burst_no_dropped_tickets():
     gov = DvfsGovernor(PLAT, ctrl, server=None)
     env = OpenLoopServing(T, PLAT)
     cap = pplan.plan.throughput(T)
-    trace = ref_serving.mmpp_trace(0.1 * cap, 0.5 * cap, duration_s=30.0,
+    trace = _mmpp_as_the_reference(0.1 * cap, 0.5 * cap, duration_s=30.0,
                                    calm_s=4.0, burst_s=6.0, seed=3)
     window_s = 1.0
     new_cap = 0.40 * envelope

@@ -50,6 +50,7 @@ from repro_torch.serving import (
     AutoPlanner,
     FaultEvent,
     FaultPlan,
+    FleetRouter,
     ModelRegistry,
     MultiModelServer,
     PipelineServer,
@@ -58,6 +59,8 @@ from repro_torch.serving import (
     build_eager_stage_fns,
     build_stage_fns,
     fault_injecting_builder,
+    poisson_trace,
+    run_open_loop,
     serve,
 )
 
@@ -1304,3 +1307,91 @@ def test_router_flood_on_one_model_sheds_only_its_tickets(cuda):
     got_a = single_a.run([images[i] for i, _ in outs_a])["outputs"]
     assert all(torch.equal(o, w.cpu()) for (_, o), w in zip(outs_a, got_a))
     assert all(torch.equal(o, want["b"][i]) for i, o in outs_b)
+
+
+# ------------------------------------------------- open-loop load and the fleet
+def test_open_loop_run_completes_every_admitted_ticket_with_single_stage_bits(cuda):
+    """``run_open_loop`` paces a Poisson trace into a graph server at
+    micro-batch 4 (batches fill or leave on the flush timeout): every
+    submitted ticket completes, bitwise equal to the single-stage engine
+    on its image, as phase 4's served outputs are."""
+    g = _tiny()
+    rng = np.random.default_rng(10)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(8)]
+    index = {id(x): i for i, x in enumerate(images)}
+    server = serve(g, backend="cuda_fused", batch_size=4, queue_depth=16, seed=3)
+    tickets = []
+
+    class Recording:
+        def ingress_depth(self):
+            return server.ingress_depth()
+
+        def set_batching(self, **kw):
+            server.set_batching(**kw)
+
+        def submit(self, image, *, block=True):
+            ticket = server.submit(image, block=block)
+            tickets.append((index[id(image)], ticket))
+            return ticket
+
+    try:
+        report = run_open_loop(Recording(), poisson_trace(400.0, n=96, seed=2), images,
+                               result_timeout_s=120.0)
+    finally:
+        server.stop()
+    assert report.shed_admission == 0
+    assert report.submitted == report.completed == len(tickets) == 96 - report.shed_backpressure
+    assert report.shed_backpressure == 0
+    single = SingleStageEngine(g, server.params, backend="cuda_fused").run(images)["outputs"]
+    for i, t in tickets:
+        assert torch.equal(t.result(timeout=0).cpu(), single[i].cpu())
+
+
+def test_fleet_of_graph_boards_keeps_single_stage_bits_across_board_loss(cuda, monkeypatch):
+    """Two boards on one card, each co-serving both tiny nets on
+    ``cuda_fused`` graphs at micro-batch 4: a board fails while traffic
+    flows and rejoins (its rebuilt server captures while the other board
+    replays).  No ticket is lost, failed or duplicated, every output keeps
+    its single-stage bits, and no stage worker captures a graph: warm-up
+    and rejoin capture before traffic reaches a board."""
+    from repro_torch.core import BoardSpec, fleet_search, hikey970
+    from repro_torch.kernels import graphs
+
+    captured_on = []
+
+    class Counting(graphs.Captured):
+        def __init__(self, *a, **kw):
+            captured_on.append(threading.current_thread().name)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(graphs, "Captured", Counting)
+    reg = ModelRegistry()
+    reg.add("a", _tiny(), seed=1)
+    reg.add("b", _tiny2(), seed=2)
+    boards = (BoardSpec("b0", hikey970()), BoardSpec("b1", hikey970()))
+    Ts = AutoPlanner(platform=hikey970()).time_matrices(reg.graphs())
+    fp = fleet_search(Ts, boards, replicas={"a": 2, "b": 2})
+    rng = np.random.default_rng(11)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(24)]
+    want = _single(reg, images)
+    victim = FaultPlan.seeded_board_cycle(11, ["b0", "b1"]).events[0].board
+    outs = []
+    with FleetRouter(reg, fp, backend="cuda_fused", batch_size=4, boards=boards) as router:
+        router.warmup()
+        warm = len(captured_on)
+        for _ in range(2):
+            tickets = [(n, i, router.submit(n, img)) for i, img in enumerate(images[:12])
+                       for n in reg.names]
+            loss = threading.Thread(target=router.fail_board, args=(victim,), daemon=True)
+            loss.start()
+            tickets += [(n, i, router.submit(n, img)) for i, img in enumerate(images[12:], 12)
+                        for n in reg.names]
+            outs += [(n, i, t.result(timeout=300.0).cpu()) for n, i, t in tickets]
+            loss.join(timeout=300.0)
+            assert not loss.is_alive()
+            router.rejoin_board(victim)
+        snap = router.metrics()
+    assert warm > 0 and not [t for t in captured_on if "-stage" in t], captured_on
+    assert snap["failed"] == 0 and snap["completed"] == snap["submitted"] == len(outs)
+    assert snap["boards"][victim]["alive"] and snap["boards"][victim]["generation"] == 4
+    assert all(torch.equal(o, want[n][i]) for n, i, o in outs)
