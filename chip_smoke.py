@@ -156,35 +156,53 @@ Phases (any failure exits non-zero):
    kernel (B5) against its plain version at G in {1, 5}, D in {64, 128},
    S in {1, 300, 1024}, a valid prefix of 1, a ragged value, S and each
    side of the first split boundary, and S = 32768 with prefixes 1 and
-   777 (most splits empty), batch 4 with 5 KV heads, f32 and bf16; a row
+   777 (most splits empty), batch 4 with 5 KV heads, and at the shapes of
+   6e and 6f (Hkv 5, G 3, D 64 and Hkv 16, G 1, D 128, 896 slots) and
+   StarCoder2-15B's decode step (Hkv 4, G 12, D 128 on a 4096-slot window
+   ring that has wrapped), f32 and bf16; a row
    at batch 1, a second call and the length read on the device (as the
    captured decode step passes it; past S it clamps to S) must give the
    same bits; 6b the SSD scan
    (B6) at Hymba's 50 heads
    of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
-   f32 and bf16; 6c serves Hymba-1.5B at full width (32 layers, random
-   weights from seed 0) through ``repro_torch.launch.serve.generate``, the
-   CLI's own loop: batch 4, a 768-token prompt (896 with the meta tokens),
-   128 greedy steps, the first op by op and the rest replaying one
-   captured step.  The launch counters must show exactly 32 SSD and no
-   other launch in the prefill and exactly 32 flash-decode launches and no
-   other in each decode step, and one graph launch in each step after
-   the first.  The same 128 steps op by op, and both again in f32, must
-   give the same greedy tokens and bitwise equal logits at every step.
-   A further run, op by op, repeats every B5 and B6 call
-   of the prefill and 8 decode steps through the plain version on the
-   same activations; the prefill's last hidden state and the logits of 8
-   teacher-forced decode steps are compared with the plain route's, gated
-   in f32 and printed in bf16; a profiler trace of 3 decode steps, op by
-   op and replayed, gives the device's busy and idle share and the host's
-   CUDA API calls a step.  6d times B5 (its length on the device, the int
-   form beside it) at the served shape and
-   at ``decode_32k``'s (batch 16, 32768 slots) and B6 at the served
-   prefill's (one memset and one kernel launch a call), each beside its
-   plain version, its bound and, for B5,
-   ``F.scaled_dot_product_attention`` with a length mask;
+   f32 and bf16; 6c, 6e and 6f (``lm_phase``, one body for the three
+   models) serve Hymba-1.5B (32 layers), SmolLM-360M (32 dense layers)
+   and OLMoE-1B-7B (16 MoE layers, 64 experts, top-8) at full width and
+   depth (random weights from seed 0, bf16 on f32 weights, after checking
+   that the f32 weights and their bf16 copy fit) through
+   ``repro_torch.launch.serve.generate``, the CLI's own loop: batch 4, a
+   768-token prompt (896 with Hymba's meta tokens), 128 greedy steps, the
+   first op by op and the rest replaying one captured step.  The launch
+   counters must show one SSD launch a Hymba layer and no other launch in
+   the prefill, exactly n_layers flash-decode launches and no other in
+   each decode step, and one graph launch in each step after the first.
+   The same 128 steps op by op, and both again in f32, must give the same
+   greedy tokens and bitwise equal logits at every step.  A further run,
+   op by op in bf16 and in f32, repeats every B5 and B6 call of the
+   prefill and 8 decode steps through the plain version on the same
+   activations.  The kernel route against the plain route, teacher-forced
+   over the prefill's last hidden state and 8 steps' logits with every
+   router call recorded: a routing flip (the experts a token picks, as a
+   set) is counted, the first flip in a sequence must lie on a near-tie
+   of the plain route's probabilities (gap below ``FLIP_GAP``), and the
+   outputs of the sequences no flip has reached are gated in f32 at 3e-2
+   (bf16 printed).  Printed: the pairs a MoE prefill drops past capacity,
+   prefill ms, the steady replayed step against its bounds from the
+   bytes a step moves (a MoE step with every expert, as the reference's
+   algorithm reads them, and with the experts its router picked), the
+   reserved memory after load, and a profiler trace of 3 decode steps, op
+   by op and replayed (the device's busy and idle share, the host's CUDA
+   API calls a step).  Each model is freed before the next.  6d, between
+   6c and 6e, times B5 (its length on the device, the int form beside it)
+   at Hymba's served shape, at ``decode_32k``'s (batch 16, 32768 slots)
+   and at 6a's three new shapes, and B6 at the served prefill's (one
+   memset and one kernel launch a call), each beside its plain version,
+   its bound and, for B5, ``F.scaled_dot_product_attention`` with a
+   length mask;
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
-   the five above and B5, B6), then the ``{"ok": true, ...}`` line last.
+   the five above and B5, B6; B5's launches summed over 6c, 6e and 6f,
+   with its times at every shape 6d timed), then the ``{"ok": true,
+   ...}`` line last.
 
 Tolerances: kernel vs plain version ``|y - r| <= RTOL*|r| + ATOL*max(1, max|r|)``
 with ``RTOL, ATOL = 1e-4, 1e-5`` (the reference's bar, its absolute floor
@@ -287,7 +305,7 @@ KERNELS = {
         "replaces": "src/repro/kernels/im2col.py:24",
     },
 }
-# the transformer slice's kernels, timed and counted by hymba_phases()
+# the transformer slice's kernels, timed by hymba_phases() and counted by lm_phase()
 LM_KERNELS = {
     "flash_decode": {
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -309,8 +327,19 @@ EXTRA_TOTALS = ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core
 # 128 meta tokens), 128 greedy steps, so max_len = 1024 = the window
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "hymba-1.5b", 4, 768, 128
 LM_CHECK_STEPS = 8  # decode steps held against the plain route
+# B5's shapes on the dense and MoE paths (B, Hkv, G, D, W): SmolLM-360M
+# and OLMoE-1B-7B served as Hymba is (batch 4, 768 + 128 slots, no meta
+# tokens), and StarCoder2-15B's decode step on its 4096-slot window ring
+LM_FD_SHAPES = (("smollm_served", 4, 5, 3, 64, 896), ("olmoe_served", 4, 16, 1, 128, 896),
+                ("starcoder2_decode", 4, 4, 12, 128, 4096))
 LM_PROFILE_STEPS = 3  # decode steps traced for the busy/idle split
 LM_RTOL = LM_ATOL = 3e-2  # the reference's bar for lossy decode paths
+# phases 6e and 6f: the dense and MoE models, served by lm_phase() as 6c serves Hymba
+DENSE_LMS = (("6e", "smollm-360m"), ("6f", "olmoe-1b-7b"))
+# a float32 routing flip between the kernel and plain routes (inputs equal
+# to about 1e-6) may only sit where the plain route's k-th and (k+1)-th
+# router probabilities are closer than this
+FLIP_GAP = 1e-3
 FD_TOL = 2e-4  # f32 bar of the reference's flash-decode and SSD kernel tests
 SSD_BF16_TOL = 5e-2  # the reference's bf16 bar for the SSD kernel
 
@@ -402,20 +431,13 @@ def bf16_ulp(torch, r):
 
 def hymba_phases(torch, dev, flops_peak, bytes_peak):
     """Phases 6a-6d: B5 and B6 against their plain versions, Hymba-1.5B
-    served at full width through them, and their timing.  Returns the
-    kernels-line rows of both kernels."""
-    import dataclasses
-
+    served at full width through them (``lm_phase``), and their timing.
+    Returns the kernels-line rows of both kernels."""
     import torch.nn.functional as F
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ops as OPS
-    from repro_torch.kernels import runtime
-    from repro_torch.kernels import ssd as SSD
-    from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_eager_serve_step, make_prefill_step, make_serve_step
-    from repro_torch.models import init_cache, init_params
     from repro_torch.models.model import N_META_TOKENS
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -430,47 +452,61 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     # a row at batch 1 and a repeated call must give the same bits
     fd_cases, fd_worst = 0, {"float32": (0.0, ""), "bfloat16": (0.0, "")}
     fd_not_bitwise = []
+    # (label, B, Hkv, G, D, W, lengths): the grid at batch 4 with 5 KV
+    # heads, then the served shapes of 6e and 6f and StarCoder2's decode
+    # shape on a 4096-slot window ring that has wrapped (every slot valid,
+    # length W: a device length past W clamps to it)
+    fd_shapes = []
+    for g in (1, 5):
+        for d in (64, 128):
+            for s_len in (1, 300, 1024, 32768):
+                split = FD.split_len(s_len, d)
+                lengths = {1, 777} if s_len == 32768 else {
+                    1, (2 * s_len) // 3 + 1, s_len, split - 1, split, split + 1}
+                fd_shapes.append(("grid", 4, 5, g, d, s_len, lengths))
+    for label, b, hkv, g, d, w in LM_FD_SHAPES:
+        split = FD.split_len(w, d)
+        wrapped = label == "starcoder2_decode"
+        fd_shapes.append((label, b, hkv, g, d, w, {w} if wrapped else {1, LM_PROMPT + 1, split, split + 1, w}))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for g in (1, 5):
-            for d in (64, 128):
-                for s_len in (1, 300, 1024, 32768):
-                    split = FD.split_len(s_len, d)
-                    lengths = {1, 777} if s_len == 32768 else {
-                        1, (2 * s_len) // 3 + 1, s_len, split - 1, split, split + 1}
-                    for length in sorted(n for n in lengths if 1 <= n <= s_len):
-                        b, hkv = 4, 5
-                        q = randn(b, hkv, g, d, scale=0.5, dtype=dtype)
-                        k = randn(b, s_len, hkv, d, scale=0.5, dtype=dtype)
-                        v = randn(b, s_len, hkv, d, dtype=dtype)
-                        y = OPS.flash_decode(q, k, v, length)
-                        where = f"G{g} D{d} S{s_len} split{split} len{length} {dname}"
-                        y1 = OPS.flash_decode(q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(), length)
-                        if not (torch.equal(y1, y[2:3]) and torch.equal(OPS.flash_decode(q, k, v, length), y)):
-                            fd_not_bitwise.append(where)
-                        # the length read on the device, as a captured decode
-                        # step passes it: the int form's bits at batch 4 and 1
-                        dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
-                        if not (torch.equal(OPS.flash_decode(q, k, v, dev_len), y) and torch.equal(
-                                OPS.flash_decode(q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(),
-                                                 dev_len), y1)):
-                            fd_not_bitwise.append(f"{where} device length")
-                        if dtype == torch.float32:
-                            r = OPS.flash_decode(q, k, v, length, backend="torch")
-                            ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
-                        else:
-                            r = OPS.flash_decode(q.float(), k.float(), v.float(), length, backend="torch")
-                            ratio = float(((y.float() - r).abs() / bf16_ulp(torch, r)).max())
-                        err["flash_decode"] = max(err["flash_decode"], float((y.float() - r).abs().max()))
-                        check(bool(torch.isfinite(y).all()), f"flash_decode non-finite at {where}")
-                        if ratio >= fd_worst[dname][0]:
-                            fd_worst[dname] = (ratio, where)
-                        fd_cases += 1
-                    # a device length past W is clamped to W, as the reference's
-                    # position mask would take every slot
-                    past = torch.tensor([s_len + 5], dtype=torch.int32, device=dev)
-                    if not torch.equal(OPS.flash_decode(q, k, v, past), OPS.flash_decode(q, k, v, s_len)):
-                        fd_not_bitwise.append(f"G{g} D{d} S{s_len} {dname} device length past W")
+        for label, b, hkv, g, d, s_len, lengths in fd_shapes:
+            split = FD.split_len(s_len, d)
+            for length in sorted(n for n in lengths if 1 <= n <= s_len):
+                q = randn(b, hkv, g, d, scale=0.5, dtype=dtype)
+                k = randn(b, s_len, hkv, d, scale=0.5, dtype=dtype)
+                v = randn(b, s_len, hkv, d, dtype=dtype)
+                y = OPS.flash_decode(q, k, v, length)
+                where = f"{label} B{b} Hkv{hkv} G{g} D{d} S{s_len} split{split} len{length} {dname}"
+                r1 = b // 2
+                y1 = OPS.flash_decode(q[r1:r1 + 1].contiguous(), k[r1:r1 + 1].contiguous(),
+                                      v[r1:r1 + 1].contiguous(), length)
+                if not (torch.equal(y1, y[r1:r1 + 1]) and torch.equal(OPS.flash_decode(q, k, v, length), y)):
+                    fd_not_bitwise.append(where)
+                # the length read on the device, as a captured decode
+                # step passes it: the int form's bits at batch B and 1
+                dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
+                if not (torch.equal(OPS.flash_decode(q, k, v, dev_len), y) and torch.equal(
+                        OPS.flash_decode(q[r1:r1 + 1].contiguous(), k[r1:r1 + 1].contiguous(),
+                                         v[r1:r1 + 1].contiguous(), dev_len), y1)):
+                    fd_not_bitwise.append(f"{where} device length")
+                if dtype == torch.float32:
+                    r = OPS.flash_decode(q, k, v, length, backend="torch")
+                    ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
+                else:
+                    r = OPS.flash_decode(q.float(), k.float(), v.float(), length, backend="torch")
+                    ratio = float(((y.float() - r).abs() / bf16_ulp(torch, r)).max())
+                err["flash_decode"] = max(err["flash_decode"], float((y.float() - r).abs().max()))
+                check(bool(torch.isfinite(y).all()), f"flash_decode non-finite at {where}")
+                if ratio >= fd_worst[dname][0]:
+                    fd_worst[dname] = (ratio, where)
+                fd_cases += 1
+            # a device length past W is clamped to W, as the reference's
+            # position mask would take every slot (a wrapped ring's position)
+            past = torch.tensor([s_len + 5], dtype=torch.int32, device=dev)
+            if not torch.equal(OPS.flash_decode(q, k, v, past), OPS.flash_decode(q, k, v, s_len)):
+                fd_not_bitwise.append(f"{label} G{g} D{d} S{s_len} {dname} device length past W")
+            del q, k, v, y, y1, r
 
     # ---------------------------- 6b. B6 against its plain version
     ssd_cases, ssd_worst = [], 0.0
@@ -517,217 +553,11 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
 
     # ----------------- 6c. Hymba-1.5B served at full width through B5, B6
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    model = init_params(cfg, seed=SEED, device=dev)
-    model.compute_blocks(torch.bfloat16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(SEED))
-    for graphs in (True, False):  # warm-up: cuBLAS handles, first launches, a capture
-        generate(cfg, model, prompt[:, :64], 3, graphs=graphs)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    per_step = []
-
-    def hook(phase, i):
-        per_step.append((phase, runtime.launch_counts(), runtime.graph_launches()))
-        runtime.reset_launches()
-
-    # the served run: the first decode step op by op, then one captured
-    # step replayed (launch/steps.py::GraphedServeStep); each replay counts
-    # the launches its capture recorded, and one graph launch
-    runtime.reset_launches()
-    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN, step_hook=hook)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    n_layers = cfg.n_layers
-    others = [k for k in runtime.KERNEL_NAMES if k not in LM_KERNELS]
-    phase0, prefill_counts, prefill_graphs = per_step[0]
-    check(phase0 == "prefill" and prefill_counts["ssd"] == n_layers and prefill_graphs == 0
-          and prefill_counts["flash_decode"] == 0 and not any(prefill_counts[k] for k in others),
-          f"prefill launched {prefill_counts} and {prefill_graphs} graphs, want {n_layers} ssd and nothing else")
-    decode_counts = [c for ph, c, _ in per_step[1:]]
-    decode_graphs = [n for ph, _, n in per_step[1:]]
-    check(len(decode_counts) == LM_GEN, f"{len(decode_counts)} decode steps, want {LM_GEN}")
-    for i, c in enumerate(decode_counts):
-        check(c["flash_decode"] == n_layers and c["ssd"] == 0 and not any(c[k] for k in others),
-              f"decode step {i} launched {c}, want {n_layers} flash_decode and nothing else")
-    check(decode_graphs == [0] + [1] * (LM_GEN - 1),
-          f"graph launches per decode step {decode_graphs[:4]}..., want 0 (the eager first step), then 1")
-
-    # the same steps op by op, in bf16 and in f32: the same greedy tokens,
-    # and every kept logit bitwise equal (the captured kernels and cuBLAS
-    # calls are the eager step's, in the same order)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    runs = {"bfloat16": {"graph": out, "eager": generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN,
-                                                           graphs=False)}}
-    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph")
-                       for mode in ("eager", "graph")}
-    eager_vs_graph = {}
-    for dname, pair in runs.items():
-        e, gr = pair["eager"], pair["graph"]
-        eager_vs_graph[dname] = {
-            "tokens_equal": bool(torch.equal(e["tokens"], gr["tokens"])),
-            "kept_logits_bitwise": all(torch.equal(a, b) for a, b in zip(e["logits"], gr["logits"]))
-            and len(e["logits"]) == len(gr["logits"]) == LM_GEN,
-            **{mode: {"decode_ms": r["decode_ms"], "decode_ms_per_step": r["decode_ms"] / LM_GEN,
-                      "steady_ms_per_step": r["steady_ms_per_step"], "decode_tok_per_s": r["decode_tok_per_s"],
-                      "steady_tok_per_s": LM_BATCH / (r["steady_ms_per_step"] / 1e3)}
-               for mode, r in pair.items()},
-        }
-    del runs["float32"]
-    tokens = out["tokens"]
-    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-          "generated tokens out of range")
-    check(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]), "served logits are not finite")
-    check(bool(torch.isfinite(out["last_hidden"]).all()), "prefill hidden state is not finite")
-    launches = {"flash_decode": sum(c["flash_decode"] for c in decode_counts), "ssd": prefill_counts["ssd"]}
-
-    # kernel-level parity on the served activations: every B5 and B6 call
-    # of a prefill and LM_CHECK_STEPS decode steps is repeated through the
-    # plain version on the same inputs (teacher forcing at the kernel)
-    served = {"flash_decode": [0, 0.0, 0.0], "ssd": [0, 0.0, 0.0]}  # calls, worst ratio, max abs
-    orig_fd, orig_ssd = OPS.flash_decode, OPS.ssd
-
-    def fd_checked(q, k, v, length, backend=None):
-        y = orig_fd(q, k, v, length, backend=backend)
-        r = orig_fd(q.float(), k.float(), v.float(), length, backend="torch")
-        d = (y.float() - r).abs()
-        rec = served["flash_decode"]
-        rec[0] += 1
-        rec[1] = max(rec[1], float((d / bf16_ulp(torch, r)).max()))
-        rec[2] = max(rec[2], float(d.max()))
-        return y
-
-    def ssd_checked(x, log_a, B, C, h0=None, chunk=128, backend=None):
-        y, hf = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend=backend)
-        ry, rh = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend="torch")
-        d = (y.float() - ry.float()).abs()
-        rec = served["ssd"]
-        rec[0] += 1
-        rec[1] = max(rec[1], float((d / (SSD_BF16_TOL + SSD_BF16_TOL * ry.float().abs())).max()),
-                     float(((hf - rh).abs() / (SSD_BF16_TOL + SSD_BF16_TOL * rh.abs())).max()))
-        rec[2] = max(rec[2], float(d.max()))
-        return y, hf
-
-    OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
-    try:  # op by op: the checks read device values on the host, which no capture may
-        checked = generate(cfg, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS, graphs=False)
-    finally:
-        OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
-    repeatable = all(torch.equal(a, b) for a, b in zip(checked["logits"], out["logits"]))
+    lm = lm_phase(torch, dev, "6c", LM_ARCH, bytes_peak)
+    launches = lm["launches"]
     for name in LM_KERNELS:
-        err[name] = max(err[name], served[name][2])
-
-    # end-to-end, teacher-forced: the served token stream through the
-    # kernel route and the plain route, compared in f32 (gated) and bf16
-    stream = out["tokens"]
-
-    def forced(cfg_, backend):
-        caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
-        last = make_prefill_step(cfg_, backend)(model, {"tokens": prompt}, caches)
-        step = make_eager_serve_step(cfg_, backend)
-        tok, logits = prompt[:, -1:], []
-        for i in range(LM_CHECK_STEPS):
-            logits.append(step(model, caches, tok, LM_PROMPT + N_META_TOKENS + i))
-            tok = stream[:, i:i + 1]
-        del caches
-        return [last.float()] + logits
-
-    def compare(a, b):
-        worst, mx = 0.0, 0.0
-        for x, r in zip(a, b):
-            d = (x - r).abs()
-            worst = max(worst, float((d / (LM_ATOL + LM_RTOL * r.abs())).max()))
-            mx = max(mx, float(d.max()))
-        return worst, mx
-
-    f32_worst, f32_max = compare(forced(cfg32, None), forced(cfg32, "torch"))
-    bf16_worst, bf16_max = compare([out["last_hidden"].float()] + out["logits"], forced(cfg, "torch"))
-    torch.cuda.synchronize()
-    report = {
-        "model": LM_ARCH, "params": n_params, "batch": LM_BATCH, "prompt": LM_PROMPT,
-        "meta_tokens": N_META_TOKENS, "gen": LM_GEN, "max_len": out["max_len"],
-        "compute_dtype": cfg.compute_dtype, "init_and_cast_s": init_s,
-        "prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms"],
-        "decode_tok_per_s": out["decode_tok_per_s"], "decode_ms_per_step": out["decode_ms"] / LM_GEN,
-        "timer": out["timer"], "peak_memory_gb": peak_gb,
-        "launches": {"prefill": {k: prefill_counts[k] for k in LM_KERNELS},
-                     "per_decode_step": {k: decode_counts[0][k] for k in LM_KERNELS},
-                     "graph_launches_per_decode_step": {"first": decode_graphs[0], "later": decode_graphs[1]}},
-        "kernel_parity_on_served_activations": {
-            name: {"calls": served[name][0], "worst_err_over_tol": served[name][1],
-                   "max_abs_err": served[name][2]} for name in LM_KERNELS},
-        "checked_run_bitwise_equal_served_logits": repeatable,
-        "teacher_forced_vs_plain_route": {
-            "float32": {"worst_err_over_tol": f32_worst, "max_abs_err": f32_max},
-            "bfloat16": {"worst_err_over_tol": bf16_worst, "max_abs_err": bf16_max},
-            "compared": f"prefill last hidden state + logits of {LM_CHECK_STEPS} decode steps",
-            "tolerance": f"rtol={LM_RTOL}, atol={LM_ATOL}; gated in float32",
-        },
-        "sample_tokens": tokens[0, :8].tolist(),
-    }
-    print(json.dumps({"serve_lm": report}))
-    check(served["flash_decode"][0] == n_layers * LM_CHECK_STEPS and served["ssd"][0] == n_layers,
-          f"kernel parity saw {served['flash_decode'][0]} flash_decode and {served['ssd'][0]} ssd calls")
-    check(served["flash_decode"][1] <= 1.0, f"flash_decode on served activations exceeds 1 bf16 ulp "
-                                           f"({served['flash_decode'][1]:.3g})")
-    check(served["ssd"][1] <= 1.0, f"ssd on served activations exceeds its bf16 bar ({served['ssd'][1]:.3g})")
-    check(f32_worst <= 1.0, f"float32 kernel route differs from the plain route (err/tol {f32_worst:.3g})")
-    del checked
-
-    # where a decode step's time goes, op by op and replayed: device busy
-    # time of a few steps (profiler, kernels summed) against the served
-    # runs' step times, and the host's CUDA API calls a step
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    tok, pos0 = out["tokens"][:, -1:], out["max_len"]
-    breakdown = {}
-    for mode, step in (("eager", make_eager_serve_step(cfg)), ("graph", make_serve_step(cfg))):
-        for i in range(2):  # eager: two warm steps; graph: the eager step and capture, one replay
-            step(model, out["caches"], tok, pos0 + i)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(LM_PROFILE_STEPS):
-                step(model, out["caches"], tok, pos0 + 2 + i)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-        api = [e for e in events if e.device_type == DeviceType.CPU and cuda_api_call(e.key)]
-        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / LM_PROFILE_STEPS
-        copies = graph_device_ms(torch, step.graph) if mode == "graph" else None
-        served_run = runs["bfloat16"][mode]
-        step_ms, steady_ms = served_run["decode_ms"] / LM_GEN, served_run["steady_ms_per_step"]
-        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
-        breakdown[mode] = {
-            "served_step_ms": step_ms, "served_steady_step_ms": steady_ms,
-            "device_busy_ms_per_step": busy_ms if dev_events else None,
-            "device_idle_share": (1.0 - busy_ms / step_ms) if dev_events else None,
-            "device_idle_share_steady": (1.0 - busy_ms / steady_ms) if dev_events else None,
-            "device_kernels_per_step": sum(e.count for e in dev_events) / LM_PROFILE_STEPS,
-            "host_api_calls_per_step": sum(e.count for e in api) / LM_PROFILE_STEPS,
-            "graph_launches_per_step": sum(e.count for e in api if e.key == "cudaGraphLaunch")
-            / LM_PROFILE_STEPS,
-            "graph_device_ms": copies,
-            "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS
-                                       for e in top},
-        }
-    del runs
-    print(json.dumps({"decode_step_breakdown": {
-        "steps_profiled": LM_PROFILE_STEPS, **breakdown,
-        "source": "torch.profiler over steps after the served run; step times from the served bf16 runs "
-                  "(decode_ms / steps, and steady: steps 2 on)",
-    }}))
-    print(json.dumps({"decode_eager_vs_graph": {
-        "model": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, **eager_vs_graph,
-        "timer": "cuda events after a device sync; steady from the third step to the end",
-    }}))
-    for dname, row in eager_vs_graph.items():
-        check(row["tokens_equal"], f"{dname}: greedy tokens with graphs differ from the eager run's")
-        check(row["kept_logits_bitwise"], f"{dname}: kept logits with graphs differ from the eager run's")
+        err[name] = max(err[name], lm["max_abs_err"][name])
+    cfg = get_config(LM_ARCH)
 
     # ---------------------------- 6d. timing of B5 and B6
     rows = {}
@@ -745,8 +575,11 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         return row
 
     hkv, g, d = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
-    for label, b, w, length in (("served", LM_BATCH, out["max_len"], out["max_len"]),
-                                ("decode_32k", 16, SHAPES["decode_32k"].seq_len, SHAPES["decode_32k"].seq_len)):
+    n32k = SHAPES["decode_32k"].seq_len
+    fd_timed = [("served", LM_BATCH, hkv, g, d, lm["max_len"], lm["max_len"]),
+                ("decode_32k", 16, hkv, g, d, n32k, n32k)]
+    fd_timed += [(label, b_, hkv_, g_, d_, w_, w_) for label, b_, hkv_, g_, d_, w_ in LM_FD_SHAPES]
+    for label, b, hkv, g, d, w, length in fd_timed:
         q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
         k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
         v = randn(b, w, hkv, d, dtype=torch.bfloat16)
@@ -794,7 +627,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         library_null_reason=NO_LIBRARY["ssd"],
         cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
     )
-    del x, la, B, C, model, out
+    del x, la, B, C
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, meta in LM_KERNELS.items():
@@ -805,7 +639,403 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # B5's row: Hymba's served shape, and beside it every other shape timed
+    kernels[0]["shapes"] = {
+        label: {key: row[key] for key in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for label, row in rows.items() if label != "ssd"}
+    kernels[0]["launches_by_path"] = {"6c hymba-1.5b": launches["flash_decode"]}
     return kernels
+
+
+def route_flips(torch, kern_calls, plain_calls, n_moe, batch):
+    """Routing flips between two runs' router calls (the experts each
+    token picks, compared as sets, with the plain run's gap between its
+    k-th and (k+1)-th probability).  Call ``c`` belongs to output ``c //
+    n_moe`` (0: the prefill's last hidden state, 1 + i: decode step i).  A
+    flip is primary when it lies in the first call that differs in its
+    sequence (its inputs are the same in both runs); the later ones follow
+    from it.  Returns ({sequence: first output a flip reaches}, flips)."""
+    reached, flips = {}, []
+    for call, ((ik, _), (ip, gp)) in enumerate(zip(kern_calls, plain_calls)):
+        out_i, tokens = call // n_moe, ik.shape[0] // batch
+        differ = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        first_call = {}
+        for t in differ.nonzero().flatten().tolist():
+            row = t // tokens
+            primary = row not in reached or first_call.get(row) == call
+            if row not in reached:
+                reached[row], first_call[row] = out_i, call
+            flips.append({"output": out_i, "layer": call % n_moe, "row": row, "token": t % tokens,
+                          "gap": float(gp[t]), "primary": primary})
+    return reached, flips
+
+
+def profile_decode(torch, step, model, caches, tok, pos0):
+    """Device busy time of LM_PROFILE_STEPS decode steps after two warm
+    ones (the profiler, kernels summed), the kernels and host CUDA API
+    calls a step, and the six largest device times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(2):
+        step(model, caches, tok, pos0 + i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILE_STEPS):
+            step(model, caches, tok, pos0 + 2 + i)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    api = [e for e in events if e.device_type == DeviceType.CPU and cuda_api_call(e.key)]
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "device_busy_ms_per_step": sum(e.self_device_time_total for e in dev_events) / 1e3 / LM_PROFILE_STEPS
+        if dev_events else None,
+        "device_kernels_per_step": sum(e.count for e in dev_events) / LM_PROFILE_STEPS,
+        "host_api_calls_per_step": sum(e.count for e in api) / LM_PROFILE_STEPS,
+        "graph_launches_per_step": sum(e.count for e in api if e.key == "cudaGraphLaunch") / LM_PROFILE_STEPS,
+        "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS for e in top},
+    }
+
+
+def lm_phase(torch, dev, phase, arch, bytes_peak):
+    """Phases 6c (Hymba-1.5B), 6e (SmolLM-360M) and 6f (OLMoE-1B-7B): one
+    model at full width and depth, random weights from seed 0, bf16 on f32
+    weights, served through ``generate``, the CLI's own loop: batch 4, a
+    768-token prompt (after Hymba's 128 meta tokens), 128 greedy steps, the
+    first op by op and the rest replaying one captured step.  Gated: the
+    f32 weights and their bf16 copy fit; the prefill launches one B6 a
+    Hymba layer and no other counted kernel; each decode step exactly
+    n_layers B5 launches and nothing else, one graph launch in each
+    replayed step; the same steps op by op, in bf16 and f32, give the same
+    tokens and bitwise-equal logits; every B5 and B6 call of the prefill
+    and LM_CHECK_STEPS op-by-op decode steps, in bf16 and f32, against its
+    plain version on the same activations (B5: one bf16 ulp, FD_TOL in
+    f32; B6: SSD_BF16_TOL, FD_TOL in f32), and those runs' logits equal to
+    the served ones; the kernel route against the plain route,
+    teacher-forced, within LM_RTOL in f32 on the sequences no routing flip
+    has reached, and every primary flip on a near-tie (gap below
+    FLIP_GAP); bf16 printed.  Printed beside them: the pairs a MoE prefill
+    drops past capacity, the prefill and step times, the steady step
+    against its bounds (``decode_bound``), the reserved memory after load
+    and a profiler trace of LM_PROFILE_STEPS steps, op by op and replayed.
+    The model is freed.  Returns {"launches": {kernel: served-run count},
+    "max_abs_err": {kernel: against its plain version}, "max_len": slots}."""
+    import dataclasses
+    import gc
+
+    import repro_torch.models.moe as MOE
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_eager_serve_step, make_prefill_step, make_serve_step
+    from repro_torch.models import abstract_params, init_cache, init_params, layer_groups, prefix_tokens
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n_layers, offset = cfg.n_layers, LM_PROMPT + prefix_tokens(cfg)
+    groups = layer_groups(cfg)
+    n_moe = sum(g.n for g in groups if g.kind == "moe")
+    n_ssd = sum(g.n for g in groups if g.kind == "hymba")
+    # the f32 parameters and the blocks' bf16 copy must fit beside the rest
+    shape = abstract_params(cfg)
+    n_params = sum(p.numel() for p in shape.parameters())
+    block_params = sum(p.numel() for grp in shape.groups for p in grp.parameters())
+    need_gb = (4 * n_params + 2 * block_params) / 1e9
+    free_b, _ = torch.cuda.mem_get_info(dev)
+    check(need_gb < 0.9 * free_b / 1e9, f"{phase}: {arch} needs {need_gb:.1f} GB, {free_b / 1e9:.1f} GB free")
+    t0 = time.perf_counter()
+    allocated0 = torch.cuda.memory_allocated(dev)
+    model = init_params(cfg, seed=SEED, device=dev)
+    model.compute_blocks(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model_gb = (torch.cuda.memory_allocated(dev) - allocated0) / 1e9  # the weights and their bf16 copy
+    reserved_gb = torch.cuda.memory_reserved(dev) / 1e9  # the allocator's whole pool, earlier phases' cache included
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+    for graphs in (True, False):  # warm-up: cuBLAS handles, first launches, a capture
+        generate(cfg, model, prompt[:, :64], 3, graphs=graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_step = []
+
+    def hook(ph, i):
+        per_step.append((ph, runtime.launch_counts(), runtime.graph_launches()))
+        runtime.reset_launches()
+
+    # the served run: the first decode step op by op, then one captured
+    # step replayed (launch/steps.py::GraphedServeStep); each replay counts
+    # the launches its capture recorded, and one graph launch; the counts
+    # are set to 0 just before and read after each step
+    runtime.reset_launches()
+    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN, step_hook=hook)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ph0, prefill_counts, prefill_graphs = per_step[0]
+    check(ph0 == "prefill" and prefill_graphs == 0
+          and all(n == (n_ssd if k == "ssd" else 0) for k, n in prefill_counts.items()),
+          f"{phase}: prefill launched {prefill_counts} and {prefill_graphs} graphs, "
+          f"want {n_ssd} ssd and nothing else")
+    decode_counts = [c for _, c, _ in per_step[1:]]
+    decode_graphs = [n for _, _, n in per_step[1:]]
+    check(len(decode_counts) == LM_GEN, f"{phase}: {len(decode_counts)} decode steps, want {LM_GEN}")
+    for i, c in enumerate(decode_counts):
+        check(all(n == (n_layers if k == "flash_decode" else 0) for k, n in c.items()),
+              f"{phase}: decode step {i} launched {c}, want {n_layers} flash_decode and nothing else")
+    check(decode_graphs == [0] + [1] * (LM_GEN - 1),
+          f"{phase}: graph launches per decode step {decode_graphs[:4]}..., want 0 (the eager first step), then 1")
+    tokens = out["tokens"]
+    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{phase}: generated tokens out of range")
+    check(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]), f"{phase}: served logits are not finite")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), f"{phase}: prefill hidden state is not finite")
+
+    # the same steps op by op, in bf16 and in f32: the same greedy tokens,
+    # and every kept logit bitwise equal (the captured kernels and cuBLAS
+    # calls are the eager step's, in the same order).  The bf16 eager run
+    # records the experts each router call picks (a list append): the
+    # served run's routing, since its tokens and logits are the same
+    orig_router = MOE.router
+    picked = []
+
+    def recording(x, w, k, renorm=True):
+        res = orig_router(x, w, k, renorm=renorm)
+        picked.append(res[1])
+        return res
+
+    MOE.router = recording
+    try:
+        runs = {"bfloat16": {"graph": out, "eager": generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN,
+                                                               graphs=False)}}
+    finally:
+        MOE.router = orig_router
+    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph")
+                       for mode in ("eager", "graph")}
+    eager_vs_graph = {}
+    for dname, pair in runs.items():
+        e, gr = pair["eager"], pair["graph"]
+        eager_vs_graph[dname] = {
+            "tokens_equal": bool(torch.equal(e["tokens"], gr["tokens"])),
+            "kept_logits_bitwise": len(e["logits"]) == len(gr["logits"]) == LM_GEN
+            and all(torch.equal(a, b) for a, b in zip(e["logits"], gr["logits"])),
+            **{mode: {"prefill_ms": r["prefill_ms"], "decode_ms": r["decode_ms"],
+                      "decode_ms_per_step": r["decode_ms"] / LM_GEN, "decode_tok_per_s": r["decode_tok_per_s"],
+                      "steady_ms_per_step": r["steady_ms_per_step"],
+                      "steady_tok_per_s": LM_BATCH / (r["steady_ms_per_step"] / 1e3)}
+               for mode, r in pair.items()},
+        }
+        pair.pop("eager")
+    f32_graph = runs["float32"]["graph"]
+    del runs
+
+    # kernel parity on the served activations: every B5 and B6 call of a
+    # prefill and LM_CHECK_STEPS op-by-op decode steps, in bf16 and f32,
+    # repeated through the plain version on the same inputs
+    served = {(name, dname): [0, 0.0, 0.0] for name in LM_KERNELS  # calls, worst ratio, max abs
+              for dname in ("bfloat16", "float32")}
+    orig_fd, orig_ssd = OPS.flash_decode, OPS.ssd
+
+    def record(name, dtype, ratio, d):
+        rec = served[(name, str(dtype).split(".")[-1])]
+        rec[0] += 1
+        rec[1] = max(rec[1], ratio)
+        rec[2] = max(rec[2], float(d.max()))
+
+    def fd_checked(q, k, v, length, backend=None):
+        y = orig_fd(q, k, v, length, backend=backend)
+        r = orig_fd(q.float(), k.float(), v.float(), length, backend="torch")
+        d = (y.float() - r).abs()
+        tol = bf16_ulp(torch, r) if q.dtype == torch.bfloat16 else FD_TOL + FD_TOL * r.abs()
+        record("flash_decode", q.dtype, float((d / tol).max()), d)
+        return y
+
+    def ssd_checked(x, log_a, B, C, h0=None, chunk=128, backend=None):
+        y, hf = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend=backend)
+        ry, rh = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend="torch")
+        tol = SSD_BF16_TOL if x.dtype == torch.bfloat16 else FD_TOL
+        d = (y.float() - ry.float()).abs()
+        record("ssd", x.dtype, max(float((d / (tol + tol * ry.float().abs())).max()),
+                                   float(((hf - rh).abs() / (tol + tol * rh.abs())).max())), d)
+        return y, hf
+
+    OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
+    try:  # op by op: the checks read device values on the host, which no capture may
+        checked = {c.compute_dtype: generate(c, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS,
+                                             graphs=False) for c in (cfg, cfg32)}
+    finally:
+        OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
+    repeatable = all(torch.equal(a, b) for a, b in zip(checked["bfloat16"]["logits"], out["logits"])) and all(
+        torch.equal(a, b) for a, b in zip(checked["float32"]["logits"], f32_graph["logits"]))
+    del checked, f32_graph
+
+    # end-to-end, teacher-forced on the served token stream: the kernel
+    # route against the plain route, with every router call recorded
+    stream = out["tokens"]
+
+    def forced(cfg_, backend):
+        calls = []
+
+        def rec(x, w, k, renorm=True):
+            res = orig_router(x, w, k, renorm=renorm)
+            p = torch.softmax(x.float() @ w.float(), dim=-1).sort(dim=-1, descending=True).values
+            calls.append((res[1], p[:, k - 1] - p[:, k]))
+            return res
+
+        MOE.router = rec
+        try:
+            caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
+            outs = [make_prefill_step(cfg_, backend)(model, {"tokens": prompt}, caches).float()]
+            step = make_eager_serve_step(cfg_, backend)
+            tok = prompt[:, -1:]
+            for i in range(LM_CHECK_STEPS):
+                outs.append(step(model, caches, tok, offset + i))
+                tok = stream[:, i:i + 1]
+        finally:
+            MOE.router = orig_router
+        return outs, calls
+
+    e2e = {}
+    for c in (cfg32, cfg):
+        dname = c.compute_dtype
+        kern, kcalls = forced(c, None)
+        plain, pcalls = forced(c, "torch")
+        check(len(kcalls) == len(pcalls) == n_moe * (1 + LM_CHECK_STEPS),
+              f"{phase}: {len(kcalls)} and {len(pcalls)} router calls, want {n_moe * (1 + LM_CHECK_STEPS)}")
+        reached, flips = route_flips(torch, kcalls, pcalls, max(n_moe, 1), LM_BATCH)
+        worst, mx, gated = 0.0, 0.0, 0
+        for out_i, (x, r) in enumerate(zip(kern, plain)):
+            rows = [b for b in range(LM_BATCH) if reached.get(b, out_i + 1) > out_i]
+            if not rows:
+                continue
+            gated += len(rows)
+            d = (x[rows] - r[rows]).abs()
+            worst = max(worst, float((d / (LM_ATOL + LM_RTOL * r[rows].abs())).max()))
+            mx = max(mx, float(d.max()))
+        primary = [f for f in flips if f["primary"]]
+        row = {"worst_err_over_tol": worst, "max_abs_err": mx, "rows_gated": gated,
+               "rows_compared": LM_BATCH * (1 + LM_CHECK_STEPS)}
+        if n_moe:
+            # pairs past capacity in each MoE layer of the prefill (the kernel route's routing)
+            cap = MOE.capacity(LM_BATCH * LM_PROMPT * cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+            row.update({"router_flips": len(flips), "primary_flips": primary[:16],
+                        "max_primary_gap": max((f["gap"] for f in primary), default=None),
+                        "sequences_reached": {str(k): v for k, v in sorted(reached.items())},
+                        "prefill_capacity": cap, "prefill_pairs": LM_BATCH * LM_PROMPT * cfg.top_k,
+                        "prefill_pairs_dropped_per_layer": [
+                            int((torch.bincount(idx.flatten(), minlength=cfg.n_experts) - cap).clamp(min=0).sum())
+                            for idx, _ in kcalls[:n_moe]]})
+        e2e[dname] = row
+        del kern, plain, kcalls, pcalls
+
+    # where a decode step's time goes, op by op and replayed: device busy
+    # time of a few steps (profiler, kernels summed) against the served
+    # runs' step times, and the host's CUDA API calls a step
+    breakdown = {}
+    for mode, step in (("eager", make_eager_serve_step(cfg)), ("graph", make_serve_step(cfg))):
+        # eager: two warm steps; graph: the eager step and capture, one replay
+        prof = profile_decode(torch, step, model, out["caches"], tokens[:, -1:], out["max_len"])
+        busy_ms = prof["device_busy_ms_per_step"]
+        run = eager_vs_graph["bfloat16"][mode]
+        step_ms, steady_ms = run["decode_ms_per_step"], run["steady_ms_per_step"]
+        breakdown[mode] = {
+            "served_step_ms": step_ms, "served_steady_step_ms": steady_ms, **prof,
+            "device_idle_share": (1.0 - busy_ms / step_ms) if busy_ms else None,
+            "device_idle_share_steady": (1.0 - busy_ms / steady_ms) if busy_ms else None,
+            "graph_device_ms": graph_device_ms(torch, step.graph) if mode == "graph" else None,
+        }
+        del step
+
+    # the least time a steady decode step could take, from the bytes it
+    # must move, averaged over the steady steps (the third on): every
+    # non-expert block parameter read once in bf16, the f32 head and final
+    # norm, each attention layer's valid cache prefix (its window's at
+    # most) read and one slot written; Hymba's SSM and conv states are left
+    # out.  A MoE step reads, in the reference's algorithm, every expert
+    # (all-experts bound), and needs only the experts its router picked
+    # (routed bound: counted per layer from the bf16 eager run's routing)
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    slot_bytes = 2 * 2 * LM_BATCH * cfg.n_kv_heads * cfg.resolved_head_dim  # K and V, bf16
+    expert_params = 0
+    if n_moe:
+        check(len(picked) == n_moe * (1 + LM_GEN), f"{phase}: {len(picked)} router calls in the eager run")
+        moe = next(blk.moe for grp in model.groups for blk in grp if getattr(blk, "moe", None) is not None)
+        expert_params = sum(t.numel() for t in (moe.w1, moe.w2, moe.w3) if t is not None) // cfg.n_experts
+        sel = torch.stack(picked[n_moe:]).view(LM_GEN, n_moe, -1)  # the decode steps' picks
+        hit = torch.zeros(LM_GEN, n_moe, cfg.n_experts, device=dev).scatter_(2, sel, 1.0)
+        experts_read = hit.sum((1, 2)).tolist()  # distinct experts a step, over its MoE layers
+    else:
+        experts_read = [0.0] * LM_GEN
+    fixed = 2 * (block_params - n_moe * cfg.n_experts * expert_params) \
+        + 4 * (head.numel() + model.final_norm.scale.numel())
+    steady = range(2, LM_GEN)
+    kv = [sum(g.n * slot_bytes * ((min(offset + i + 1, g.window) if g.window else offset + i + 1) + 1)
+              for g in groups) for i in steady]
+    all_ms = sum(fixed + 2 * n_moe * cfg.n_experts * expert_params + b for b in kv) / len(kv) / bytes_peak * 1e3
+    routed_ms = sum(fixed + 2 * expert_params * experts_read[i] + b
+                    for i, b in zip(steady, kv)) / len(kv) / bytes_peak * 1e3
+    steady_ms = out["steady_ms_per_step"]
+    report = {
+        "phase": phase, "model": arch, "params": n_params, "block_params": block_params,
+        "n_layers": n_layers, "moe_layers": n_moe, "ssd_layers": n_ssd, "experts": cfg.n_experts,
+        "top_k": cfg.top_k, "batch": LM_BATCH, "prompt": LM_PROMPT, "prefix_tokens": prefix_tokens(cfg),
+        "gen": LM_GEN, "max_len": out["max_len"], "compute_dtype": cfg.compute_dtype, "init_and_cast_s": init_s,
+        "memory_needed_gb": need_gb, "model_allocated_gb": model_gb, "reserved_gb_after_load": reserved_gb,
+        "peak_memory_gb": peak_gb,
+        "prefill_ms": out["prefill_ms"], "decode_ms_per_step": out["decode_ms"] / LM_GEN,
+        "steady_ms_per_step": steady_ms, "steady_tok_per_s": LM_BATCH / (steady_ms / 1e3),
+        "decode_tok_per_s": out["decode_tok_per_s"], "timer": out["timer"],
+        "decode_bound": {
+            "all_experts_ms": all_ms, "routed_experts_ms": routed_ms,
+            "steady_over_all_experts_bound": steady_ms / all_ms,
+            "steady_over_routed_bound": steady_ms / routed_ms,
+            "experts_read_per_moe_layer": sum(experts_read[i] for i in steady) / len(kv) / max(n_moe, 1),
+            "counts": "bf16 block weights (every expert, or the routed ones), f32 head and final norm, "
+                      "each layer's valid KV prefix read and one slot written; mean over steps 3 on",
+        },
+        "decode_step_breakdown": {
+            "steps_profiled": LM_PROFILE_STEPS, **breakdown,
+            "source": "torch.profiler over steps after the served run; step times from the served bf16 runs "
+                      "(decode_ms / steps, and steady: steps 3 on)"},
+        "launches": {"prefill": prefill_counts, "per_decode_step": decode_counts[0],
+                     "graph_launches_per_decode_step": {"first": decode_graphs[0], "later": decode_graphs[1]}},
+        "eager_vs_graph": eager_vs_graph,
+        "kernel_parity_on_served_activations": {
+            f"{name} {dname}": {"calls": v[0], "worst_err_over_tol": v[1], "max_abs_err": v[2]}
+            for (name, dname), v in served.items() if v[0]},
+        "checked_runs_bitwise_equal_served_logits": repeatable,
+        "teacher_forced_vs_plain_route": {
+            **e2e, "compared": f"prefill last hidden state + logits of {LM_CHECK_STEPS} decode steps, "
+                               "on the sequences no routing flip has reached",
+            "tolerance": f"rtol={LM_RTOL}, atol={LM_ATOL}; gated in float32; primary flips' gap < {FLIP_GAP}"},
+        "sample_tokens": tokens[0, :8].tolist(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({f"serve_lm_{phase}": report}))
+    for dname, row in eager_vs_graph.items():
+        check(row["tokens_equal"], f"{phase} {dname}: greedy tokens with graphs differ from the eager run's")
+        check(row["kept_logits_bitwise"], f"{phase} {dname}: kept logits with graphs differ from the eager run's")
+    for (name, dname), (calls, ratio, _) in served.items():
+        want = n_layers * LM_CHECK_STEPS if name == "flash_decode" else n_ssd
+        check(calls == want, f"{phase} {dname}: {name} parity saw {calls} calls, want {want}")
+        check(ratio <= 1.0, f"{phase} {dname}: {name} on served activations exceeds its bar ({ratio:.3g})")
+    check(repeatable, f"{phase}: the checked op-by-op runs' logits differ from the served runs'")
+    f32 = e2e["float32"]
+    check(f32["worst_err_over_tol"] <= 1.0, f"{phase}: float32 kernel route differs from the plain route "
+                                            f"(err/tol {f32['worst_err_over_tol']:.3g})")
+    check(f32["rows_gated"] * 2 >= f32["rows_compared"], f"{phase}: routing flips left too few rows to compare")
+    check(f32.get("max_primary_gap") is None or f32["max_primary_gap"] < FLIP_GAP,
+          f"{phase}: a float32 routing flip off a near-tie: {f32.get('primary_flips', [])[:3]}")
+    result = {"launches": {"flash_decode": sum(c["flash_decode"] for c in decode_counts),
+                           "ssd": prefill_counts["ssd"]},
+              "max_abs_err": {name: max(served[(name, d)][2] for d in ("bfloat16", "float32"))
+                              for name in LM_KERNELS},
+              "max_len": out["max_len"]}
+    del model, out, prompt, stream, shape, head, picked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
 def device_busy(prof, wall_s):
@@ -2758,6 +2988,16 @@ def main() -> int:
     # ------------- 6. the transformer slice: B5, B6 and Hymba-1.5B served
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)
     mark("6")
+
+    # ------------- 6e, 6f. SmolLM-360M and OLMoE-1B-7B served through B5
+    fd_row = lm_kernels[0]
+    for phase, arch in DENSE_LMS:
+        lm = lm_phase(torch, dev, phase, arch, bytes_peak)
+        n = lm["launches"]["flash_decode"]
+        fd_row["launches"] += n
+        fd_row["launches_by_path"][f"{phase} {arch}"] = n
+        fd_row["max_abs_err"] = max(fd_row["max_abs_err"], lm["max_abs_err"]["flash_decode"])
+        mark(phase)
 
     # ------------------------------------------------ 7. kernels line
     kernels = []

@@ -1,22 +1,25 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
 
 Port of ``repro/launch/serve.py``: random weights from a seed, a random
 prompt batch, one prefill that fills the caches, then ``--gen`` greedy
 decode steps (the first one re-feeds the prompt's last token, as the
-reference does).  On the card the prefill runs the SSD kernel (B6) in
-every layer and each decode step the flash-decode kernel (B5) in every
-layer.  The prefill runs op by op; the decode loop runs its first step
-op by op, captures one step as a CUDA graph and replays it for the rest
+reference does).  On the card each decode step runs the flash-decode
+kernel (B5) in every layer, and Hymba's prefill the SSD kernel (B6) in
+every layer; a dense or MoE prefill launches no hand-written kernel (its
+attention is the plain blockwise form, as the reference's).  The
+prefill runs op by op; the decode loop runs its first step op by op,
+captures one step as a CUDA graph and replays it for the rest
 (``launch/steps.py::GraphedServeStep``; ``generate(..., graphs=False)``
 runs every step op by op).  Times are CUDA-event times taken after a
-device sync.  With
-``--device cpu`` the kernels' plain versions run and the times are host
-clock times of the CPU, not of any device.  Only ``block_kind="hymba"``
-runs; other architectures raise ``NotImplementedError``.
+device sync.  With ``--device cpu`` the kernels' plain versions run and the times are host
+clock times of the CPU, not of any device.  The dense, MoE and Hymba
+blocks run; xLSTM, the int8 KV cache, the vision prefix and the
+codebook head raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 from ..configs import get_config
 from ..kernels.config import resolve_device
 from ..models import ModelConfig, init_cache, init_params
-from ..models.model import N_META_TOKENS, check_supported
+from ..models.model import check_supported, prefix_tokens
 from .steps import make_eager_serve_step, make_prefill_step, make_serve_step
 
 
@@ -97,7 +100,7 @@ def generate(
     first step and the capture)."""
     dev = prompt.device
     b, s = prompt.shape
-    extra = N_META_TOKENS
+    extra = prefix_tokens(cfg)
     caches = init_cache(cfg, b, max_len=s + extra + gen, device=dev)
     prefill_step = make_prefill_step(cfg, backend)
     step = (make_serve_step if graphs else make_eager_serve_step)(cfg, backend)
@@ -164,8 +167,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     )
     out = generate(cfg, params, prompt, args.gen)
     clock = "CUDA events" if out["timer"] == "cuda_events" else "host clock, CPU"
-    print(f"prefill: {args.batch}x{args.prompt_len} (+{N_META_TOKENS} meta tokens) "
-          f"in {out['prefill_ms']:.3f} ms ({clock})")
+    extra = prefix_tokens(cfg)
+    meta = f" (+{extra} meta tokens)" if extra else ""
+    print(f"prefill: {args.batch}x{args.prompt_len}{meta} in {out['prefill_ms']:.3f} ms ({clock})")
     print(f"decode: {args.gen} steps x batch {args.batch} = {args.gen * args.batch} tokens "
           f"in {out['decode_ms']:.3f} ms -> {out['decode_tok_per_s']:,.1f} tok/s ({clock})")
     print("sample token ids:", out["tokens"][0, :8].tolist())

@@ -1,5 +1,6 @@
-"""Transformer substrate, as far as the port runs it: Hymba (parallel
-attention + Mamba heads) served by prefill and greedy decode."""
+"""Transformer substrate, as far as the port runs it: dense, MoE and
+Hymba (parallel attention + Mamba heads) blocks, served by prefill and
+greedy decode."""
 from .config import ModelConfig
 from .model import (
     CausalLM,
@@ -9,19 +10,25 @@ from .model import (
     init_params,
     layer_groups,
     prefill,
+    prefix_tokens,
     serve_step,
 )
+from .moe import MoE, moe_local, router
 from .params import params_from_numpy
 
 __all__ = [
     "CausalLM",
+    "MoE",
     "ModelConfig",
     "abstract_params",
     "forward",
     "init_cache",
     "init_params",
     "layer_groups",
+    "moe_local",
     "params_from_numpy",
     "prefill",
+    "prefix_tokens",
+    "router",
     "serve_step",
 ]

@@ -1,20 +1,21 @@
 """Transformer blocks: norms, FFN, GQA attention with a ring-buffer KV
-cache, and the Hymba block (attention heads and Mamba heads in parallel).
+cache, the dense block (optionally MoE) and the Hymba block (attention
+heads and Mamba heads in parallel).
 
-Port of ``repro/models/blocks.py`` as far as Hymba needs it.  Parameters
-are ``nn.Module``s whose attribute names are the reference's dict keys;
-the block bodies are plain functions on them, as in the reference.  A
-block's cache is a dict of per-layer views into the group's cache
-(``models/model.py::init_cache``), which the block updates in place: the
-reference returns new caches instead, and writing in place keeps one
-copy of the cache on the card.
+Port of ``repro/models/blocks.py`` for the dense, MoE and Hymba blocks.
+Parameters are ``nn.Module``s whose attribute names are the reference's
+dict keys; the block bodies are plain functions on them, as in the
+reference.  A block's cache is a dict of per-layer views into the
+group's cache (``models/model.py::init_cache``), which the block updates
+in place: the reference returns new caches instead, and writing in place
+keeps one copy of the cache on the card.
 
 ``mode`` is ``"train"`` (no cache: the forward alone, the port has no
 backward), ``"prefill"`` (fill the cache) or ``"decode"`` (one step
 against it).  ``backend`` reaches the kernels through ``kernels/ops.py``:
 ``None`` launches them for CUDA tensors, ``"torch"`` takes their plain
-versions.  Dense, MoE and xLSTM blocks and the int8 KV cache are not
-ported yet.
+versions.  The xLSTM blocks and the int8 KV cache are not ported yet;
+the MoE block runs the reference's local path (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from torch import nn
 from ..kernels import ops
 from .attention import blockwise_attention, rope
 from .config import ModelConfig
+from .moe import MoE, init_moe_params, moe_local
 from .ssm import Mamba, init_mamba_params, mamba_mix
 
 
@@ -90,7 +92,7 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p.w1
     if p.b1 is not None:
         h = h + p.b1
-    a = F.silu(h) if cfg.act == "silu" else F.gelu(h)
+    a = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     if p.w3 is not None:
         a = a * (x @ p.w3)
     y = a @ p.w2
@@ -196,6 +198,69 @@ def attention_sublayer(cfg: ModelConfig, p: Attention, x: torch.Tensor, cache, m
     if p.bo is not None:
         out = out + p.bo
     return out
+
+
+# ------------------------------------------------------------ dense block
+class DenseBlock(nn.Module):
+    """A pre-norm attention block with an FFN, or with routed experts
+    (``moe``) and, where the config has them, shared experts: one FFN of
+    width ``d_ff * n_shared_experts``.  ``parallel_residual`` (Command R)
+    has no ``ln2``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, moe: bool):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln2 = None if cfg.parallel_residual else Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.moe = self.shared = self.ffn = None
+        if moe:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, dtype, device, cfg.glu)
+            if cfg.n_shared_experts:
+                self.shared = FFN(cfg.d_model, cfg.d_ff * cfg.n_shared_experts, cfg, dtype, device)
+        else:
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg, dtype, device)
+
+
+def init_dense_block(p: DenseBlock, gen: torch.Generator) -> None:
+    for norm in (p.ln1, p.ln2):
+        if norm is not None:
+            init_norm(norm)
+    init_attention(p.attn, gen)
+    if p.moe is not None:
+        init_moe_params(p.moe, gen)
+    for ffn in (p.shared, p.ffn):
+        if ffn is not None:
+            init_ffn(ffn, gen)
+
+
+def _mlp(cfg: ModelConfig, p: DenseBlock, h: torch.Tensor):
+    """The block's FFN, or its experts plus the shared ones: (out, aux)."""
+    if p.moe is None:
+        return ffn_apply(p.ffn, h, cfg), h.new_zeros((), dtype=torch.float32)
+    # the reference's moe_apply on one device: its local path
+    out, aux = moe_local(
+        p.moe, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        act=cfg.act, glu=cfg.glu, renorm=cfg.renorm_topk,
+    )
+    if p.shared is not None:
+        out = out + ffn_apply(p.shared, h, cfg)
+    return out, aux
+
+
+def dense_block_apply(cfg: ModelConfig, p: DenseBlock, x: torch.Tensor, cache, mode: str,
+                      positions: torch.Tensor, window: int, backend: Optional[str] = None):
+    """One dense or MoE block: returns (x, aux).  ``cache`` (this layer's
+    ``{"k", "v", "pos"}``, or None) is updated in place.  The reference's
+    prefix-LM length is 0 without the vision prefix, which is not
+    ported."""
+    h = norm_apply(p.ln1, x, cfg.norm, cfg.norm_eps)
+    attn_out = attention_sublayer(cfg, p.attn, h, cache, mode, positions, window, 0, backend)
+    if cfg.parallel_residual:
+        m_out, aux = _mlp(cfg, p, h)
+        return x + attn_out + m_out, aux
+    x = x + attn_out
+    m_out, aux = _mlp(cfg, p, norm_apply(p.ln2, x, cfg.norm, cfg.norm_eps))
+    return x + m_out, aux
 
 
 # ------------------------------------------------------------ hymba block

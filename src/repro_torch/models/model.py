@@ -1,8 +1,10 @@
 """CausalLM assembly: embeddings -> layer groups -> final norm -> head.
 
-Port of ``repro/models/model.py`` for the blocks ported so far (Hymba).
-A model is a sequence of *layer groups*, each a homogeneous run of blocks
-(Hymba's are grouped by attention window).  The reference stacks a
+Port of ``repro/models/model.py`` for the blocks ported so far: dense,
+MoE and Hymba.  A model is a sequence of *layer groups*, each a
+homogeneous run of blocks (a dense model is one group; DeepSeek's leading
+dense layers are a group before its MoE group; Hymba's are grouped by
+attention window).  The reference stacks a
 group's parameters and ``lax.scan``s over them; here each layer is its own
 module and a Python loop walks them.  The parameters are held in
 ``param_dtype`` (f32); the blocks run on a copy in ``compute_dtype``
@@ -17,6 +19,7 @@ and a host without one raises) and random weights come from a
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -24,51 +27,83 @@ import torch
 from torch import nn
 
 from ..kernels.config import DeviceLike, resolve_device
-from .blocks import HymbaBlock, Norm, hymba_block_apply, init_hymba_block, init_norm, norm_apply
+from .blocks import (
+    DenseBlock,
+    HymbaBlock,
+    Norm,
+    dense_block_apply,
+    hymba_block_apply,
+    init_dense_block,
+    init_hymba_block,
+    init_norm,
+    norm_apply,
+)
 from .config import ModelConfig
 from .ssm import HEAD_P
 
 N_META_TOKENS = 128  # hymba learnable meta tokens
 Position = Union[int, torch.Tensor]  # an int, or a 0-d int32 tensor on the device
 NOT_PORTED = "ROADMAP.md queue 1 item 13"
+BLOCK_KINDS = ("dense", "moe", "hymba")  # the ported block kinds
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    kind: str  # hymba (dense | moe | mlstm | slstm in the reference)
+    kind: str  # dense | moe | hymba (mlstm | slstm in the reference)
     n: int
     window: int = 0  # 0 = full attention
     layer_offset: int = 0  # index of first layer in the whole model
 
 
 def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
-    """Hymba's groups: runs of layers with the same attention window (the
-    full-attention layers apart).  The other block kinds' grouping comes
-    with their blocks."""
+    """The reference's groups: Hymba's runs of layers with the same
+    attention window (the full-attention layers apart); a MoE model's
+    leading dense layers, then its MoE layers; one group of a dense
+    model.  A dense or MoE group's window is ``cfg.sliding_window``."""
     check_supported(cfg)
-    full = set(cfg.full_attn_layers)
-    groups = []
-    start = 0
-    for i in range(1, cfg.n_layers + 1):
-        boundary = i == cfg.n_layers or ((i in full) != (start in full))
-        if boundary:
-            win = 0 if start in full else cfg.sliding_window
-            groups.append(GroupSpec("hymba", i - start, window=win, layer_offset=start))
-            start = i
-    return groups
+    if cfg.block_kind == "hymba":
+        full = set(cfg.full_attn_layers)
+        groups = []
+        start = 0
+        for i in range(1, cfg.n_layers + 1):
+            boundary = i == cfg.n_layers or ((i in full) != (start in full))
+            if boundary:
+                win = 0 if start in full else cfg.sliding_window
+                groups.append(GroupSpec("hymba", i - start, window=win, layer_offset=start))
+                start = i
+        return groups
+    if cfg.block_kind == "moe":
+        groups = []
+        if cfg.first_dense_layers:
+            groups.append(GroupSpec("dense", cfg.first_dense_layers, window=cfg.sliding_window))
+        groups.append(
+            GroupSpec(
+                "moe", cfg.n_layers - cfg.first_dense_layers,
+                window=cfg.sliding_window, layer_offset=cfg.first_dense_layers,
+            )
+        )
+        return groups
+    return [GroupSpec("dense", cfg.n_layers, window=cfg.sliding_window)]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.block_kind != "hymba":
+    if cfg.block_kind not in BLOCK_KINDS:
         raise NotImplementedError(
             f"{cfg.name}: block_kind {cfg.block_kind!r} is not ported yet ({NOT_PORTED}); "
-            "only 'hymba' runs"
+            f"{', '.join(repr(k) for k in BLOCK_KINDS)} run"
         )
     for field, what in (("kv_quant", "the int8 KV cache"), ("n_patches", "the vision prefix"),
                         ("n_codebooks", "the multi-codebook audio head")):
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {field} ({what}) is not ported yet ({NOT_PORTED})")
+
+
+def prefix_tokens(cfg: ModelConfig) -> int:
+    """Positions the prefill puts before the prompt: Hymba's meta tokens,
+    none for the other ported blocks (the reference launcher's ``extra``
+    without the vision prefix, which is not ported)."""
+    return N_META_TOKENS if cfg.block_kind == "hymba" else 0
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -78,8 +113,8 @@ def _dtype(name: str) -> torch.dtype:
 # ------------------------------------------------------------------ model
 class CausalLM(nn.Module):
     """The parameters, named as the reference's pytree: ``embed``,
-    ``meta_tokens``, ``groups.{g}.{i}.<block keys>`` (layer ``i`` of group
-    ``g``; the reference stacks it as ``groups[g][...][i]``),
+    ``meta_tokens`` (Hymba only), ``groups.{g}.{i}.<block keys>`` (layer
+    ``i`` of group ``g``; the reference stacks it as ``groups[g][...][i]``),
     ``final_norm``, ``lm_head``."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
@@ -89,11 +124,14 @@ class CausalLM(nn.Module):
         dt = _dtype(cfg.param_dtype)
         kw = dict(dtype=dt, device=device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw), requires_grad=False)
-        self.meta_tokens = nn.Parameter(
-            torch.empty(N_META_TOKENS, cfg.d_model, **kw), requires_grad=False
+        self.register_parameter(
+            "meta_tokens",
+            nn.Parameter(torch.empty(N_META_TOKENS, cfg.d_model, **kw), requires_grad=False)
+            if prefix_tokens(cfg) else None,
         )
         self.groups = nn.ModuleList(
-            nn.ModuleList(HymbaBlock(cfg, dt, device) for _ in range(spec.n))
+            nn.ModuleList(HymbaBlock(cfg, dt, device) if spec.kind == "hymba"
+                          else DenseBlock(cfg, dt, device, moe=spec.kind == "moe") for _ in range(spec.n))
             for spec in layer_groups(cfg)
         )
         self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
@@ -103,26 +141,21 @@ class CausalLM(nn.Module):
                 torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False
             ),
         )
-        self._compute: Dict[torch.dtype, List[List[HymbaBlock]]] = {}
+        self._compute: Dict[torch.dtype, List[List[nn.Module]]] = {}
 
-    def compute_blocks(self, dtype: torch.dtype) -> List[List[HymbaBlock]]:
+    def compute_blocks(self, dtype: torch.dtype) -> List[List[nn.Module]]:
         """The blocks in ``dtype`` (the config's ``compute_dtype``), copied
         from the parameters at first use, or the parameter modules
-        themselves when the dtypes agree.  Weights changed after the first
-        forward are not seen: the port only serves."""
+        themselves when the dtypes agree.  Every floating parameter is
+        cast, a MoE router too, as the reference's per-block ``astype``.
+        Weights changed after the first forward are not seen: the port
+        only serves."""
         if dtype not in self._compute:
-            groups = []
-            for grp in self.groups:
-                blocks = []
-                for blk in grp:
-                    if blk.ln1.scale.dtype == dtype:
-                        blocks.append(blk)
-                        continue
-                    cast = HymbaBlock(self.cfg, dtype, blk.ln1.scale.device)
-                    cast.load_state_dict(blk.state_dict())  # copies, casting to dtype
-                    blocks.append(cast)
-                groups.append(blocks)
-            self._compute[dtype] = groups
+            self._compute[dtype] = [
+                [blk if all(p.dtype == dtype for p in blk.parameters())
+                 else copy.deepcopy(blk).to(dtype) for blk in grp]
+                for grp in self.groups
+            ]
         return self._compute[dtype]
 
 
@@ -130,10 +163,11 @@ class CausalLM(nn.Module):
 def _init_weights(model: CausalLM, gen: torch.Generator) -> None:
     cfg = model.cfg
     model.embed.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
-    model.meta_tokens.normal_(0.0, 0.02, generator=gen)
+    if model.meta_tokens is not None:
+        model.meta_tokens.normal_(0.0, 0.02, generator=gen)
     for grp in model.groups:
         for blk in grp:
-            init_hymba_block(blk, gen)
+            (init_hymba_block if isinstance(blk, HymbaBlock) else init_dense_block)(blk, gen)
     init_norm(model.final_norm)
     if model.lm_head is not None:
         model.lm_head.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
@@ -157,10 +191,12 @@ def abstract_params(cfg: ModelConfig) -> CausalLM:
 # ------------------------------------------------------------------ caches
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None) -> List[Any]:
     """Per-group decode caches, as the reference lays them out (layer
-    first): ``{"attn": {"k", "v": [n, B, W, Hkv, dh], "pos": [n, W]},
-    "ssm": (conv [n, B, K-1, dI], h [n, B, H, N, 64] f32)}``.  W is
-    ``max_len`` on full-attention layers and ``min(max_len, window)`` on
-    window layers.  max_len includes the meta tokens."""
+    first).  A dense or MoE group's is the attention cache itself, ``{"k",
+    "v": [n, B, W, Hkv, dh], "pos": [n, W]}``; a Hymba group's is
+    ``{"attn": <the same>, "ssm": (conv [n, B, K-1, dI], h [n, B, H, N,
+    64] f32)}``.  W is ``max_len`` on full-attention layers and
+    ``min(max_len, window)`` on window layers.  max_len includes Hymba's
+    meta tokens."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg.compute_dtype)
@@ -168,13 +204,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = 
     caches: List[Any] = []
     for spec in layer_groups(cfg):
         w = min(max_len, spec.window) if spec.window else max_len
+        attn = {
+            "k": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
+            "v": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
+            "pos": torch.full((spec.n, w), -1, dtype=torch.int32, device=dev),
+        }
+        if spec.kind != "hymba":
+            caches.append(attn)
+            continue
         nh = cfg.d_inner // HEAD_P
         caches.append({
-            "attn": {
-                "k": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
-                "v": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
-                "pos": torch.full((spec.n, w), -1, dtype=torch.int32, device=dev),
-            },
+            "attn": attn,
             "ssm": (
                 torch.zeros((spec.n, batch, cfg.conv_kernel - 1, cfg.d_inner), dtype=dt, device=dev),
                 torch.zeros((spec.n, batch, nh, cfg.ssm_state, HEAD_P), dtype=torch.float32, device=dev),
@@ -183,12 +223,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = 
     return caches
 
 
-def _layer_cache(cache: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s views into a group's cache."""
-    return {
-        "attn": {key: t[i] for key, t in cache["attn"].items()},
-        "ssm": tuple(t[i] for t in cache["ssm"]),
-    }
+def _layer_cache(cache: Any, i: int) -> Any:
+    """Layer ``i``'s views into a group's cache (dicts and tuples of
+    ``[n, ...]`` tensors)."""
+    if isinstance(cache, dict):
+        return {key: _layer_cache(t, i) for key, t in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(_layer_cache(t, i) for t in cache)
+    return cache[i]
 
 
 # ----------------------------------------------------------------- forward
@@ -197,17 +239,20 @@ def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cac
     cdt = _dtype(cfg.compute_dtype)
     for i, blk in enumerate(blocks):
         c = None if cache is None else _layer_cache(cache, i)
-        x = hymba_block_apply(
-            cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend
-        ).to(cdt)
+        if spec.kind == "hymba":
+            x = hymba_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
+        else:  # the MoE aux loss is for training, which the port does not run yet
+            x, _ = dense_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
+        x = x.to(cdt)
     return x
 
 
 def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
                  start_pos: Position = 0, mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Assemble the input sequence.  Returns (x [B,S',D], positions [S']
-    int32 on x's device, n_prefix_tokens); in decode mode the meta tokens
-    are skipped (they live in the cache from prefill).  ``start_pos`` is
+    int32 on x's device, n_prefix_tokens); Hymba's meta tokens lead the
+    sequence outside decode mode (in decode they live in the cache from
+    prefill).  ``start_pos`` is
     an int or a 0-d int32 tensor on the device, whose value is never read
     on the host.  The reference's prefix-LM length is 0 without the vision
     prefix, which is not ported."""
@@ -215,7 +260,7 @@ def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tens
     dt = _dtype(cfg.compute_dtype)
     x = params.embed[tokens].to(dt)
     n_prefix = 0
-    if mode != "decode":
+    if mode != "decode" and prefix_tokens(cfg):
         b = tokens.shape[0]
         meta = params.meta_tokens[None].to(dt).expand(b, N_META_TOKENS, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
@@ -234,8 +279,8 @@ def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tens
 def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
             caches: Optional[List[Any]] = None, mode: str = "train", start_pos: Position = 0,
             backend: Optional[str] = None) -> torch.Tensor:
-    """Hidden states [B,S,D] after the final norm (meta tokens dropped
-    outside decode).  With ``mode`` "prefill" or "decode" the caches are
+    """Hidden states [B,S,D] after the final norm (Hymba's meta tokens
+    dropped outside decode).  With ``mode`` "prefill" or "decode" the caches are
     updated in place; ``start_pos`` is the position of the first token (an
     int, or a 0-d int32 tensor on the device)."""
     if mode not in ("train", "prefill", "decode"):

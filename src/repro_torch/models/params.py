@@ -6,7 +6,12 @@ converted to numpy by the caller (``jax.tree.map(np.asarray, params)``),
 and load it into the port's modules here.  Layouts are the same
 (``[d, h, dh]`` projections, ``[in, out]`` matrices), so nothing is
 transposed; the reference stacks each layer group's parameters ``[n,
-...]``, and layer ``i`` of group ``g`` is ``groups.{g}.{i}`` here.
+...]``, and layer ``i`` of group ``g`` is ``groups.{g}.{i}`` here (a MoE
+layer's expert stacks ``[n, E, D, F]`` become ``[E, D, F]``).  Each
+value takes the port's parameter's dtype: a MoE router stays f32, as in
+the reference; the blocks' copy in the compute dtype
+(``CausalLM.compute_blocks``) rounds it, as the reference's per-block
+cast does.
 """
 from __future__ import annotations
 

@@ -894,6 +894,68 @@ def test_generate_with_graphs_gives_the_eager_tokens(cuda, dtype):
     assert per_step[1:] == [("decode", 2, 0 if i == 0 else 1) for i in range(6)]
 
 
+# B5 at the dense and MoE decode shapes (B, Hkv, G, D, W): SmolLM-360M's
+# and OLMoE-1B-7B's served steps (768 + 128 slots), and StarCoder2-15B's
+# (G = 12 > 8 query rows a block: two blocks per KV head) on its
+# 4096-slot window ring, which has wrapped: every slot valid, length W
+LM_FD_SHAPES = [(4, 5, 3, 64, 896), (4, 16, 1, 128, 896), (4, 4, 12, 128, 4096)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", LM_FD_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_at_the_dense_and_moe_decode_shapes(cuda, case, dtype):
+    b, hkv, g, d, w = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(w + g)
+    q = _on(cuda, rng, b, hkv, g, d, scale=0.5).to(dt)
+    k, v = _on(cuda, rng, b, w, hkv, d, scale=0.5).to(dt), _on(cuda, rng, b, w, hkv, d).to(dt)
+    lengths = [w] if w == 4096 else [1, 769, FD.split_len(w, d) + 1, w]
+    for length in lengths:
+        y = ops.flash_decode(q, k, v, length)
+        if dtype == "float32":
+            ref = FD.flash_decode_ref(q, k, v, length)
+            np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4, atol=2e-4)
+        else:
+            r32 = FD.flash_decode_ref(q.float(), k.float(), v.float(), length)
+            assert bool(((y.float() - r32).abs() <= _bf16_ulp(r32)).all()), length
+        dev_len = torch.tensor([length], dtype=torch.int32, device=cuda)
+        assert torch.equal(ops.flash_decode(q, k, v, dev_len), y)
+        y1 = ops.flash_decode(q[1:2].contiguous(), k[1:2].contiguous(), v[1:2].contiguous(), dev_len)
+        assert torch.equal(y1, y[1:2])
+    # a wrapped ring's position is past W: the device length clamps to W
+    past = torch.tensor([w + 904], dtype=torch.int32, device=cuda)
+    assert torch.equal(ops.flash_decode(q, k, v, past), ops.flash_decode(q, k, v, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "smollm-360m"])
+def test_reduced_dense_and_moe_decode_replayed_bitwise_equal_eager(cuda, arch, dtype):
+    """A reduced OLMoE (the MoE step: routing, fixed-capacity buffers and
+    the combine, all on the device) and SmolLM decoded with one captured
+    step replayed give the eager run's tokens and logits bit for bit; the
+    prefill launches no counted kernel, each step 2 flash-decode launches,
+    and every step after the first one graph launch."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype=dtype)
+    model = init_params(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    per_step = []
+
+    def hook(phase, i):
+        per_step.append((phase, sum(K.launch_counts().values()), K.launch_counts()["flash_decode"],
+                         runtime.graph_launches()))
+        K.reset_launches()
+
+    eager = generate(cfg, model, prompt, 6, keep_logits=6, graphs=False)
+    K.reset_launches()
+    graphed = generate(cfg, model, prompt, 6, keep_logits=6, step_hook=hook)
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    for a, b in zip(graphed["logits"], eager["logits"]):
+        assert torch.equal(a, b)
+    assert per_step[0] == ("prefill", 0, 0, 0)
+    assert per_step[1:] == [("decode", 2, 2, 0 if i == 0 else 1) for i in range(6)]
+
+
 # ------------------------------------------------ the autotuner on the card
 # B1's tile variants sum every output in one order, so the tuner picks by
 # time alone: every pick is held bitwise to the heuristic (-1).

@@ -1,8 +1,9 @@
 """The port's serving launcher, ``python -m repro_torch.launch.serve``.
 
 On the CPU it runs a reduced Hymba through its kernels' plain versions
-(``--device cpu``); without ``--device`` it means the card and raises on
-a host without one; architectures whose blocks are not ported raise
+(``--device cpu``; the dense and MoE models in tests/test_torch_dense.py);
+without ``--device`` it means the card and raises on a host without one;
+architectures whose blocks or features are not ported raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ def test_cli_without_device_means_the_card():
         S.main(["--arch", "hymba-1.5b", "--reduced", "--gen", "1"])
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b", "xlstm-1.3b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "command-r-plus-104b", "xlstm-1.3b", "musicgen-large"])
 def test_cli_refuses_unported_architectures(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.main(["--arch", arch, "--reduced", "--device", "cpu", "--gen", "1"])

@@ -1,4 +1,6 @@
-"""The port's transformer substrate (Hymba) against the JAX package's.
+"""The port's transformer substrate against the JAX package's: the
+configs and parameter shapes of every ported architecture (dense, MoE and
+Hymba blocks), the shared modules, and Hymba.
 
 Both packages get the same configuration and the reference's weights
 (``params_from_numpy``), and their inputs are made with numpy from a seed.
@@ -8,6 +10,8 @@ and tests/test_torch_ssd.py), so these tests hold the algorithm: configs,
 parameter shapes, RoPE, the blockwise prefill attention, the Mamba head,
 one Hymba block, and prefill + greedy decode of a reduced Hymba with GQA
 (G = 2), a prompt that is no chunk multiple, and a prompt past the window.
+The dense and MoE blocks and models are held in tests/test_torch_dense.py
+and tests/test_torch_moe.py.
 
 Tolerances, in f32: ``1e-5`` for one module (the same f32 operations in
 another order), ``1e-4`` for the whole model's hidden states and logits.
@@ -97,12 +101,20 @@ def test_configs_equal_the_reference_field_by_field():
         assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(ref.reduced()), arch
 
 
+# every architecture whose blocks are ported; the int8 KV cache is not,
+# so configs with kv_quant take kv_quant=False (it adds no parameter)
+PORTED = ["smollm-360m", "starcoder2-15b", "command-r-plus-104b", "deepseek-moe-16b",
+          "moonshot-v1-16b-a3b", "olmoe-1b-7b", "hymba-1.5b"]
+
+
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
-def test_parameter_shapes_equal_the_reference(reduced):
-    cfg = get_config("hymba-1.5b")
-    cfg = cfg.reduced() if reduced else cfg
-    ref_tree = ref_abstract_params(ref_get_config("hymba-1.5b").reduced() if reduced
-                                   else ref_get_config("hymba-1.5b"))
+@pytest.mark.parametrize("arch", PORTED)
+def test_parameter_shapes_equal_the_reference(arch, reduced):
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    if reduced:
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    cfg, rcfg = (dataclasses.replace(c, kv_quant=False) for c in (cfg, rcfg))
+    ref_tree = ref_abstract_params(rcfg)
     mine = abstract_params(cfg)  # the meta device: no storage
     n_ref = len(jax.tree.leaves(ref_tree))
     names = dict(mine.named_parameters())
@@ -134,7 +146,9 @@ def test_init_params_is_seeded():
     assert abs(float(a.embed.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b", "xlstm-1.3b", "paligemma-3b"])
+# xLSTM's blocks; PaliGemma's vision prefix, MusicGen's codebook head and
+# Command R+'s int8 KV cache
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "paligemma-3b", "musicgen-large", "command-r-plus-104b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(get_config(arch).reduced())
