@@ -159,19 +159,26 @@ Phases (any failure exits non-zero):
    777 (most splits empty), batch 4 with 5 KV heads, and at the shapes of
    6e and 6f (Hkv 5, G 3, D 64 and Hkv 16, G 1, D 128, 896 slots) and
    StarCoder2-15B's decode step (Hkv 4, G 12, D 128 on a 4096-slot window
-   ring that has wrapped), f32 and bf16; a row
+   ring that has wrapped), at 6g's (Hkv 1, G 8, D 256, 1152 slots) and on
+   6h's int8 cache (Hkv 32, G 1, D 64, 896 slots, f32 scales), f32 and
+   bf16; the int8 cache also bitwise against the kernel on the cache
+   dequantized into q's type; a row
    at batch 1, a second call and the length read on the device (as the
    captured decode step passes it; past S it clamps to S) must give the
    same bits; 6b the SSD scan
    (B6) at Hymba's 50 heads
    of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
-   f32 and bf16; 6c, 6e and 6f (``lm_phase``, one body for the three
-   models) serve Hymba-1.5B (32 layers), SmolLM-360M (32 dense layers)
-   and OLMoE-1B-7B (16 MoE layers, 64 experts, top-8) at full width and
-   depth (random weights from seed 0, bf16 on f32 weights, after checking
+   f32 and bf16; 6c, 6e, 6f, 6g and 6h (``lm_phase``, one body for the
+   five models) serve Hymba-1.5B (32 layers), SmolLM-360M (32 dense
+   layers), OLMoE-1B-7B (16 MoE layers, 64 experts, top-8), PaliGemma-3B
+   (18 layers, MQA at head_dim 256, 256 random SigLIP-width image
+   features projected before the prompt and attended both ways) and
+   MusicGen-large (48 layers, four codebooks summed in and read out by
+   four heads, an int8 KV cache) at full width and depth (random weights from seed 0, bf16 on f32 weights, after checking
    that the f32 weights and their bf16 copy fit) through
    ``repro_torch.launch.serve.generate``, the CLI's own loop: batch 4, a
-   768-token prompt (896 with Hymba's meta tokens), 128 greedy steps, the
+   768-token prompt (896 with Hymba's meta tokens, 1024 with PaliGemma's
+   patches; 768 x 4 codebook tokens for MusicGen), 128 greedy steps, the
    first op by op and the rest replaying one captured step.  The launch
    counters must show one SSD launch a Hymba layer and no other launch in
    the prefill, exactly n_layers flash-decode launches and no other in
@@ -195,12 +202,13 @@ Phases (any failure exits non-zero):
    API calls a step).  Each model is freed before the next.  6d, between
    6c and 6e, times B5 (its length on the device, the int form beside it)
    at Hymba's served shape, at ``decode_32k``'s (batch 16, 32768 slots)
-   and at 6a's three new shapes, and B6 at the served prefill's (one
-   memset and one kernel launch a call), each beside its plain version,
-   its bound and, for B5, ``F.scaled_dot_product_attention`` with a
-   length mask;
+   and at 6a's served shapes of 6e-6h (6h's on its int8 cache), and B6
+   at the served prefill's (one memset and one kernel launch a call),
+   each beside its plain version, its bound and, for B5,
+   ``F.scaled_dot_product_attention`` with a length mask (on the int8
+   cache: the dequantize into bf16 and SDPA, SDPA alone beside it);
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
-   the five above and B5, B6; B5's launches summed over 6c, 6e and 6f,
+   the five above and B5, B6; B5's launches summed over 6c, 6e-6h,
    with its times at every shape 6d timed), then the ``{"ok": true,
    ...}`` line last.
 
@@ -336,6 +344,16 @@ LM_PROFILE_STEPS = 3  # decode steps traced for the busy/idle split
 LM_RTOL = LM_ATOL = 3e-2  # the reference's bar for lossy decode paths
 # phases 6e and 6f: the dense and MoE models, served by lm_phase() as 6c serves Hymba
 DENSE_LMS = (("6e", "smollm-360m"), ("6f", "olmoe-1b-7b"))
+# phases 6g and 6h: the model features, served by lm_phase() in the same way:
+# PaliGemma-3B (256 image patches before the prompt, MQA at head_dim 256)
+# and MusicGen-large (four codebooks, an int8 KV cache)
+FEATURE_LMS = (("6g", "paligemma-3b"), ("6h", "musicgen-large"))
+# B5's shapes on the feature models' decode steps (B, Hkv, G, D, W), served
+# as the others are (768 prompt tokens + 128 steps, PaliGemma's 256 patches
+# before them): PaliGemma's MQA at D = 256, and MusicGen's 32 heads on its
+# int8 cache (q in f32 and bf16, the cache int8 with f32 scales)
+D256_FD_SHAPES = (("paligemma_served", 4, 1, 8, 256, 1152),)
+INT8_FD_SHAPES = (("musicgen_served_int8", 4, 32, 1, 64, 896),)
 # a float32 routing flip between the kernel and plain routes (inputs equal
 # to about 1e-6) may only sit where the plain route's k-th and (k+1)-th
 # router probabilities are closer than this
@@ -438,6 +456,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ops as OPS
+    from repro_torch.models.blocks import _quantize_kv
     from repro_torch.models.model import N_META_TOKENS
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -450,12 +469,13 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     # valid prefixes of 1, a ragged one and all slots, each side of the
     # first split boundary, and a 32768-slot cache with most splits empty;
     # a row at batch 1 and a repeated call must give the same bits
-    fd_cases, fd_worst = 0, {"float32": (0.0, ""), "bfloat16": (0.0, "")}
+    fd_cases, fd_int8_cases, fd_worst = 0, 0, {"float32": (0.0, ""), "bfloat16": (0.0, "")}
     fd_not_bitwise = []
-    # (label, B, Hkv, G, D, W, lengths): the grid at batch 4 with 5 KV
-    # heads, then the served shapes of 6e and 6f and StarCoder2's decode
-    # shape on a 4096-slot window ring that has wrapped (every slot valid,
-    # length W: a device length past W clamps to it)
+    # (label, B, Hkv, G, D, W, lengths, int8 cache): the grid at batch 4
+    # with 5 KV heads, then the served shapes of 6e and 6f and StarCoder2's
+    # decode shape on a 4096-slot window ring that has wrapped (every slot
+    # valid, length W: a device length past W clamps to it), then 6g's at
+    # D = 256 and 6h's on its int8 cache
     fd_shapes = []
     for g in (1, 5):
         for d in (64, 128):
@@ -463,50 +483,67 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                 split = FD.split_len(s_len, d)
                 lengths = {1, 777} if s_len == 32768 else {
                     1, (2 * s_len) // 3 + 1, s_len, split - 1, split, split + 1}
-                fd_shapes.append(("grid", 4, 5, g, d, s_len, lengths))
-    for label, b, hkv, g, d, w in LM_FD_SHAPES:
+                fd_shapes.append(("grid", 4, 5, g, d, s_len, lengths, False))
+    for label, b, hkv, g, d, w in LM_FD_SHAPES + D256_FD_SHAPES + INT8_FD_SHAPES:
         split = FD.split_len(w, d)
         wrapped = label == "starcoder2_decode"
-        fd_shapes.append((label, b, hkv, g, d, w, {w} if wrapped else {1, LM_PROMPT + 1, split, split + 1, w}))
+        # the served steps' lengths: the first (after the prompt and
+        # PaliGemma's patches), each side of the first split, the last
+        served = LM_PROMPT + (256 if label == "paligemma_served" else 0) + 1
+        fd_shapes.append((label, b, hkv, g, d, w, {w} if wrapped else {1, served, split - 1, split, split + 1, w},
+                          (label, b, hkv, g, d, w) in INT8_FD_SHAPES))
+    fd_int8_not_dequant_bitwise = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for label, b, hkv, g, d, s_len, lengths in fd_shapes:
+        for label, b, hkv, g, d, s_len, lengths, quant in fd_shapes:
             split = FD.split_len(s_len, d)
             for length in sorted(n for n in lengths if 1 <= n <= s_len):
                 q = randn(b, hkv, g, d, scale=0.5, dtype=dtype)
                 k = randn(b, s_len, hkv, d, scale=0.5, dtype=dtype)
                 v = randn(b, s_len, hkv, d, dtype=dtype)
-                y = OPS.flash_decode(q, k, v, length)
-                where = f"{label} B{b} Hkv{hkv} G{g} D{d} S{s_len} split{split} len{length} {dname}"
+                sc, kd, vd = {}, k, v
+                if quant:  # int8 with its scales, and the cache dequantized into q's type
+                    (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+                    sc = {"k_scale": ks, "v_scale": vs}
+                    kd, vd = FD.dequantize(k, ks, dtype), FD.dequantize(v, vs, dtype)
+                y = OPS.flash_decode(q, k, v, length, **sc)
+                where = (f"{label} B{b} Hkv{hkv} G{g} D{d} S{s_len} split{split} len{length} {dname}"
+                         + (" int8 cache" if quant else ""))
                 r1 = b // 2
+                sc1 = {key: t[r1:r1 + 1].contiguous() for key, t in sc.items()}
                 y1 = OPS.flash_decode(q[r1:r1 + 1].contiguous(), k[r1:r1 + 1].contiguous(),
-                                      v[r1:r1 + 1].contiguous(), length)
-                if not (torch.equal(y1, y[r1:r1 + 1]) and torch.equal(OPS.flash_decode(q, k, v, length), y)):
+                                      v[r1:r1 + 1].contiguous(), length, **sc1)
+                if not (torch.equal(y1, y[r1:r1 + 1]) and torch.equal(OPS.flash_decode(q, k, v, length, **sc), y)):
                     fd_not_bitwise.append(where)
                 # the length read on the device, as a captured decode
                 # step passes it: the int form's bits at batch B and 1
                 dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
-                if not (torch.equal(OPS.flash_decode(q, k, v, dev_len), y) and torch.equal(
+                if not (torch.equal(OPS.flash_decode(q, k, v, dev_len, **sc), y) and torch.equal(
                         OPS.flash_decode(q[r1:r1 + 1].contiguous(), k[r1:r1 + 1].contiguous(),
-                                         v[r1:r1 + 1].contiguous(), dev_len), y1)):
+                                         v[r1:r1 + 1].contiguous(), dev_len, **sc1), y1)):
                     fd_not_bitwise.append(f"{where} device length")
+                # an int8 cache is dequantized as it is read, in the plain
+                # version's arithmetic: the kernel's bits on the dequantized cache
+                if quant and not torch.equal(OPS.flash_decode(q, kd, vd, length), y):
+                    fd_int8_not_dequant_bitwise.append(where)
                 if dtype == torch.float32:
-                    r = OPS.flash_decode(q, k, v, length, backend="torch")
+                    r = OPS.flash_decode(q, k, v, length, **sc, backend="torch")
                     ratio = float(((y - r).abs() / (FD_TOL + FD_TOL * r.abs())).max())
                 else:
-                    r = OPS.flash_decode(q.float(), k.float(), v.float(), length, backend="torch")
+                    r = OPS.flash_decode(q.float(), kd.float(), vd.float(), length, backend="torch")
                     ratio = float(((y.float() - r).abs() / bf16_ulp(torch, r)).max())
                 err["flash_decode"] = max(err["flash_decode"], float((y.float() - r).abs().max()))
                 check(bool(torch.isfinite(y).all()), f"flash_decode non-finite at {where}")
                 if ratio >= fd_worst[dname][0]:
                     fd_worst[dname] = (ratio, where)
                 fd_cases += 1
+                fd_int8_cases += quant
             # a device length past W is clamped to W, as the reference's
             # position mask would take every slot (a wrapped ring's position)
             past = torch.tensor([s_len + 5], dtype=torch.int32, device=dev)
-            if not torch.equal(OPS.flash_decode(q, k, v, past), OPS.flash_decode(q, k, v, s_len)):
+            if not torch.equal(OPS.flash_decode(q, k, v, past, **sc), OPS.flash_decode(q, k, v, s_len, **sc)):
                 fd_not_bitwise.append(f"{label} G{g} D{d} S{s_len} {dname} device length past W")
-            del q, k, v, y, y1, r
+            del q, k, v, kd, vd, y, y1, r, sc, sc1
 
     # ---------------------------- 6b. B6 against its plain version
     ssd_cases, ssd_worst = [], 0.0
@@ -538,8 +575,9 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     print(json.dumps({"correctness_lm_kernels": {
         "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
                          "worst_at": {k: v[1] for k, v in fd_worst.items()},
-                         "device_length_cases": fd_cases,
+                         "device_length_cases": fd_cases, "int8_cache_cases": fd_int8_cases,
                          "batch1_repeat_or_device_length_not_bitwise": fd_not_bitwise,
+                         "int8_not_bitwise_equal_dequantized": fd_int8_not_dequant_bitwise,
                          "tolerance": {"float32": f"|y-r| <= {FD_TOL} + {FD_TOL}*|r|",
                                        "bfloat16": "|y - r_f32| <= 1 bf16 ulp of r_f32 (no finer than at 2^-8 max|r_f32|)"}},
         "ssd": {"cases": ssd_cases, "tolerance": {"float32": f"rtol=atol={FD_TOL}",
@@ -549,6 +587,9 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
     check(not fd_not_bitwise, f"flash_decode rows differ at batch 1, between calls or with a device length "
                               f"at {fd_not_bitwise[:3]}")
+    check(fd_int8_cases > 0 and not fd_int8_not_dequant_bitwise,
+          f"flash_decode on an int8 cache differs from itself on the dequantized cache at "
+          f"{fd_int8_not_dequant_bitwise[:3]}")
     check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
 
@@ -576,34 +617,51 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
 
     hkv, g, d = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
     n32k = SHAPES["decode_32k"].seq_len
-    fd_timed = [("served", LM_BATCH, hkv, g, d, lm["max_len"], lm["max_len"]),
-                ("decode_32k", 16, hkv, g, d, n32k, n32k)]
-    fd_timed += [(label, b_, hkv_, g_, d_, w_, w_) for label, b_, hkv_, g_, d_, w_ in LM_FD_SHAPES]
-    for label, b, hkv, g, d, w, length in fd_timed:
+    # (label, B, Hkv, G, D, W, length, int8 cache)
+    fd_timed = [("served", LM_BATCH, hkv, g, d, lm["max_len"], lm["max_len"], False),
+                ("decode_32k", 16, hkv, g, d, n32k, n32k, False)]
+    fd_timed += [(label, b_, hkv_, g_, d_, w_, w_, False) for label, b_, hkv_, g_, d_, w_ in LM_FD_SHAPES]
+    fd_timed += [(label, b_, hkv_, g_, d_, w_, w_, False) for label, b_, hkv_, g_, d_, w_ in D256_FD_SHAPES]
+    fd_timed += [(label, b_, hkv_, g_, d_, w_, w_, True) for label, b_, hkv_, g_, d_, w_ in INT8_FD_SHAPES]
+    for label, b, hkv, g, d, w, length, quant in fd_timed:
         q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
         k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
         v = randn(b, w, hkv, d, dtype=torch.bfloat16)
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, W, D] views
+        sc, kv_bytes, extra = {}, 2.0 * 2 * b * length * hkv * d, {}
+        if quant:  # int8 values and an f32 scale a (slot, head); the library dequantizes first
+            (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+            sc = {"k_scale": ks, "v_scale": vs}
+            kv_bytes = 2.0 * b * length * hkv * (d + 4)
+            extra = {"library": "FD.dequantize of K and V into bf16, then F.scaled_dot_product_attention",
+                     "library_sdpa_alone_ms": None}
+        kt = lambda: (FD.dequantize(k, ks, torch.bfloat16) if quant else k).transpose(1, 2)  # [B, Hkv, W, D]
+        vt = lambda: (FD.dequantize(v, vs, torch.bfloat16) if quant else v).transpose(1, 2)
         q4 = q.reshape(b, hkv * g, 1, d)
         mask = (torch.arange(w, device=dev) < length)[None, None, None, :]
         # the length on the device, as the captured decode step passes it;
         # the int form's time beside it
         dev_len = torch.tensor([length], dtype=torch.int32, device=dev)
-        y = OPS.flash_decode(q, k, v, dev_len)
-        check(torch.equal(y, OPS.flash_decode(q, k, v, length)), f"flash_decode {label}: device length not bitwise")
-        lib_y = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
-        lib_err = float((lib_y.reshape(q.shape).float() - y.float()).abs().max())
+        y = OPS.flash_decode(q, k, v, dev_len, **sc)
+        check(torch.equal(y, OPS.flash_decode(q, k, v, length, **sc)), f"flash_decode {label}: device length not bitwise")
+        lib = lambda: F.scaled_dot_product_attention(q4, kt(), vt(), attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().reshape(q.shape).float() - y.float()).abs().max())
+        if quant:
+            kd, vd = kt(), vt()
+            extra["library_sdpa_alone_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True), torch)
+            del kd, vd
         rows[label] = timed(
-            "flash_decode", f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} len{length} bf16, length on the device",
-            lambda: OPS.flash_decode(q, k, v, dev_len),
-            lambda: OPS.flash_decode(q, k, v, length, backend="torch"),
-            lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True),
-            4.0 * b * hkv * g * length * d, flops_peak,
-            2.0 * (2 * q.numel() + 2 * b * length * hkv * d),
+            "flash_decode", f"{label}: B{b} Hkv{hkv} G{g} D{d} W{w} len{length} bf16"
+            + (" q, int8 K/V with f32 scales" if quant else "") + ", length on the device",
+            lambda: OPS.flash_decode(q, k, v, dev_len, **sc),
+            lambda: OPS.flash_decode(q, k, v, length, **sc, backend="torch"),
+            lib, 4.0 * b * hkv * g * length * d, flops_peak,
+            2.0 * 2 * q.numel() + kv_bytes,
             library_max_abs_diff=lib_err,
-            int_length_kernel_ms=device_ms(lambda: OPS.flash_decode(q, k, v, length), torch),
+            int_length_kernel_ms=device_ms(lambda: OPS.flash_decode(q, k, v, length, **sc), torch),
+            **extra,
         )
-        del q, k, v, kt, vt, y, lib_y
+        del q, k, v, y, sc
 
     # B6 at the served prefill shape: Hymba's mamba heads over 896 tokens
     s_len, h, p, n, chunk = LM_PROMPT + N_META_TOKENS, cfg.d_inner // 64, 64, cfg.ssm_state, cfg.ssd_chunk
@@ -698,12 +756,29 @@ def profile_decode(torch, step, model, caches, tok, pos0):
     }
 
 
+def lm_inputs(torch, cfg, dev):
+    """The served batch of ``lm_phase``, drawn from a generator seeded with
+    SEED: a prompt [LM_BATCH, LM_PROMPT] of token ids ([..., K] with K
+    codebooks) and, with a vision prefix, the stubbed vision tower's
+    features [LM_BATCH, n_patches, 1152] (else None)."""
+    from repro_torch.models.model import SIGLIP_DIM
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT) + books, device=dev, generator=g)
+    patches = torch.randn((LM_BATCH, cfg.n_patches, SIGLIP_DIM), device=dev, generator=g) \
+        if cfg.n_patches else None
+    return prompt, patches
+
+
 def lm_phase(torch, dev, phase, arch, bytes_peak):
-    """Phases 6c (Hymba-1.5B), 6e (SmolLM-360M) and 6f (OLMoE-1B-7B): one
-    model at full width and depth, random weights from seed 0, bf16 on f32
-    weights, served through ``generate``, the CLI's own loop: batch 4, a
-    768-token prompt (after Hymba's 128 meta tokens), 128 greedy steps, the
-    first op by op and the rest replaying one captured step.  Gated: the
+    """Phases 6c (Hymba-1.5B), 6e (SmolLM-360M), 6f (OLMoE-1B-7B), 6g
+    (PaliGemma-3B) and 6h (MusicGen-large): one model at full width and
+    depth, random weights from seed 0, bf16 on f32 weights, served through
+    ``generate``, the CLI's own loop: batch 4, a 768-token prompt (of four
+    codebooks for MusicGen; after Hymba's 128 meta tokens or PaliGemma's
+    256 image patches, ``lm_inputs``), 128 greedy steps, the first op by
+    op and the rest replaying one captured step.  Gated: the
     f32 weights and their bf16 copy fit; the prefill launches one B6 a
     Hymba layer and no other counted kernel; each decode step exactly
     n_layers B5 launches and nothing else, one graph launch in each
@@ -726,6 +801,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
 
     import repro_torch.models.moe as MOE
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import generate
@@ -754,10 +830,9 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     init_s = time.perf_counter() - t0
     model_gb = (torch.cuda.memory_allocated(dev) - allocated0) / 1e9  # the weights and their bf16 copy
     reserved_gb = torch.cuda.memory_reserved(dev) / 1e9  # the allocator's whole pool, earlier phases' cache included
-    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(SEED))
+    prompt, patches = lm_inputs(torch, cfg, dev)
     for graphs in (True, False):  # warm-up: cuBLAS handles, first launches, a capture
-        generate(cfg, model, prompt[:, :64], 3, graphs=graphs)
+        generate(cfg, model, prompt[:, :64], 3, graphs=graphs, patches=patches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     per_step = []
@@ -771,7 +846,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     # the launches its capture recorded, and one graph launch; the counts
     # are set to 0 just before and read after each step
     runtime.reset_launches()
-    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN, step_hook=hook)
+    out = generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN, step_hook=hook, patches=patches)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     ph0, prefill_counts, prefill_graphs = per_step[0]
     check(ph0 == "prefill" and prefill_graphs == 0
@@ -787,8 +862,9 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     check(decode_graphs == [0] + [1] * (LM_GEN - 1),
           f"{phase}: graph launches per decode step {decode_graphs[:4]}..., want 0 (the eager first step), then 1")
     tokens = out["tokens"]
-    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-          f"{phase}: generated tokens out of range")
+    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN) + tuple(prompt.shape[2:])
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{phase}: generated tokens of shape {tuple(tokens.shape)} or out of range")
     check(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]), f"{phase}: served logits are not finite")
     check(bool(torch.isfinite(out["last_hidden"]).all()), f"{phase}: prefill hidden state is not finite")
 
@@ -808,10 +884,11 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     MOE.router = recording
     try:
         runs = {"bfloat16": {"graph": out, "eager": generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN,
-                                                               graphs=False)}}
+                                                               graphs=False, patches=patches)}}
     finally:
         MOE.router = orig_router
-    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph")
+    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph",
+                                      patches=patches)
                        for mode in ("eager", "graph")}
     eager_vs_graph = {}
     for dname, pair in runs.items():
@@ -843,8 +920,10 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         rec[1] = max(rec[1], ratio)
         rec[2] = max(rec[2], float(d.max()))
 
-    def fd_checked(q, k, v, length, backend=None):
-        y = orig_fd(q, k, v, length, backend=backend)
+    def fd_checked(q, k, v, length, k_scale=None, v_scale=None, backend=None):
+        y = orig_fd(q, k, v, length, k_scale=k_scale, v_scale=v_scale, backend=backend)
+        if k_scale is not None:  # an int8 cache, in q's type as the plain version takes it
+            k, v = FD.dequantize(k, k_scale, q.dtype), FD.dequantize(v, v_scale, q.dtype)
         r = orig_fd(q.float(), k.float(), v.float(), length, backend="torch")
         d = (y.float() - r).abs()
         tol = bf16_ulp(torch, r) if q.dtype == torch.bfloat16 else FD_TOL + FD_TOL * r.abs()
@@ -863,7 +942,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
     try:  # op by op: the checks read device values on the host, which no capture may
         checked = {c.compute_dtype: generate(c, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS,
-                                             graphs=False) for c in (cfg, cfg32)}
+                                             graphs=False, patches=patches) for c in (cfg, cfg32)}
     finally:
         OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
     repeatable = all(torch.equal(a, b) for a, b in zip(checked["bfloat16"]["logits"], out["logits"])) and all(
@@ -886,7 +965,8 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         MOE.router = rec
         try:
             caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
-            outs = [make_prefill_step(cfg_, backend)(model, {"tokens": prompt}, caches).float()]
+            batch = {"tokens": prompt} if patches is None else {"tokens": prompt, "patches": patches}
+            outs = [make_prefill_step(cfg_, backend)(model, batch, caches).float()]
             step = make_eager_serve_step(cfg_, backend)
             tok = prompt[:, -1:]
             for i in range(LM_CHECK_STEPS):
@@ -949,14 +1029,17 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
 
     # the least time a steady decode step could take, from the bytes it
     # must move, averaged over the steady steps (the third on): every
-    # non-expert block parameter read once in bf16, the f32 head and final
-    # norm, each attention layer's valid cache prefix (its window's at
-    # most) read and one slot written; Hymba's SSM and conv states are left
+    # non-expert block parameter read once in bf16, the f32 head(s) and
+    # final norm, each attention layer's valid cache prefix (its window's
+    # at most; an int8 cache's values at a byte each and its f32 scales)
+    # read and one slot written; Hymba's SSM and conv states are left
     # out.  A MoE step reads, in the reference's algorithm, every expert
     # (all-experts bound), and needs only the experts its router picked
     # (routed bound: counted per layer from the bf16 eager run's routing)
-    head = model.embed if cfg.tie_embeddings else model.lm_head
-    slot_bytes = 2 * 2 * LM_BATCH * cfg.n_kv_heads * cfg.resolved_head_dim  # K and V, bf16
+    head = model.heads if cfg.n_codebooks else model.embed if cfg.tie_embeddings else model.lm_head
+    # K and V of one slot: bf16, or int8 values and one f32 scale a head
+    slot_bytes = 2 * LM_BATCH * cfg.n_kv_heads * (
+        cfg.resolved_head_dim + 4 if cfg.kv_quant else 2 * cfg.resolved_head_dim)
     expert_params = 0
     if n_moe:
         check(len(picked) == n_moe * (1 + LM_GEN), f"{phase}: {len(picked)} router calls in the eager run")
@@ -980,6 +1063,8 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         "phase": phase, "model": arch, "params": n_params, "block_params": block_params,
         "n_layers": n_layers, "moe_layers": n_moe, "ssd_layers": n_ssd, "experts": cfg.n_experts,
         "top_k": cfg.top_k, "batch": LM_BATCH, "prompt": LM_PROMPT, "prefix_tokens": prefix_tokens(cfg),
+        "n_patches": cfg.n_patches, "n_codebooks": cfg.n_codebooks, "kv_quant": cfg.kv_quant,
+        "head_dim": cfg.resolved_head_dim, "kv_heads": cfg.n_kv_heads,
         "gen": LM_GEN, "max_len": out["max_len"], "compute_dtype": cfg.compute_dtype, "init_and_cast_s": init_s,
         "memory_needed_gb": need_gb, "model_allocated_gb": model_gb, "reserved_gb_after_load": reserved_gb,
         "peak_memory_gb": peak_gb,
@@ -991,8 +1076,9 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
             "steady_over_all_experts_bound": steady_ms / all_ms,
             "steady_over_routed_bound": steady_ms / routed_ms,
             "experts_read_per_moe_layer": sum(experts_read[i] for i in steady) / len(kv) / max(n_moe, 1),
-            "counts": "bf16 block weights (every expert, or the routed ones), f32 head and final norm, "
-                      "each layer's valid KV prefix read and one slot written; mean over steps 3 on",
+            "counts": "bf16 block weights (every expert, or the routed ones), f32 head(s) and final norm, "
+                      "each layer's valid KV prefix read and one slot written (an int8 cache at a byte a "
+                      "value plus its f32 scales); mean over steps 3 on",
         },
         "decode_step_breakdown": {
             "steps_profiled": LM_PROFILE_STEPS, **breakdown,
@@ -1032,7 +1118,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
               "max_abs_err": {name: max(served[(name, d)][2] for d in ("bfloat16", "float32"))
                               for name in LM_KERNELS},
               "max_len": out["max_len"]}
-    del model, out, prompt, stream, shape, head, picked
+    del model, out, prompt, patches, stream, shape, head, picked
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -2078,11 +2164,12 @@ class Arrivals:
 class Recording:
     """A server seen through ``run_open_loop``'s interface (which returns
     only a report): each submit is passed on, and its arrival index, the
-    time of the call and its ticket are recorded."""
+    time of the call, how long the call held the pacing thread and its
+    ticket are recorded."""
 
     def __init__(self, server, arrivals):
         self.server, self.arrivals = server, arrivals
-        self.attempts, self.tickets = [], []
+        self.attempts, self.tickets, self.held = [], [], []
 
     def ingress_depth(self):
         return self.server.ingress_depth()
@@ -2091,9 +2178,12 @@ class Recording:
         self.server.set_batching(**kw)
 
     def submit(self, image, *, block=True):
-        z = self.arrivals.z
-        self.attempts.append((z, time.perf_counter()))
-        ticket = self.server.submit(image, block=block)
+        z, t = self.arrivals.z, time.perf_counter()
+        self.attempts.append((z, t))
+        try:
+            ticket = self.server.submit(image, block=block)
+        finally:
+            self.held.append(time.perf_counter() - t)
         self.tickets.append((z, ticket))
         return ticket
 
@@ -2110,9 +2200,17 @@ def open_loop(torch, serve, images, params, want, vgg_img_per_s):
     run's p99.  Gated: every submitted ticket completes, bitwise equal to
     phase 4's output for its image; nothing is shed at 0.5x; 13 + 3
     launches and one graph launch a stage per micro-batch.  Recorded, not
-    gated: the latencies, goodput, sheds, and how late each submission
-    left behind its trace time (the pacing thread shares the interpreter
-    lock with the workers).  Returns the B1 and B2 launches of its runs."""
+    gated: the latencies, goodput, sheds, how late each submission left
+    behind its trace time (the pacing thread shares the interpreter lock
+    with the workers) and how long each ``submit()`` held it (a host
+    image crosses to the card in stage 0, not in ``submit()``).  The
+    objects the earlier phases left are
+    collected and frozen first (``gc.freeze``), so that no full pass of
+    the collector over them stalls the pacing thread and the workers
+    inside a timed run; each run records the collections that ran in it
+    and the longest.  Returns the B1 and B2 launches of its runs."""
+    import gc
+
     from repro_torch.kernels import runtime
     from repro_torch.serving import (QueueController, QueuePolicy, mmpp_trace, percentile, poisson_trace,
                                      run_open_loop)
@@ -2123,13 +2221,23 @@ def open_loop(torch, serve, images, params, want, vgg_img_per_s):
     n_stages = len(server.plan.allocation)
     runs = []
 
+    gc_pauses, gc_started = [], [0.0]  # the milliseconds of each collection while the runs go
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_started[0] = time.perf_counter()
+        else:
+            gc_pauses.append((time.perf_counter() - gc_started[0]) * 1e3)
+
     def drive(name, trace, controller=None):
         arrivals = Arrivals(images, trace.n)
         rec = Recording(server, arrivals)
         st0 = server.metrics.stages[0].snapshot()
         runtime.reset_launches()
+        n_gc = len(gc_pauses)
         t_start = time.perf_counter()
         report = run_open_loop(rec, trace, arrivals, controller=controller, result_timeout_s=600)
+        run_gc = gc_pauses[n_gc:]
         counts, graph_launches = runtime.launch_counts(), runtime.graph_launches()
         st1 = server.metrics.stages[0].snapshot()
         batches = st1["batches"] - st0["batches"]
@@ -2154,6 +2262,8 @@ def open_loop(torch, serve, images, params, want, vgg_img_per_s):
             "duration_s": report.duration_s,
             "lateness_p50_ms": percentile(late, 50) * 1e3, "lateness_p99_ms": percentile(late, 99) * 1e3,
             "lateness_max_ms": max(late) * 1e3 if late else None,
+            "submit_p99_ms": percentile(rec.held, 99) * 1e3, "submit_max_ms": max(rec.held, default=0.0) * 1e3,
+            "gc_collections": len(run_gc), "gc_max_pause_ms": max(run_gc, default=0.0),
             "micro_batches": batches,
             "mean_fill": (st1["items"] - st0["items"]) / (BATCH * batches) if batches else None,
             "launches": {k: counts[k] for k in ("conv2d_fused", "matmul_fused")},
@@ -2167,6 +2277,10 @@ def open_loop(torch, serve, images, params, want, vgg_img_per_s):
 
     mmpp = {"duration_s": MMPP_S, "calm_s": 0.5, "burst_s": 0.2}
     ctrl_meta = {}
+    gc.collect()
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    gc.callbacks.append(on_gc)
     try:
         base = drive("poisson_0.5x", poisson_trace(0.5 * rate, n=OPEN_LOOP_ARRIVALS, seed=SEED))
         drive("poisson_0.85x", poisson_trace(0.85 * rate, n=OPEN_LOOP_ARRIVALS, seed=SEED + 1))
@@ -2181,13 +2295,15 @@ def open_loop(torch, serve, images, params, want, vgg_img_per_s):
                      "p99_within_slo": row["latency_p99_ms"] <= slo_s * 1e3}
         server.set_batching(flush_timeout_s=OPEN_LOOP_FLUSH_S)
     finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
         stop_error = stop_quietly(server)
     report = {
         "model": "vgg16", "backend": "cuda_fused", "plan": server.plan.notation(), "batch": BATCH,
         "queue_depth": OPEN_LOOP_QUEUE_DEPTH, "ingress_images": OPEN_LOOP_QUEUE_DEPTH * BATCH,
         "flush_timeout_ms": OPEN_LOOP_FLUSH_S * 1e3, "phase4_mean_steady_img_per_s": rate,
         "mmpp": {"calm": 0.3, "burst": 1.2, **mmpp}, "queue_controller": ctrl_meta, "runs": runs,
-        "stop_error": stop_error,
+        "gc_frozen_objects": frozen, "stop_error": stop_error,
     }
     print(json.dumps({"open_loop_5h": report}))
     for row in runs:
@@ -2989,9 +3105,10 @@ def main() -> int:
     lm_kernels = hymba_phases(torch, dev, flops_peak, bytes_peak)
     mark("6")
 
-    # ------------- 6e, 6f. SmolLM-360M and OLMoE-1B-7B served through B5
+    # ------------- 6e-6h. SmolLM-360M, OLMoE-1B-7B, PaliGemma-3B and
+    # MusicGen-large served through B5
     fd_row = lm_kernels[0]
-    for phase, arch in DENSE_LMS:
+    for phase, arch in DENSE_LMS + FEATURE_LMS:
         lm = lm_phase(torch, dev, phase, arch, bytes_peak)
         n = lm["launches"]["flash_decode"]
         fd_row["launches"] += n

@@ -11,6 +11,15 @@
 // 1e-30) cast to q's type.  The scale, with log2 e for a base-2 softmax,
 // is applied to q once instead of to every logit.
 //
+// The cache is in q's type, or int8 with one f32 scale per (batch, slot,
+// KV head), as repro/models/blocks.py::_quantize_kv leaves it.  The
+// reference dequantizes the whole int8 cache into q's type before its
+// attention; here each lane dequantizes the values it reads, in the same
+// arithmetic (bf16(float(x) * float(bf16(scale))) under bf16 q, float(x)
+// * scale under f32 q), so the int8 route gives the same bits as this
+// kernel on the dequantized cache, and reads a quarter (f32 q) or half
+// (bf16 q) of that cache's bytes.
+//
 // What bounds it on an H100: bytes.  Each cache element is read once and
 // feeds G multiply-adds (G = 5 for Hymba), far below the ~20 f32 FLOP a
 // byte at which the CUDA cores would be the limit, so it stays on the
@@ -26,14 +35,17 @@
 // Pass 1 (fd_split_kernel), grid (Hkv x G-chunks, n_split, B), 2 warps
 // (the heads of one split run side by side and read whole cache rows):
 //   * each warp owns a contiguous half of the split's slots, and its own
-//     ring of NSTAGE stages in shared memory, filled with cp.async
-//     16-byte copies of K and V as stored (bf16 or f32); each lane copies
-//     exactly the pieces it later reads, so a lane waits on its own
-//     cp.async groups and the loop has no barrier;
-//   * a lane owns one 16-byte piece of a row (8 bf16 or 4 f32 values), a
-//     group of P2 lanes a row (fixed at compile time for P2 = 8 and 16),
-//     so a warp takes 32 / P2 rows at once; the lane keeps its pieces of
-//     the G-chunk's q rows (up to 8 rows, times the scale and log2 e) in
+//     ring of NSTAGE stages in shared memory, filled with cp.async copies
+//     of K and V as stored (16 bytes of bf16 or f32, 8 or 4 of int8); each
+//     lane copies exactly the pieces it later reads, so a lane waits on
+//     its own cp.async groups and the loop has no barrier;
+//   * a lane owns a piece of a row: the values one 16-byte vector of q's
+//     type holds (8 under bf16, 4 under f32), at the same d in q and in
+//     the cache.  A group of P2 lanes takes a row (P2 = 8 and 16 fixed at
+//     compile time, up to 32 at run time), so a warp takes 32 / P2 rows at
+//     once; a row of more than 32 pieces (f32 at D = 256) gives each of
+//     32 lanes NP = 2 pieces, ``piece`` and ``piece + 32``.  The lane keeps its pieces of the
+//     G-chunk's q rows (up to 8 rows, times the scale and log2 e) in
 //     registers, and a logit is its lane's partial dot then a shuffle
 //     butterfly over the P2 lanes of the row;
 //   * each lane group is a stream of its own: online softmax (base 2,
@@ -73,7 +85,7 @@ constexpr int NT = WARPS * 32;
 constexpr int U = 4;              // rows a lane group takes per step
 constexpr int NSTAGE = 3;         // ring stages per warp
 constexpr int GMAX = 8;           // query rows a block holds in registers
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr int MAX_GD = 2048;
 constexpr int MIN_SPLIT = 64;
 constexpr int MAX_SPLIT = 512;
@@ -87,6 +99,12 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// x rounded to T and back: the value a tensor of T holds.
+template <typename T> __device__ __forceinline__ float in_type(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) return __bfloat162float(__float2bfloat16(x));
+  return x;
 }
 
 // Elements of T in one 16-byte vector, and their conversion to f32.
@@ -110,9 +128,45 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// One lane's piece of a cache row of Tc under q of Tq: the Vec<Tq>::N
+// values at the d where the lane holds q, 16 bytes in q's type, 8 (bf16
+// q) or 4 (f32 q) as int8.  ``s`` is the row's scale in q's type (int8
+// only).  An int8 value times a bf16 scale has at most 7 + 8 significant
+// bits, exact in f32, so under bf16 q the one rounding is the product's
+// to bf16, as ``x.to(bfloat16) * scale.to(bfloat16)`` rounds it.
+template <typename Tq, typename Tc> struct Piece {
+  static constexpr int N = Vec<Tq>::N;
+  static constexpr int BYTES = N * (int)sizeof(Tc);
+  __device__ static void load(const unsigned char* p, float s, float* o) {
+    if constexpr (std::is_same<Tc, Tq>::value) {
+      Vec<Tq>::unpack(*reinterpret_cast<const uint4*>(p), o);
+    } else {
+      static_assert(std::is_same<Tc, int8_t>::value, "a cache in q's type or int8");
+      uint32_t w[N / 4];
+      if constexpr (N == 8) {
+        const uint2 r = *reinterpret_cast<const uint2*>(p);
+        w[0] = r.x;
+        w[N / 4 - 1] = r.y;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(p);
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) {  // byte e, sign-extended
+        const int x = static_cast<int>(w[e >> 2] << (24 - 8 * (e & 3))) >> 24;
+        o[e] = in_type<Tq>(__fmul_rn(__int2float_rn(x), s));
+      }
+    }
+  }
+};
+
+template <int BYTES> __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  if constexpr (BYTES == 16) {  // .cg (L2 only) takes 16 bytes alone
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES)
+                 : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -165,32 +219,43 @@ __host__ __device__ inline Part part_view(float* base, int B, int hkv, int n_spl
   return {base, base + n, base + 2 * n};
 }
 
-// q [B, Hkv, G, D], k/v [B, W, Hkv, D], contiguous.  P2C > 0 fixes the
-// lanes a row takes at compile time (the shuffle butterfly unrolled); 0
-// takes it from D at run time.
-template <typename T, int GC, int P2C>
+// q [B, Hkv, G, D] of Tq, k/v [B, W, Hkv, D] of Tc, contiguous; with an
+// int8 cache, k_scale/v_scale [B, W, Hkv] f32.  GC is the most query rows
+// a block holds (the chunk's own count, gn, may be smaller).  P2C > 0
+// fixes the lanes a row takes at compile time (the shuffle butterfly
+// unrolled); 0 takes it from D at run time.  NP is the pieces of a row a
+// lane owns.
+template <typename Tq, typename Tc, int GC, int P2C, int NP>
 __global__ void __launch_bounds__(NT)
-fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+fd_split_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k, const Tc* __restrict__ v,
+                const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                 float* __restrict__ scratch, int B, int hkv, int G, int D, int W,
                 const int* __restrict__ length_dev, int length_host, int split, int n_split,
                 float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int VN = Vec<T>::N;
+  using PC = Piece<Tq, Tc>;
+  constexpr int VN = PC::N;
+  constexpr int PB = PC::BYTES;
+  constexpr bool QUANT = !std::is_same<Tc, Tq>::value;
+  constexpr int NV = NP * VN;      // values of a row a lane owns
   const int length = valid_length(length_dev, length_host, W);
   const int s_idx = blockIdx.y;
   const int s0 = s_idx * split;
   if (s0 >= length) return;  // wholly past the prefix: the combine stops before it
-  const int n_gc = (G + GC - 1) / GC;
-  const int h = blockIdx.x / n_gc, g0 = (blockIdx.x % n_gc) * GC;
+  const int gc = min(G, GMAX);
+  const int n_gc = (G + gc - 1) / gc;
+  const int h = blockIdx.x / n_gc, g0 = (blockIdx.x % n_gc) * gc;
   const int b = blockIdx.z;
-  const int gn = min(GC, G - g0);
-  const int lpr = D / VN;          // 16-byte pieces in a cache row
+  const int gn = min(gc, G - g0);
+  const int lpr = D / VN;          // pieces in a cache row
   const int p2 = P2C > 0 ? P2C : pow2_at_least(lpr);  // lanes a row takes
   const int rpw = 32 / p2;         // rows a warp takes at once
   const int R = rpw * U;           // rows a warp takes per step
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = lane / p2, piece = lane % p2;
-  const bool has_piece = piece < lpr;
+  bool has_piece[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) has_piece[i] = piece + i * p2 < lpr;
 
   const int per_warp = split / WARPS;
   const int w0 = s0 + warp * per_warp;
@@ -199,11 +264,11 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int64_t slot_stride = (int64_t)hkv * D;
   const int64_t base = ((int64_t)b * W * hkv + h) * D + piece * VN;  // slot 0 of (b, h), this piece
-  const int stage_bytes = R * lpr * 16;  // one of K or V
+  const int stage_bytes = R * lpr * PB;  // one of K or V
   unsigned char* ring = smem + (size_t)warp * NSTAGE * 2 * stage_bytes;
 
   auto issue = [&](int step) {
-    if (step < n_steps && has_piece) {
+    if (step < n_steps) {
       unsigned char* sk = ring + (step % NSTAGE) * 2 * stage_bytes;
       unsigned char* sv = sk + stage_bytes;
 #pragma unroll
@@ -212,8 +277,13 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int row = step * R + j;
         if (row < n_rows) {
           const int64_t off = base + (int64_t)(w0 + row) * slot_stride;
-          cp_async16(sk + (j * lpr + piece) * 16, k + off);
-          cp_async16(sv + (j * lpr + piece) * 16, v + off);
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            if (!has_piece[i]) continue;
+            const int at = (j * lpr + piece + i * p2) * PB;
+            cp_async<PB>(sk + at, k + off + i * p2 * VN);
+            cp_async<PB>(sv + at, v + off + i * p2 * VN);
+          }
         }
       }
     }
@@ -224,32 +294,50 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int i = 0; i < NSTAGE - 1; ++i) issue(i);
 
   // this lane's pieces of the chunk's query rows
-  float qf[GC][VN];
-  const T* qb = q + (((int64_t)b * hkv + h) * G + g0) * D + piece * VN;
+  float qf[GC][NV];
+  const Tq* qb = q + (((int64_t)b * hkv + h) * G + g0) * D + piece * VN;
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
-    if (g < gn && has_piece) {
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(qb + (int64_t)g * D), qf[g]);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) qf[g][e] *= scale2;
-    } else {
+    for (int i = 0; i < NP; ++i) {
+      float* o = qf[g] + i * VN;
+      if (g < gn && has_piece[i]) {
+        Vec<Tq>::unpack(*reinterpret_cast<const uint4*>(qb + (int64_t)g * D + i * p2 * VN), o);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) qf[g][e] = 0.0f;
+        for (int e = 0; e < VN; ++e) o[e] *= scale2;
+      } else {
+#pragma unroll
+        for (int e = 0; e < VN; ++e) o[e] = 0.0f;
+      }
     }
   }
 
-  float m[GC], l[GC], acc[GC][VN];
+  float m[GC], l[GC], acc[GC][NV];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     m[g] = NEG;
     l[g] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < VN; ++e) acc[g][e] = 0.0f;
+    for (int e = 0; e < NV; ++e) acc[g][e] = 0.0f;
   }
 
   // one step: U rows per lane group; FULL when every row of it is valid
   auto run_step = [&](int step, auto full) {
     constexpr bool FULL = decltype(full)::value;
+    // an int8 cache's row scales, in q's type; loaded before the wait
+    float ks[U], vs[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ks[u] = vs[u] = 0.0f;
+      if constexpr (QUANT) {
+        const int row = step * R + u * rpw + r;
+        if (FULL || row < n_rows) {
+          const int64_t at = ((int64_t)b * W + w0 + row) * hkv + h;
+          ks[u] = in_type<Tq>(__ldg(k_scale + at));
+          vs[u] = in_type<Tq>(__ldg(v_scale + at));
+        }
+      }
+    }
     cp_async_wait<NSTAGE - 2>();  // this lane's copies of ``step`` have landed
     const unsigned char* sk = ring + (step % NSTAGE) * 2 * stage_bytes;
     const unsigned char* sv = sk + stage_bytes;
@@ -259,18 +347,21 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int u = 0; u < U; ++u) {
       const int j = u * rpw + r;
       valid[u] = FULL || step * R + j < n_rows;
-      float kf[VN];
-      if (valid[u] && has_piece) {
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(sk + (j * lpr + piece) * 16), kf);
-      } else {
+      float kf[NV];
 #pragma unroll
-        for (int e = 0; e < VN; ++e) kf[e] = 0.0f;
+      for (int i = 0; i < NP; ++i) {
+        if (valid[u] && has_piece[i]) {
+          PC::load(sk + (j * lpr + piece + i * p2) * PB, ks[u], kf + i * VN);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VN; ++e) kf[i * VN + e] = 0.0f;
+        }
       }
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         float part = 0.0f;
 #pragma unroll
-        for (int e = 0; e < VN; ++e) part = fmaf(qf[g][e], kf[e], part);
+        for (int e = 0; e < NV; ++e) part = fmaf(qf[g][e], kf[e], part);
         sc[u][g] = part;
       }
 #pragma unroll
@@ -290,7 +381,7 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       l[g] *= alpha;
       m[g] = mx;
 #pragma unroll
-      for (int e = 0; e < VN; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < NV; ++e) acc[g][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         sc[u][g] = valid[u] ? fast_exp2(sc[u][g] - mx) : 0.0f;
@@ -299,14 +390,19 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (!valid[u] || !has_piece) continue;
+      if (!valid[u]) continue;
       const int j = u * rpw + r;
-      float vf[VN];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(sv + (j * lpr + piece) * 16), vf);
 #pragma unroll
-      for (int g = 0; g < GC; ++g)
+      for (int i = 0; i < NP; ++i) {
+        if (!has_piece[i]) continue;
+        float vf[VN];
+        PC::load(sv + (j * lpr + piece + i * p2) * PB, vs[u], vf);
 #pragma unroll
-        for (int e = 0; e < VN; ++e) acc[g][e] = fmaf(sc[u][g], vf[e], acc[g][e]);
+        for (int g = 0; g < GC; ++g)
+#pragma unroll
+          for (int e = 0; e < VN; ++e)
+            acc[g][i * VN + e] = fmaf(sc[u][g], vf[e], acc[g][i * VN + e]);
+      }
     }
     issue(step + NSTAGE - 1);  // into the stage read one step ago
   };
@@ -322,15 +418,18 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* cl = cm + streams * GC;               // [streams][GC]
   float* ca = cl + streams * GC;               // [streams][GC][D]
   const int sid = warp * rpw + r;
-  if (has_piece) {
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      if (piece == 0) {
-        cm[sid * GC + g] = m[g];
-        cl[sid * GC + g] = l[g];
-      }
+  for (int g = 0; g < GC; ++g) {
+    if (piece == 0) {
+      cm[sid * GC + g] = m[g];
+      cl[sid * GC + g] = l[g];
+    }
 #pragma unroll
-      for (int e = 0; e < VN; ++e) ca[(sid * GC + g) * D + piece * VN + e] = acc[g][e];
+    for (int i = 0; i < NP; ++i) {
+      if (!has_piece[i]) continue;
+#pragma unroll
+      for (int e = 0; e < VN; ++e)
+        ca[(sid * GC + g) * D + (piece + i * p2) * VN + e] = acc[g][i * VN + e];
     }
   }
   __syncthreads();
@@ -386,11 +485,25 @@ fd_combine_kernel(const float* __restrict__ scratch, T* __restrict__ out, int B,
   out[(((int64_t)b * hkv + h) * G + g) * D + d] = from_f<T>(as / fmaxf(ls, 1e-30f));
 }
 
-template <typename T, int GC, int P2C>
-void launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q, const T* k,
-                  const T* v, float* part, int B, int hkv, int G, int D, int W,
-                  const int* length_dev, int length, int split, int n_split, float scale2) {
-  auto kern = fd_split_kernel<T, GC, P2C>;
+// The arguments of one call, as the entry point takes them.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  void* out;
+  float* part;
+  int B, hkv, G, D, W;
+  const int* length_dev;
+  int length;
+  int split, n_split;
+  float scale2;
+};
+
+template <typename Tq, typename Tc, int GC, int P2C, int NP>
+void launch_split(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  auto kern = fd_split_kernel<Tq, Tc, GC, P2C, NP>;
   if (smem > 48 * 1024) {
     static size_t raised = 0;  // benign race: the attribute is idempotent
     if (smem > raised) {
@@ -400,53 +513,72 @@ void launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q, const
       raised = smem;
     }
   }
-  kern<<<grid, NT, smem, stream>>>(q, k, v, part, B, hkv, G, D, W, length_dev, length, split,
-                                   n_split, scale2);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const Tq*>(a.q), static_cast<const Tc*>(a.k), static_cast<const Tc*>(a.v),
+      a.k_scale, a.v_scale, a.part, a.B, a.hkv, a.G, a.D, a.W, a.length_dev, a.length, a.split,
+      a.n_split, a.scale2);
 }
 
-template <typename T>
-int launch(const void* qv, const void* kv, const void* vv, void* outv, void* partv, int B,
-           int hkv, int G, int D, int W, const int* length_dev, int length, float scale,
-           cudaStream_t stream) {
-  const T* q = static_cast<const T*>(qv);
-  const T* k = static_cast<const T*>(kv);
-  const T* v = static_cast<const T*>(vv);
-  float* part = static_cast<float*>(partv);
-  const int split = split_len(W, D);
-  const int n_split = (W + split - 1) / split;
-  const int gc = G < GMAX ? G : GMAX;
-  const int n_gc = (G + gc - 1) / gc;
-  if (n_split > 65535 || B > 65535 || G > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int lpr = D / Vec<T>::N;
-  const int p2 = pow2_at_least(lpr);
+// The row widths with their butterfly unrolled (8 and 16 lanes: D = 64
+// and 128 in bf16, 32 and 64 in f32; 32 lanes with two pieces each: D =
+// 256 in f32), the others (up to 32 lanes of one piece) at run time.
+template <typename Tq, typename Tc, int GC>
+void launch_rows(const Args& a, int p2, int lpr, dim3 grid, size_t smem, cudaStream_t stream) {
+  if (p2 == 8) {
+    launch_split<Tq, Tc, GC, 8, 1>(a, grid, smem, stream);
+  } else if (p2 == 16) {
+    launch_split<Tq, Tc, GC, 16, 1>(a, grid, smem, stream);
+  } else if (lpr > 32) {
+    if constexpr (Vec<Tq>::N == 4) launch_split<Tq, Tc, GC, 32, 2>(a, grid, smem, stream);
+  } else {
+    launch_split<Tq, Tc, GC, 0, 1>(a, grid, smem, stream);
+  }
+}
+
+template <typename Tq, typename Tc>
+int launch(Args a, cudaStream_t stream) {
+  constexpr int PB = Piece<Tq, Tc>::BYTES;
+  a.split = split_len(a.W, a.D);
+  a.n_split = (a.W + a.split - 1) / a.split;
+  const int gc = a.G < GMAX ? a.G : GMAX;
+  const int n_gc = (a.G + gc - 1) / gc;
+  if (a.n_split > 65535 || a.B > 65535 || a.G > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int lpr = a.D / Vec<Tq>::N;
+  const int p2 = lpr > 32 ? 32 : pow2_at_least(lpr);
   const int rpw = 32 / p2;
-  const size_t ring = (size_t)WARPS * NSTAGE * 2 * rpw * U * lpr * 16;
-  const size_t comb = (size_t)WARPS * rpw * gc * (D + 2) * sizeof(float);
+  // the rows of registers a block is compiled for: gc for a cache in
+  // q's type, gc rounded up to 1, 2, 4 or 8 for an int8 cache (the
+  // chunk's own rows are gc either way, so the grid and the bits do not
+  // change)
+  constexpr bool QUANT = !std::is_same<Tq, Tc>::value;
+  const int gct = !QUANT || gc == 1 || gc == 2 ? gc : (gc <= 4 ? 4 : 8);
+  const size_t ring = (size_t)WARPS * NSTAGE * 2 * rpw * U * lpr * PB;
+  const size_t comb = (size_t)WARPS * rpw * gct * (a.D + 2) * sizeof(float);
   const size_t smem = ring > comb ? ring : comb;
-  const dim3 grid(hkv * n_gc, n_split, B);  // the heads of a split side by side
-  const float scale2 = scale * LOG2E;
-  // the common row widths (8 and 16 lanes: D = 64 and 128 in bf16, 32
-  // and 64 in f32) with their butterfly unrolled, the others at run time
-  switch (gc) {
-#define FD_LAUNCH(N, P2C)                                                                       \
-  launch_split<T, N, P2C>(grid, smem, stream, q, k, v, part, B, hkv, G, D, W, length_dev,    \
-                          length, split, n_split, scale2)
-#define FD_CASE(N)                                                  \
-  case N:                                                           \
-    if (p2 == 8) FD_LAUNCH(N, 8);                                   \
-    else if (p2 == 16) FD_LAUNCH(N, 16);                            \
-    else FD_LAUNCH(N, 0);                                           \
+  const dim3 grid(a.hkv * n_gc, a.n_split, a.B);  // the heads of a split side by side
+  if constexpr (!QUANT) {
+    switch (gc) {
+#define FD_CASE(N) \
+  case N:          \
+    launch_rows<Tq, Tc, N>(a, p2, lpr, grid, smem, stream); \
     break;
-    FD_CASE(1) FD_CASE(2) FD_CASE(3) FD_CASE(4) FD_CASE(5) FD_CASE(6) FD_CASE(7) FD_CASE(8)
+      FD_CASE(1) FD_CASE(2) FD_CASE(3) FD_CASE(4) FD_CASE(5) FD_CASE(6) FD_CASE(7) FD_CASE(8)
 #undef FD_CASE
-#undef FD_LAUNCH
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    if (gct == 1) launch_rows<Tq, Tc, 1>(a, p2, lpr, grid, smem, stream);
+    else if (gct == 2) launch_rows<Tq, Tc, 2>(a, p2, lpr, grid, smem, stream);
+    else if (gct == 4) launch_rows<Tq, Tc, 4>(a, p2, lpr, grid, smem, stream);
+    else launch_rows<Tq, Tc, 8>(a, p2, lpr, grid, smem, stream);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fd_combine_kernel<T><<<dim3(G, hkv, B), MAX_D, 0, stream>>>(
-      part, static_cast<T*>(outv), B, hkv, G, D, W, length_dev, length, split, n_split);
+  fd_combine_kernel<Tq><<<dim3(a.G, a.hkv, a.B), MAX_D, 0, stream>>>(
+      a.part, static_cast<Tq*>(a.out), a.B, a.hkv, a.G, a.D, a.W, a.length_dev, a.length,
+      a.split, a.n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,24 +593,31 @@ extern "C" int flash_decode_max_d() { return MAX_D; }
 // leave over 1024 splits.  Depends on W and D only.
 extern "C" int flash_decode_split_len(int W, int D) { return split_len(W, D); }
 
-// q [B, Hkv, G, D], k/v [B, W, Hkv, D], out [B, Hkv, G, D], contiguous and
-// 16-byte aligned, all f32 (bf16 = 0) or all bf16 (bf16 = 1); ``part`` is
-// f32 scratch of B * Hkv * ceil(W / split) * G * (D + 2) floats, split =
-// flash_decode_split_len(W, D).  Attends over slots [0, length): with
-// ``length_dev`` null, ``length`` (1 <= length <= W); else the int32 at
-// ``length_dev`` on the device, clamped to [1, W], and ``length`` is
-// ignored.  Launches both passes on ``stream`` and returns
+// q [B, Hkv, G, D], out [B, Hkv, G, D], k/v [B, W, Hkv, D], contiguous;
+// q and out f32 (bf16 = 0) or bf16 (bf16 = 1), 16-byte aligned.  With
+// ``k_scale`` and ``v_scale`` null, k and v are of q's type and 16-byte
+// aligned; else they are int8, aligned to D's pieces (8 bytes under bf16
+// q, 4 under f32), and k_scale/v_scale [B, W, Hkv] f32 hold each row's
+// scale.  ``part`` is f32 scratch of B * Hkv * ceil(W / split) * G * (D
+// + 2) floats, split = flash_decode_split_len(W, D).  Attends over slots
+// [0, length): with ``length_dev`` null, ``length`` (1 <= length <= W);
+// else the int32 at ``length_dev`` on the device, clamped to [1, W], and
+// ``length`` is ignored.  Launches both passes on ``stream`` and returns
 // cudaGetLastError() (0 on success); does not synchronise.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, void* out,
-                                void* part, const int* length_dev, int bf16, int B, int hkv,
-                                int G, int D, int W, int length, float scale, void* stream) {
+                                void* part, const int* length_dev, const float* k_scale,
+                                const float* v_scale, int bf16, int B, int hkv, int G, int D,
+                                int W, int length, float scale, void* stream) {
   const int vn = bf16 ? 8 : 4;
+  const bool quant = k_scale != nullptr;
   if (B < 1 || hkv < 1 || G < 1 || D < vn || D % vn != 0 || D > MAX_D ||
-      G * D > MAX_GD || (length_dev == nullptr && (length < 1 || length > W)))
+      G * D > MAX_GD || (v_scale != nullptr) != quant ||
+      (length_dev == nullptr && (length < 1 || length > W)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, k_scale, v_scale, out, static_cast<float*>(part), B, hkv, G, D, W,
+               length_dev, length, 0, 0, scale * LOG2E};
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, part, B, hkv, G, D, W, length_dev, length,
-                                 scale, s);
-  return launch<float>(q, k, v, out, part, B, hkv, G, D, W, length_dev, length, scale, s);
+    return quant ? launch<__nv_bfloat16, int8_t>(a, s) : launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return quant ? launch<float, int8_t>(a, s) : launch<float, float>(a, s);
 }

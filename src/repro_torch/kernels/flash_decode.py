@@ -53,6 +53,14 @@ the TPU kernel does; ``decode_attention`` casts them to the cache's type
 first, so in bf16 the two differ by about one bf16 rounding of the
 weights.
 
+**An int8 cache.**  With ``k_scale`` and ``v_scale`` (``[B, W, Hkv]``
+f32, one per slot and head, as ``models/blocks.py::_quantize_kv`` leaves
+them) k and v are int8.  The plain version dequantizes them into q's type
+as the reference's decode does (``repro/models/blocks.py``: ``k.astype(
+q.dtype) * k_scale[..., None].astype(q.dtype)``) and attends over that;
+the kernel dequantizes each value it reads in the same arithmetic, so it
+gives the same bits as itself on the cache :func:`dequantize` returns.
+
 A CPU tensor takes :func:`flash_decode_ref`; a CUDA tensor launches the
 kernel or raises.  Each launch counts once under ``"flash_decode"`` in
 ``kernels/runtime.py``'s ``launches``.
@@ -60,7 +68,7 @@ kernel or raises.  Each launch counts once under ``"flash_decode"`` in
 from __future__ import annotations
 
 import functools
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -70,10 +78,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 Length = Union[int, torch.Tensor]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> Length:
-    """The shapes, and ``length``: an int in ``[1, W]``, or a one-element
-    int32 tensor on q's device (returned as it is: its value is never read
-    on the host)."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length,
+           k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None) -> Length:
+    """The shapes, the scales of an int8 cache, and ``length``: an int in
+    ``[1, W]``, or a one-element int32 tensor on q's device (returned as
+    it is: its value is never read on the host)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash_decode: want q [B,Hkv,G,D] and k/v [B,W,Hkv,D], got "
@@ -82,6 +91,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) ->
     b, hkv, _, d = q.shape
     if k.shape[0] != b or k.shape[2] != hkv or k.shape[3] != d:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
+    quant = k.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or (k_scale is not None) != quant or v.dtype != k.dtype:
+        raise TypeError(
+            f"flash_decode: an int8 cache takes k_scale and v_scale, another none; got k {k.dtype}, "
+            f"v {v.dtype}, scales {None if k_scale is None else k_scale.dtype}, "
+            f"{None if v_scale is None else v_scale.dtype}"
+        )
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if sc.dtype != torch.float32 or tuple(sc.shape) != tuple(k.shape[:3]) or sc.device != k.device:
+                raise ValueError(
+                    f"flash_decode: {name} must be float32 {tuple(k.shape[:3])} on {k.device}, got "
+                    f"{sc.dtype} {tuple(sc.shape)} on {sc.device}"
+                )
     if isinstance(length, torch.Tensor):
         if length.dtype != torch.int32 or length.numel() != 1 or length.device != q.device:
             raise ValueError(
@@ -95,13 +118,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) ->
     return length
 
 
-def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> torch.Tensor:
+def dequantize(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 cache ``[..., D]`` with its scales ``[...]`` in ``dtype``,
+    as the reference's decode dequantizes it: both cast to ``dtype``, then
+    multiplied there (in bf16, each product rounded to bf16)."""
+    return x.to(dtype) * scale[..., None].to(dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: ``softmax(q k^T / sqrt(D)) v`` over slots
     ``[0, length)``, in f32, cast to q's type.  q ``[B,Hkv,G,D]``, k/v
-    ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``.  A tensor ``length`` (clamped to
-    ``[1, W]``, as the kernel does) masks the slots past it; an int slices
-    them off."""
-    length = _check(q, k, v, length)
+    ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``; an int8 k/v with its scales
+    ``[B,W,Hkv]`` is first dequantized into q's type (:func:`dequantize`).
+    A tensor ``length`` (clamped to ``[1, W]``, as the kernel does) masks
+    the slots past it; an int slices them off."""
+    length = _check(q, k, v, length, k_scale, v_scale)
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale, q.dtype)
     scale = 1.0 / q.shape[-1] ** 0.5
     masked = isinstance(length, torch.Tensor)
     kf = (k if masked else k[:, :length]).float()
@@ -130,18 +165,22 @@ def _limits():
     return max_gd, max_d
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length) -> torch.Tensor:
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Length,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over the first ``length`` cache slots (an int, or
-    an int32 tensor on the card read there); launches
-    ``csrc/flash_decode.cu`` on the current stream for CUDA tensors."""
+    an int32 tensor on the card read there), of a cache in q's type or an
+    int8 one with its scales; launches ``csrc/flash_decode.cu`` on the
+    current stream for CUDA tensors."""
     if not R.on_card(q, "flash_decode"):
-        return flash_decode_ref(q, k, v, length)
+        return flash_decode_ref(q, k, v, length, k_scale, v_scale)
     R.require(q, "q", 4, DTYPES)
-    length = _check(q, k, v, length)
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError(f"flash_decode: k and v must be on {dev}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    length = _check(q, k, v, length, k_scale, v_scale)
+    quant = k_scale is not None
+    if not quant and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise TypeError(f"flash_decode: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, hkv, g, d = q.shape
     max_gd, max_d = _limits()
@@ -152,17 +191,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: Leng
             f"and G*D = {g * d} <= {max_gd}"
         )
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_decode: q, k, v must be 16-byte aligned")
+    piece = vec * k.element_size()  # the bytes of a lane's copy: 16, or 8 / 4 of int8
+    if q.data_ptr() % 16 or k.data_ptr() % piece or v.data_ptr() % piece:
+        raise ValueError(f"flash_decode: q must be 16-byte aligned, k and v {piece}-byte aligned")
+    if quant:
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     w = k.shape[1]
     out = torch.empty_like(q)
     n_split = -(-w // split_len(w, d))
     part = torch.empty(b * hkv * n_split * g * (d + 2), device=dev, dtype=torch.float32)
     on_device = isinstance(length, torch.Tensor)
-    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 6 + [R.I] * 7 + [R.F, R.P])
+    fn = R.bind("flash_decode", "flash_decode_fwd", [R.P] * 8 + [R.I] * 7 + [R.F, R.P])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
         length.data_ptr() if on_device else None,
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         int(q.dtype == torch.bfloat16), b, hkv, g, d, w, 0 if on_device else length,
         1.0 / d ** 0.5, R.stream(dev),
     )

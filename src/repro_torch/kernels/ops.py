@@ -45,18 +45,20 @@ def _check_backend(backend: Optional[str]) -> None:
 
 def flash_decode(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: FD.Length,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Decode attention of q ``[B,Hkv,G,D]`` over cache slots ``[0,
     length)`` of k/v ``[B,W,Hkv,D]`` -> ``[B,Hkv,G,D]``; ``length`` is an
-    int or an int32 tensor on q's device.  The reference's
+    int or an int32 tensor on q's device.  An int8 k/v comes with its f32
+    scales ``k_scale``/``v_scale`` ``[B,W,Hkv]``.  The reference's
     single-head call ``flash_decode(q [G,D], k [S,D], v, length)`` is
     ``flash_decode(q[None, None], k[None, :, None], v[None, :, None],
     length)[0, 0]`` here."""
     _check_backend(backend)
     if backend == "torch":
-        return FD.flash_decode_ref(q, k, v, length)
-    return FD.flash_decode(q, k, v, length)
+        return FD.flash_decode_ref(q, k, v, length, k_scale, v_scale)
+    return FD.flash_decode(q, k, v, length, k_scale, v_scale)
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:

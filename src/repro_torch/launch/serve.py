@@ -2,14 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
 
 Port of ``repro/launch/serve.py``: random weights from a seed, a random
-prompt batch, one prefill that fills the caches, then ``--gen`` greedy
+prompt batch (``[B, S, K]`` of K codebooks for MusicGen; with
+PaliGemma's vision prefix, random 1152-wide patch features before it, as
+the reference stubs its vision tower), one prefill that fills the caches, then ``--gen`` greedy
 decode steps (the first one re-feeds the prompt's last token, as the
 reference does).  On the card each decode step runs the flash-decode
-kernel (B5) in every layer, and Hymba's prefill the SSD kernel (B6) in
+kernel (B5) in every layer (on an int8 KV cache for the configs with
+``kv_quant``, dequantized as it reads), and Hymba's prefill the SSD kernel (B6) in
 every layer; a dense or MoE prefill launches no hand-written kernel (its
 attention is the plain blockwise form, as the reference's).  The
 prefill runs op by op; the decode loop runs its first step op by op,
@@ -18,8 +23,7 @@ captures one step as a CUDA graph and replays it for the rest
 runs every step op by op).  Times are CUDA-event times taken after a
 device sync.  With ``--device cpu`` the kernels' plain versions run and the times are host
 clock times of the CPU, not of any device.  The dense, MoE and Hymba
-blocks run; xLSTM, the int8 KV cache, the vision prefix and the
-codebook head raise ``NotImplementedError`` naming their ROADMAP item.
+blocks run; xLSTM raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 from ..configs import get_config
 from ..kernels.config import resolve_device
 from ..models import ModelConfig, init_cache, init_params
-from ..models.model import check_supported, prefix_tokens
+from ..models.model import N_META_TOKENS, SIGLIP_DIM, check_supported, prefix_tokens
 from .steps import make_eager_serve_step, make_prefill_step, make_serve_step
 
 
@@ -85,8 +89,11 @@ def generate(
     keep_logits: int = 0,
     step_hook: Optional[Callable[[str, int], None]] = None,
     graphs: bool = True,
+    patches: Optional[torch.Tensor] = None,
 ) -> Dict[str, object]:
-    """Prefill ``prompt`` [B, S] and decode ``gen`` greedy tokens.
+    """Prefill ``prompt`` [B, S] ([B, S, K] with K codebooks), after
+    ``patches`` [B, n_patches, 1152] where the config has a vision prefix,
+    and decode ``gen`` greedy tokens ([B, K] a step with codebooks).
 
     On the card the decode steps after the first replay one CUDA graph
     (``graphs=False`` runs them op by op).  ``step_hook(phase, i)`` is
@@ -99,7 +106,13 @@ def generate(
     third step on (``steady_ms_per_step``: the graph's replays, past the
     first step and the capture)."""
     dev = prompt.device
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
+    if cfg.n_codebooks and (prompt.dim() != 3 or prompt.shape[2] != cfg.n_codebooks):
+        raise ValueError(f"{cfg.name}: want a prompt [B, S, {cfg.n_codebooks}], got {tuple(prompt.shape)}")
+    if (patches is None) != (not cfg.n_patches):
+        raise ValueError(f"{cfg.name}: patches [B, {cfg.n_patches}, {SIGLIP_DIM}] go with the vision prefix "
+                         f"and nothing else; got {None if patches is None else tuple(patches.shape)}")
+    batch = {"tokens": prompt} if patches is None else {"tokens": prompt, "patches": patches}
     extra = prefix_tokens(cfg)
     caches = init_cache(cfg, b, max_len=s + extra + gen, device=dev)
     prefill_step = make_prefill_step(cfg, backend)
@@ -108,7 +121,7 @@ def generate(
     params.compute_blocks(getattr(torch, cfg.compute_dtype))  # set-up, not prefill time
 
     timer.start()
-    last_hidden = prefill_step(params, {"tokens": prompt}, caches)
+    last_hidden = prefill_step(params, batch, caches)
     if step_hook is not None:
         step_hook("prefill", 0)
     prefill_ms = timer.stop()
@@ -125,13 +138,13 @@ def generate(
             step_hook("decode", i)
         if i < keep_logits:
             kept.append(logits)
-        nxt = logits.argmax(dim=-1)
+        nxt = logits.argmax(dim=-1)  # [B], or [B, K] with codebooks
         tok = nxt[:, None]
         generated.append(nxt)
     decode_ms = timer.stop()
     steady_ms = timer.since_lap() / (gen - 2) if gen > 2 else None
     return {
-        "tokens": torch.stack(generated, dim=1) if generated else prompt.new_zeros((b, 0)),
+        "tokens": torch.stack(generated, dim=1) if generated else prompt.new_zeros((b, 0, *prompt.shape[2:])),
         "last_hidden": last_hidden,
         "logits": kept,
         "caches": caches,
@@ -162,14 +175,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=args.seed, device=dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    prompt = torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g, device=dev
-    )
-    out = generate(cfg, params, prompt, args.gen)
+    shape = (args.batch, args.prompt_len) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    prompt = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+    patches = torch.randn((args.batch, cfg.n_patches, SIGLIP_DIM), generator=g, device=dev) \
+        if cfg.n_patches else None
+    out = generate(cfg, params, prompt, args.gen, patches=patches)
     clock = "CUDA events" if out["timer"] == "cuda_events" else "host clock, CPU"
-    extra = prefix_tokens(cfg)
-    meta = f" (+{extra} meta tokens)" if extra else ""
-    print(f"prefill: {args.batch}x{args.prompt_len}{meta} in {out['prefill_ms']:.3f} ms ({clock})")
+    before = [f"+{cfg.n_patches} image patches"] if cfg.n_patches else []
+    before += [f"+{N_META_TOKENS} meta tokens"] if cfg.block_kind == "hymba" else []
+    lead = f" ({', '.join(before)})" if before else ""
+    books = f"x{cfg.n_codebooks} codebooks" if cfg.n_codebooks else ""
+    print(f"prefill: {args.batch}x{args.prompt_len}{books}{lead} in {out['prefill_ms']:.3f} ms ({clock})")
     print(f"decode: {args.gen} steps x batch {args.batch} = {args.gen * args.batch} tokens "
           f"in {out['decode_ms']:.3f} ms -> {out['decode_tok_per_s']:,.1f} tok/s ({clock})")
     print("sample token ids:", out["tokens"][0, :8].tolist())

@@ -14,8 +14,10 @@ keeps one copy of the cache on the card.
 backward), ``"prefill"`` (fill the cache) or ``"decode"`` (one step
 against it).  ``backend`` reaches the kernels through ``kernels/ops.py``:
 ``None`` launches them for CUDA tensors, ``"torch"`` takes their plain
-versions.  The xLSTM blocks and the int8 KV cache are not ported yet;
-the MoE block runs the reference's local path (``models/moe.py``).
+versions.  The xLSTM blocks are not ported yet; the MoE block runs the
+reference's local path (``models/moe.py``).  An int8 KV cache
+(``kv_quant``) holds each new token's k and v quantized per head
+(:func:`_quantize_kv`), and the decode kernel dequantizes as it reads.
 """
 from __future__ import annotations
 
@@ -140,13 +142,26 @@ def _rmsn(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """[B, S, Hkv, dh] -> (int8 values, [B, S, Hkv] f32 scales): the f32
+    absmax over dh, ``scale = max(amax, 1e-6) / 127``, values
+    ``clip(round(x / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``; a division, as the reference's, not a reciprocal)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
 def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
                 positions: torch.Tensor) -> None:
     """Write S new (k, v) at slots ``positions % W`` in place and record
     each slot's position.  k/v: [B, S, Hkv, dh]; positions: [S] on the
     cache's device.  The slots are computed and written on the device, a
     decode step's one slot too, so that a step captured as a CUDA graph
-    writes the slot of the position it is replayed at.
+    writes the slot of the position it is replayed at.  An int8 cache
+    (one with ``k_scale`` and ``v_scale``) takes the values quantized per
+    token and head, and their scales at the same slots.
 
     A prefill longer than the ring (S > W) has several positions per slot;
     the reference scatters them all and leaves unspecified which write
@@ -159,6 +174,11 @@ def _ring_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor
     if s > w:
         k, v, positions = k[:, -w:], v[:, -w:], positions[-w:]
     slots = (positions % w).long()
+    if "k_scale" in cache:
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        cache["k_scale"].index_copy_(1, slots, ks)
+        cache["v_scale"].index_copy_(1, slots, vs)
     ck.index_copy_(1, slots, k.to(ck.dtype))
     cv.index_copy_(1, slots, v.to(cv.dtype))
     cpos.index_copy_(0, slots, positions.to(cpos.dtype))
@@ -192,7 +212,7 @@ def attention_sublayer(cfg: ModelConfig, p: Attention, x: torch.Tensor, cache, m
         length = positions + 1
         y = ops.flash_decode(
             q[:, 0].reshape(b, hkv, h // hkv, dh), cache["k"], cache["v"], length,
-            backend=backend,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"), backend=backend,
         ).reshape(b, 1, h, dh)
     out = y.reshape(b, s, h * dh) @ p.wo.reshape(h * dh, d)
     if p.bo is not None:
@@ -248,13 +268,15 @@ def _mlp(cfg: ModelConfig, p: DenseBlock, h: torch.Tensor):
 
 
 def dense_block_apply(cfg: ModelConfig, p: DenseBlock, x: torch.Tensor, cache, mode: str,
-                      positions: torch.Tensor, window: int, backend: Optional[str] = None):
+                      positions: torch.Tensor, window: int, backend: Optional[str] = None,
+                      prefix: int = 0):
     """One dense or MoE block: returns (x, aux).  ``cache`` (this layer's
-    ``{"k", "v", "pos"}``, or None) is updated in place.  The reference's
-    prefix-LM length is 0 without the vision prefix, which is not
-    ported."""
+    ``{"k", "v", "pos"}``, with ``k_scale`` and ``v_scale`` when int8, or
+    None) is updated in place.  ``prefix`` is the prefix-LM length: the
+    positions below it attend to each other both ways (PaliGemma's image
+    patches); decode ignores it, as the reference does."""
     h = norm_apply(p.ln1, x, cfg.norm, cfg.norm_eps)
-    attn_out = attention_sublayer(cfg, p.attn, h, cache, mode, positions, window, 0, backend)
+    attn_out = attention_sublayer(cfg, p.attn, h, cache, mode, positions, window, prefix, backend)
     if cfg.parallel_residual:
         m_out, aux = _mlp(cfg, p, h)
         return x + attn_out + m_out, aux

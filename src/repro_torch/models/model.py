@@ -1,7 +1,11 @@
 """CausalLM assembly: embeddings -> layer groups -> final norm -> head.
 
 Port of ``repro/models/model.py`` for the blocks ported so far: dense,
-MoE and Hymba.  A model is a sequence of *layer groups*, each a
+MoE and Hymba, with the reference's model features: the int8 KV cache
+(``kv_quant``), PaliGemma's vision prefix (``n_patches`` projected image
+features before the prompt, attended both ways) and MusicGen's
+codebooks (``n_codebooks`` token streams, summed embeddings, one head
+each).  A model is a sequence of *layer groups*, each a
 homogeneous run of blocks (a dense model is one group; DeepSeek's leading
 dense layers are a group before its MoE group; Hymba's are grouped by
 attention window).  The reference stacks a
@@ -11,7 +15,7 @@ module and a Python loop walks them.  The parameters are held in
 (bf16 for the served configs), made once at first use, which is the
 reference's per-block ``astype`` done ahead of time.  The embedding,
 final norm and LM head are read from the f32 parameters, as in the
-reference.
+reference, as are the vision projection and the codebook heads.
 
 Every entry point takes an explicit ``device`` (``None`` means the card,
 and a host without one raises) and random weights come from a
@@ -42,6 +46,7 @@ from .config import ModelConfig
 from .ssm import HEAD_P
 
 N_META_TOKENS = 128  # hymba learnable meta tokens
+SIGLIP_DIM = 1152  # paligemma vision-stub feature width
 Position = Union[int, torch.Tensor]  # an int, or a 0-d int32 tensor on the device
 NOT_PORTED = "ROADMAP.md queue 1 item 13"
 BLOCK_KINDS = ("dense", "moe", "hymba")  # the ported block kinds
@@ -87,35 +92,37 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the xLSTM blocks."""
     if cfg.block_kind not in BLOCK_KINDS:
         raise NotImplementedError(
             f"{cfg.name}: block_kind {cfg.block_kind!r} is not ported yet ({NOT_PORTED}); "
             f"{', '.join(repr(k) for k in BLOCK_KINDS)} run"
         )
-    for field, what in (("kv_quant", "the int8 KV cache"), ("n_patches", "the vision prefix"),
-                        ("n_codebooks", "the multi-codebook audio head")):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{cfg.name}: {field} ({what}) is not ported yet ({NOT_PORTED})")
 
 
 def prefix_tokens(cfg: ModelConfig) -> int:
-    """Positions the prefill puts before the prompt: Hymba's meta tokens,
-    none for the other ported blocks (the reference launcher's ``extra``
-    without the vision prefix, which is not ported)."""
-    return N_META_TOKENS if cfg.block_kind == "hymba" else 0
+    """Positions the prefill puts before the prompt: the image patches and
+    Hymba's meta tokens (the reference launcher's ``extra``)."""
+    return (cfg.n_patches or 0) + (N_META_TOKENS if cfg.block_kind == "hymba" else 0)
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _frozen(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
 # ------------------------------------------------------------------ model
 class CausalLM(nn.Module):
-    """The parameters, named as the reference's pytree: ``embed``,
-    ``meta_tokens`` (Hymba only), ``groups.{g}.{i}.<block keys>`` (layer
-    ``i`` of group ``g``; the reference stacks it as ``groups[g][...][i]``),
-    ``final_norm``, ``lm_head``."""
+    """The parameters, named as the reference's pytree: ``embed`` (``[K,
+    V, D]`` with K codebooks), ``vision_proj`` (``[1152, D]``, with image
+    patches), ``meta_tokens`` (Hymba only), ``groups.{g}.{i}.<block
+    keys>`` (layer ``i`` of group ``g``; the reference stacks it as
+    ``groups[g][...][i]``), ``final_norm``, and ``heads`` (``[K, D, V]``,
+    with codebooks) or ``lm_head`` (untied embeddings)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -123,12 +130,12 @@ class CausalLM(nn.Module):
         self.cfg = cfg
         dt = _dtype(cfg.param_dtype)
         kw = dict(dtype=dt, device=device)
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw), requires_grad=False)
+        k = cfg.n_codebooks
+        self.embed = _frozen((k, cfg.vocab_size, cfg.d_model) if k else (cfg.vocab_size, cfg.d_model), **kw)
         self.register_parameter(
-            "meta_tokens",
-            nn.Parameter(torch.empty(N_META_TOKENS, cfg.d_model, **kw), requires_grad=False)
-            if prefix_tokens(cfg) else None,
-        )
+            "vision_proj", _frozen((SIGLIP_DIM, cfg.d_model), **kw) if cfg.n_patches else None)
+        self.register_parameter(
+            "meta_tokens", _frozen((N_META_TOKENS, cfg.d_model), **kw) if cfg.block_kind == "hymba" else None)
         self.groups = nn.ModuleList(
             nn.ModuleList(HymbaBlock(cfg, dt, device) if spec.kind == "hymba"
                           else DenseBlock(cfg, dt, device, moe=spec.kind == "moe") for _ in range(spec.n))
@@ -136,11 +143,10 @@ class CausalLM(nn.Module):
         )
         self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
         self.register_parameter(
+            "heads", _frozen((k, cfg.d_model, cfg.vocab_size), **kw) if k else None)
+        self.register_parameter(
             "lm_head",
-            None if cfg.tie_embeddings else nn.Parameter(
-                torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False
-            ),
-        )
+            None if k or cfg.tie_embeddings else _frozen((cfg.d_model, cfg.vocab_size), **kw))
         self._compute: Dict[torch.dtype, List[List[nn.Module]]] = {}
 
     def compute_blocks(self, dtype: torch.dtype) -> List[List[nn.Module]]:
@@ -163,14 +169,17 @@ class CausalLM(nn.Module):
 def _init_weights(model: CausalLM, gen: torch.Generator) -> None:
     cfg = model.cfg
     model.embed.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    if model.vision_proj is not None:
+        model.vision_proj.normal_(0.0, SIGLIP_DIM ** -0.5, generator=gen)
     if model.meta_tokens is not None:
         model.meta_tokens.normal_(0.0, 0.02, generator=gen)
     for grp in model.groups:
         for blk in grp:
             (init_hymba_block if isinstance(blk, HymbaBlock) else init_dense_block)(blk, gen)
     init_norm(model.final_norm)
-    if model.lm_head is not None:
-        model.lm_head.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    for head in (model.heads, model.lm_head):
+        if head is not None:
+            head.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> CausalLM:
@@ -192,11 +201,12 @@ def abstract_params(cfg: ModelConfig) -> CausalLM:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = None) -> List[Any]:
     """Per-group decode caches, as the reference lays them out (layer
     first).  A dense or MoE group's is the attention cache itself, ``{"k",
-    "v": [n, B, W, Hkv, dh], "pos": [n, W]}``; a Hymba group's is
-    ``{"attn": <the same>, "ssm": (conv [n, B, K-1, dI], h [n, B, H, N,
-    64] f32)}``.  W is ``max_len`` on full-attention layers and
-    ``min(max_len, window)`` on window layers.  max_len includes Hymba's
-    meta tokens."""
+    "v": [n, B, W, Hkv, dh], "pos": [n, W]}``, with ``kv_quant`` k and v in
+    int8 and ``"k_scale", "v_scale": [n, B, W, Hkv]`` f32 beside them; a
+    Hymba group's is ``{"attn": <the same>, "ssm": (conv [n, B, K-1, dI],
+    h [n, B, H, N, 64] f32)}``.  W is ``max_len`` on full-attention layers
+    and ``min(max_len, window)`` on window layers.  max_len includes the
+    prefix positions (``prefix_tokens``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg.compute_dtype)
@@ -204,11 +214,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = 
     caches: List[Any] = []
     for spec in layer_groups(cfg):
         w = min(max_len, spec.window) if spec.window else max_len
+        kv_dt = torch.int8 if cfg.kv_quant else dt
         attn = {
-            "k": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
-            "v": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=dt, device=dev),
+            "k": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=kv_dt, device=dev),
+            "v": torch.zeros((spec.n, batch, w, cfg.n_kv_heads, dh), dtype=kv_dt, device=dev),
             "pos": torch.full((spec.n, w), -1, dtype=torch.int32, device=dev),
         }
+        if cfg.kv_quant:
+            for key in ("k_scale", "v_scale"):
+                attn[key] = torch.zeros((spec.n, batch, w, cfg.n_kv_heads), dtype=torch.float32, device=dev)
         if spec.kind != "hymba":
             caches.append(attn)
             continue
@@ -235,36 +249,51 @@ def _layer_cache(cache: Any, i: int) -> Any:
 
 # ----------------------------------------------------------------- forward
 def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cache, mode: str,
-                 positions: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
+                 positions: torch.Tensor, prefix: int, backend: Optional[str]) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
     for i, blk in enumerate(blocks):
         c = None if cache is None else _layer_cache(cache, i)
         if spec.kind == "hymba":
             x = hymba_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
         else:  # the MoE aux loss is for training, which the port does not run yet
-            x, _ = dense_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
+            x, _ = dense_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend, prefix)
         x = x.to(cdt)
     return x
 
 
 def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
-                 start_pos: Position = 0, mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int]:
+                 start_pos: Position = 0,
+                 mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """Assemble the input sequence.  Returns (x [B,S',D], positions [S']
-    int32 on x's device, n_prefix_tokens); Hymba's meta tokens lead the
-    sequence outside decode mode (in decode they live in the cache from
-    prefill).  ``start_pos`` is
-    an int or a 0-d int32 tensor on the device, whose value is never read
-    on the host.  The reference's prefix-LM length is 0 without the vision
-    prefix, which is not ported."""
+    int32 on x's device, prefix, n_prefix_tokens): ``prefix`` is the
+    prefix-LM length (the image patches, attended both ways) and
+    ``n_prefix_tokens`` the leading positions that are not the prompt's.
+    Codebook tokens [B, S, K] sum their K embeddings in codebook order in
+    the parameter dtype, as the reference's ``sum``.  Outside decode
+    mode, the projected ``batch["patches"]`` [B, n_patches, 1152] and
+    Hymba's meta tokens lead the sequence (in decode they live in the
+    cache from prefill).  ``start_pos`` is an int or a 0-d int32 tensor on
+    the device, whose value is never read on the host."""
     tokens = batch["tokens"]
     dt = _dtype(cfg.compute_dtype)
-    x = params.embed[tokens].to(dt)
-    n_prefix = 0
-    if mode != "decode" and prefix_tokens(cfg):
-        b = tokens.shape[0]
-        meta = params.meta_tokens[None].to(dt).expand(b, N_META_TOKENS, cfg.d_model)
-        x = torch.cat([meta, x], dim=1)
-        n_prefix = N_META_TOKENS
+    if cfg.n_codebooks:
+        x = params.embed[0][tokens[..., 0]]
+        for k in range(1, cfg.n_codebooks):
+            x = x + params.embed[k][tokens[..., k]]
+        x = x.to(dt)
+    else:
+        x = params.embed[tokens].to(dt)
+    prefix = n_prefix = 0
+    b = tokens.shape[0]
+    if mode != "decode":
+        if cfg.n_patches and "patches" in batch:
+            patches = batch["patches"].to(dt) @ params.vision_proj.to(dt)
+            x = torch.cat([patches, x], dim=1)
+            prefix = n_prefix = patches.shape[1]  # bidirectional over the image prefix
+        if cfg.block_kind == "hymba":
+            meta = params.meta_tokens[None].to(dt).expand(b, N_META_TOKENS, cfg.d_model)
+            x = torch.cat([meta, x], dim=1)
+            n_prefix = N_META_TOKENS
     if isinstance(start_pos, torch.Tensor):
         offsets = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         positions = start_pos.to(torch.int32) + offsets
@@ -272,26 +301,26 @@ def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tens
         positions = torch.arange(
             start_pos, start_pos + x.shape[1], dtype=torch.int32, device=x.device
         )
-    return x, positions, n_prefix
+    return x, positions, prefix, n_prefix
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
             caches: Optional[List[Any]] = None, mode: str = "train", start_pos: Position = 0,
             backend: Optional[str] = None) -> torch.Tensor:
-    """Hidden states [B,S,D] after the final norm (Hymba's meta tokens
-    dropped outside decode).  With ``mode`` "prefill" or "decode" the caches are
+    """Hidden states [B,S,D] after the final norm (the image patches and
+    Hymba's meta tokens dropped outside decode).  With ``mode`` "prefill" or "decode" the caches are
     updated in place; ``start_pos`` is the position of the first token (an
     int, or a 0-d int32 tensor on the device)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     if (caches is None) != (mode == "train"):
         raise ValueError(f"mode {mode!r} {'needs' if mode != 'train' else 'takes no'} caches")
-    x, positions, n_prefix = embed_inputs(cfg, params, batch, start_pos, mode)
+    x, positions, prefix, n_prefix = embed_inputs(cfg, params, batch, start_pos, mode)
     blocks_by_group = params.compute_blocks(_dtype(cfg.compute_dtype))
     for gi, (spec, blocks) in enumerate(zip(layer_groups(cfg), blocks_by_group)):
         gc = None if caches is None else caches[gi]
-        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, backend)
+        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, prefix, backend)
     x = norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -308,8 +337,9 @@ def _head_matrix(cfg: ModelConfig, params: CausalLM) -> torch.Tensor:
 @torch.no_grad()
 def serve_step(cfg: ModelConfig, params: CausalLM, caches: List[Any], tokens: torch.Tensor,
                pos: Position, backend: Optional[str] = None) -> torch.Tensor:
-    """One decode step of tokens [B, 1] at position ``pos``; returns logits
-    [B, vocab] in f32 and updates ``caches`` in place.  ``pos`` is a 0-d
+    """One decode step of tokens [B, 1] ([B, 1, K] with codebooks) at
+    position ``pos``; returns logits [B, vocab] ([B, K, vocab]) in f32 and
+    updates ``caches`` in place.  ``pos`` is a 0-d
     int32 tensor on the model's device, as the reference's traced
     ``jnp.int32``, or an int, made into the step's positions on the device
     once (``embed_inputs``).  Nothing on the step reads a device value on
@@ -317,12 +347,16 @@ def serve_step(cfg: ModelConfig, params: CausalLM, caches: List[Any], tokens: to
     (``launch/steps.py::make_serve_step``)."""
     hidden = forward(cfg, params, {"tokens": tokens}, caches=caches, mode="decode",
                      start_pos=pos, backend=backend)
-    return hidden[:, -1].float() @ _head_matrix(cfg, params).float()
+    h = hidden[:, -1].float()
+    if cfg.n_codebooks:
+        return torch.einsum("bd,kdv->bkv", h, params.heads.float())
+    return h @ _head_matrix(cfg, params).float()
 
 
 def prefill(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
             caches: List[Any], backend: Optional[str] = None) -> torch.Tensor:
-    """Run the prompt through the model filling ``caches`` in place;
+    """Run the prompt (``batch["tokens"]``, and ``batch["patches"]`` with
+    the vision prefix) through the model filling ``caches`` in place;
     returns the last hidden state [B, D]."""
     hidden = forward(cfg, params, batch, caches=caches, mode="prefill", backend=backend)
     return hidden[:, -1]

@@ -3,7 +3,9 @@
 ``init_params`` in the two packages draws different random numbers from
 the same seed, so parity runs take the reference's parameter pytree,
 converted to numpy by the caller (``jax.tree.map(np.asarray, params)``),
-and load it into the port's modules here.  Layouts are the same
+and load it into the port's modules here: the top-level ``embed`` (``[K,
+V, D]`` with codebooks), ``vision_proj``, ``meta_tokens``, ``heads`` or
+``lm_head`` and ``final_norm`` as they are.  Layouts are the same
 (``[d, h, dh]`` projections, ``[in, out]`` matrices), so nothing is
 transposed; the reference stacks each layer group's parameters ``[n,
 ...]``, and layer ``i`` of group ``g`` is ``groups.{g}.{i}`` here (a MoE
@@ -49,7 +51,11 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceL
     model = CausalLM(cfg, dev)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            leaf, layer = tree_leaf(tree, name)
+            try:
+                leaf, layer = tree_leaf(tree, name)
+            except (KeyError, IndexError) as e:
+                raise ValueError(f"{name} {tuple(p.shape)}: not in the reference's tree "
+                                 f"(top-level keys {sorted(tree)})") from e
             arr = np.asarray(leaf if layer is None else leaf[layer])
             if arr.shape != tuple(p.shape):
                 raise ValueError(f"{name}: reference shape {arr.shape}, port {tuple(p.shape)}")

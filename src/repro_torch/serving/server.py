@@ -33,7 +33,9 @@ stream before it hands its output env to the next stage (the counterpart
 of the reference's ``block_until_ready``), and it holds its input env
 until then: a tensor made on stage i's stream and freed by stage i+1
 returns to stage i's allocator pool only after every kernel that read it
-has finished.
+has finished.  A host image stays on the host until stage 0 moves its
+whole micro-batch to the card in one copy on its stream, so ``submit()``
+never waits on the device.
 """
 from __future__ import annotations
 
@@ -66,6 +68,18 @@ logger = logging.getLogger(__name__)
 
 class ServingError(RuntimeError):
     """Base class for serving-runtime failures."""
+
+
+def device_batch(
+    xs: Sequence[torch.Tensor], device: torch.device, pad_to: int
+) -> Dict[str, torch.Tensor]:
+    """Stage 0's input env on ``device``: host images are stacked and
+    padded on the host and cross to the card in one copy, on the calling
+    thread's stream."""
+    if any(x.device != xs[0].device for x in xs):
+        xs = [x.to(device) for x in xs]
+    env = stack_envs([{"input": x} for x in xs], pad_to=pad_to)
+    return {k: v.to(device) for k, v in env.items()}
 
 
 class Backpressure(ServingError):
@@ -831,11 +845,18 @@ class PipelineServer:
         """
         if not self._started and not self._closed:
             self.start()
-        x = torch.as_tensor(image, dtype=torch.float32).to(self.device)
-        if self.device.type == "cuda":
-            # the copy ran on this thread's stream; finish it before a
-            # stage stream reads the image
-            torch.cuda.current_stream(self.device).synchronize()
+        x = torch.as_tensor(image, dtype=torch.float32)
+        if self.device.type == "cuda" and x.device.type == "cpu":
+            # a host image stays on the host (as it stood at submit) until
+            # stage 0 moves its micro-batch to the card: no device work
+            # holds the submitting thread
+            x = x.clone()
+        else:
+            x = x.to(self.device)
+            if self.device.type == "cuda":
+                # the image was made on this thread's stream; finish it
+                # before a stage stream reads it
+                torch.cuda.current_stream(self.device).synchronize()
         if x.ndim == len(self.graph.input_shape):
             x = x[None]
         if x.shape != (1, *self.graph.input_shape):
@@ -964,8 +985,8 @@ class PipelineServer:
                             t.dequeued_at = t0
                             self.metrics.note_dequeue(t.submitted_at, t0)
                     with on_stream(stream):
-                        env = stack_envs(
-                            [{"input": x} for _, x in items], pad_to=self.batch_size
+                        env = device_batch(
+                            [x for _, x in items], self.device, self.batch_size
                         )
                     # materialize before handing off: the stage boundary is
                     # where the activation crosses clusters in the paper

@@ -45,6 +45,7 @@ from repro_torch.core.pipeline import Pipeline, PipelinePlan
 from repro_torch.kernels import runtime
 from repro_torch.launch.serve import generate
 from repro_torch.models import init_params
+from repro_torch.models.blocks import _quantize_kv
 from repro_torch.serving import (
     AdmissionError,
     AutoPlanner,
@@ -501,6 +502,36 @@ def test_cuda_route_served_bitwise_equal_single_stage(cuda):
         np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=RTOL, atol=ATOL)
 
 
+def test_host_images_cross_to_the_card_in_stage_0(cuda):
+    """A CUDA server's submit() does no device work for a host image: it
+    queues a host copy taken at submit (a later write to the caller's
+    buffer does not reach it), stage 0 moves each micro-batch to the card
+    in one copy, and the outputs keep the bits of the same images
+    submitted from the card."""
+    from repro_torch.serving.server import device_batch
+
+    host = [torch.full((1, 2, 2, 3), float(i)) for i in range(3)]
+    env = device_batch(host[:2] + [host[2].to(cuda)], cuda, 4)
+    assert env["input"].device.type == "cuda" and env["input"].shape == (4, 2, 2, 3)
+    assert torch.equal(env["input"].cpu(), torch.cat(host + [torch.zeros(1, 2, 2, 3)]))
+    g = _tiny()
+    rng = np.random.default_rng(3)
+    images = [rng.standard_normal((1, 16, 16, 3)).astype(np.float32) for _ in range(10)]
+    server = serve(g, backend="cuda_fused", batch_size=4, seed=1)
+    try:
+        want = [o.cpu() for o in server.run([torch.as_tensor(im, device=cuda) for im in images])["outputs"]]
+        buf = images[0].copy()
+        ticket = server.submit(buf)
+        buf[...] = 0.0
+        got = ticket.result(timeout=60).cpu()
+        outs = [o.cpu() for o in server.run(images)["outputs"]]
+    finally:
+        server.stop()
+    assert torch.equal(got, want[0])
+    for a, b in zip(outs, want):
+        assert torch.equal(a, b)
+
+
 def test_fused_and_unfused_routes_serve_the_same_bits(cuda):
     """``cuda_fused`` (conv and fc kernels with the epilogue) and ``cuda``
     (im2col + gemm, then ``+ b`` and ReLU) sum in one order: the served
@@ -539,32 +570,81 @@ def _bf16_ulp(r):
     return torch.ldexp(torch.ones_like(r), e - 8)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FD_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_flash_decode_kernel_matches_plain(cuda, case, dtype):
+def _check_flash_decode(cuda, case, dtype, quant=False):
+    """B5 at ``case`` against its plain version (f32 at 2e-4, bf16 within
+    one bf16 ulp of the f32 plain version on the same cache), a row at
+    batch 1 and a second call bitwise equal.  ``quant``: the cache is
+    int8 with its scales, and the result must also be bitwise the
+    kernel's on the cache dequantized into q's type, and the same with
+    the length on the device."""
     b, hkv, g, d, w, length = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(sum(case))
     q = _on(cuda, rng, b, hkv, g, d, scale=0.5).to(dt)
     k, v = _on(cuda, rng, b, w, hkv, d, scale=0.5).to(dt), _on(cuda, rng, b, w, hkv, d).to(dt)
+    scales = {}
+    if quant:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+        kd, vd = FD.dequantize(k, ks, dt), FD.dequantize(v, vs, dt)
+    else:
+        kd, vd = k, v
     before = K.launch_counts()["flash_decode"]
-    y = ops.flash_decode(q, k, v, length)
+    y = ops.flash_decode(q, k, v, length, **scales)
     torch.cuda.synchronize()
     assert K.launch_counts()["flash_decode"] == before + 1
     assert y.dtype == dt and y.shape == q.shape
     if dtype == "float32":
-        ref = FD.flash_decode_ref(q, k, v, length)
+        ref = FD.flash_decode_ref(q, k, v, length, **scales)
         np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4, atol=2e-4)
     else:
-        r32 = FD.flash_decode_ref(q.float(), k.float(), v.float(), length)
+        r32 = FD.flash_decode_ref(q.float(), kd.float(), vd.float(), length)
         assert bool(((y.float() - r32).abs() <= _bf16_ulp(r32)).all())
     # the split length depends on (W, D) alone: a row's bits do not depend
     # on the batch it rides in, nor on the call
     row = b - 1
+    one = {key: t[row:row + 1].contiguous() for key, t in scales.items()}
     y1 = ops.flash_decode(q[row:row + 1].contiguous(), k[row:row + 1].contiguous(),
-                          v[row:row + 1].contiguous(), length)
+                          v[row:row + 1].contiguous(), length, **one)
     assert torch.equal(y1, y[row:row + 1])
-    assert torch.equal(ops.flash_decode(q, k, v, length), y)
+    assert torch.equal(ops.flash_decode(q, k, v, length, **scales), y)
+    if quant:  # dequantized as it reads, in the plain version's arithmetic
+        assert torch.equal(ops.flash_decode(q, kd, vd, length), y)
+        dev_len = torch.tensor([length], dtype=torch.int32, device=cuda)
+        assert torch.equal(ops.flash_decode(q, k, v, dev_len, **scales), y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_kernel_matches_plain(cuda, case, dtype):
+    _check_flash_decode(cuda, case, dtype)
+
+
+# PaliGemma's MQA at D = 256 (G 8, its served 1152 slots: splits of 128),
+# a valid prefix of 1, ragged, all, each side of the first split; a
+# smaller G (f32 rows of 64 pieces: two a lane)
+FD256_CASES = [(4, 1, 8, 256, 1152, 1), (4, 1, 8, 256, 1152, 1025), (4, 1, 8, 256, 1152, 1152),
+               (2, 1, 8, 256, 1152, 128), (2, 1, 8, 256, 1152, 129), (2, 2, 3, 256, 300, 200)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FD256_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_kernel_at_head_dim_256_matches_plain(cuda, case, dtype):
+    _check_flash_decode(cuda, case, dtype)
+
+
+# an int8 cache: MusicGen's served shape (Hkv 32, G 1, D 64, 896 slots:
+# splits of 64) at a prefix of 1, ragged, all and each side of the first
+# split; Command R+'s G 12 at D 128 (two G-chunks); GQA; D = 256
+FD_INT8_CASES = [(4, 32, 1, 64, 896, 1), (4, 32, 1, 64, 896, 769), (4, 32, 1, 64, 896, 896),
+                 (4, 32, 1, 64, 896, 64), (4, 32, 1, 64, 896, 65), (2, 8, 12, 128, 300, 200),
+                 (2, 2, 3, 64, 300, 129), (2, 1, 8, 256, 300, 200)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FD_INT8_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_decode_kernel_on_an_int8_cache_bitwise_equal_the_dequantized(cuda, case, dtype):
+    _check_flash_decode(cuda, case, dtype, quant=True)
 
 
 # ------------------------------------------------------------- SSD (B6)
@@ -640,7 +720,7 @@ def test_decode_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
         ops.flash_decode(z, cache.bfloat16(), cache, 3)
     with pytest.raises(ValueError):
         ops.flash_decode(z, cache, cache, 0)
-    for d in (62, 256):  # not a multiple of a 16-byte vector of f32, too wide
+    for d in (62, 264):  # not a multiple of a 16-byte vector of f32, too wide
         with pytest.raises(ValueError):
             ops.flash_decode(torch.zeros(1, 2, 2, d, device=cuda), torch.zeros(1, 8, 2, d, device=cuda),
                              torch.zeros(1, 8, 2, d, device=cuda), 3)
@@ -949,6 +1029,38 @@ def test_reduced_dense_and_moe_decode_replayed_bitwise_equal_eager(cuda, arch, d
     eager = generate(cfg, model, prompt, 6, keep_logits=6, graphs=False)
     K.reset_launches()
     graphed = generate(cfg, model, prompt, 6, keep_logits=6, step_hook=hook)
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    for a, b in zip(graphed["logits"], eager["logits"]):
+        assert torch.equal(a, b)
+    assert per_step[0] == ("prefill", 0, 0, 0)
+    assert per_step[1:] == [("decode", 2, 2, 0 if i == 0 else 1) for i in range(6)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-large"])
+def test_reduced_feature_models_decode_replayed_bitwise_equal_eager(cuda, arch, dtype):
+    """A reduced PaliGemma (image patches before the prompt) and MusicGen
+    (four codebooks on an int8 cache) decoded with one captured step
+    replayed give the eager run's tokens and logits bit for bit; each step
+    launches 2 flash-decode kernels and nothing else, and every step
+    after the first one graph launch."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype=dtype)
+    model = init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (4, 40) + books, device=cuda, generator=gen)
+    patches = torch.randn((4, cfg.n_patches, 1152), device=cuda, generator=gen) if cfg.n_patches else None
+    per_step = []
+
+    def hook(phase, i):
+        per_step.append((phase, sum(K.launch_counts().values()), K.launch_counts()["flash_decode"],
+                         runtime.graph_launches()))
+        K.reset_launches()
+
+    eager = generate(cfg, model, prompt, 6, keep_logits=6, graphs=False, patches=patches)
+    K.reset_launches()
+    graphed = generate(cfg, model, prompt, 6, keep_logits=6, step_hook=hook, patches=patches)
+    assert tuple(graphed["tokens"].shape) == (4, 6) + books
     assert torch.equal(graphed["tokens"], eager["tokens"])
     for a, b in zip(graphed["logits"], eager["logits"]):
         assert torch.equal(a, b)

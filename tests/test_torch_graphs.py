@@ -128,8 +128,8 @@ def test_embed_inputs_takes_a_tensor_position():
     cfg = get_config("hymba-1.5b").reduced()
     model = init_params(cfg, seed=0, device="cpu")
     tokens = torch.zeros(2, 1, dtype=torch.long)
-    _, at_int, _ = embed_inputs(cfg, model, {"tokens": tokens}, 191, mode="decode")
-    _, at_tensor, _ = embed_inputs(cfg, model, {"tokens": tokens}, _pos(191), mode="decode")
+    _, at_int, _, _ = embed_inputs(cfg, model, {"tokens": tokens}, 191, mode="decode")
+    _, at_tensor, _, _ = embed_inputs(cfg, model, {"tokens": tokens}, _pos(191), mode="decode")
     assert at_tensor.dtype == torch.int32 and torch.equal(at_tensor, at_int)
 
 

@@ -44,7 +44,7 @@ def test_cli_without_device_means_the_card():
         S.main(["--arch", "hymba-1.5b", "--reduced", "--gen", "1"])
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "command-r-plus-104b", "xlstm-1.3b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_cli_refuses_unported_architectures(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.main(["--arch", arch, "--reduced", "--device", "cpu", "--gen", "1"])

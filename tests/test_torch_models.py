@@ -101,10 +101,11 @@ def test_configs_equal_the_reference_field_by_field():
         assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(ref.reduced()), arch
 
 
-# every architecture whose blocks are ported; the int8 KV cache is not,
-# so configs with kv_quant take kv_quant=False (it adds no parameter)
+# every architecture whose blocks are ported, with its features: the
+# vision projection, the codebook embeddings and heads (the int8 KV cache
+# adds no parameter)
 PORTED = ["smollm-360m", "starcoder2-15b", "command-r-plus-104b", "deepseek-moe-16b",
-          "moonshot-v1-16b-a3b", "olmoe-1b-7b", "hymba-1.5b"]
+          "moonshot-v1-16b-a3b", "olmoe-1b-7b", "hymba-1.5b", "paligemma-3b", "musicgen-large"]
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
@@ -113,7 +114,6 @@ def test_parameter_shapes_equal_the_reference(arch, reduced):
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     if reduced:
         cfg, rcfg = cfg.reduced(), rcfg.reduced()
-    cfg, rcfg = (dataclasses.replace(c, kv_quant=False) for c in (cfg, rcfg))
     ref_tree = ref_abstract_params(rcfg)
     mine = abstract_params(cfg)  # the meta device: no storage
     n_ref = len(jax.tree.leaves(ref_tree))
@@ -146,9 +146,8 @@ def test_init_params_is_seeded():
     assert abs(float(a.embed.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 
-# xLSTM's blocks; PaliGemma's vision prefix, MusicGen's codebook head and
-# Command R+'s int8 KV cache
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "paligemma-3b", "musicgen-large", "command-r-plus-104b"])
+# xLSTM's blocks, the one block kind not ported yet
+@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(get_config(arch).reduced())
@@ -156,11 +155,17 @@ def test_unported_architectures_raise(arch):
         init_params(get_config(arch).reduced(), device="cpu")
 
 
+# the model features build on Hymba too: the int8 cache in its attention
+# caches, the codebooks, the patch projection
 @pytest.mark.parametrize("field", ["kv_quant", "n_patches", "n_codebooks"])
-def test_unported_options_raise(field):
-    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), **{field: 1})
-    with pytest.raises(NotImplementedError, match=field):
-        init_params(cfg, device="cpu")
+def test_features_build_on_hymba(field):
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), **{field: 2})
+    check_supported(cfg)
+    model = init_params(cfg, device="cpu")
+    caches = init_cache(cfg, 2, 9, device="cpu")
+    assert (caches[0]["attn"]["k"].dtype == torch.int8) == (field == "kv_quant")
+    assert (model.vision_proj is not None) == (field == "n_patches")
+    assert (model.heads is not None) == (field == "n_codebooks")
 
 
 # ----------------------------------------------------------------- modules

@@ -205,7 +205,6 @@ def test_layer_groups_equal_the_reference(arch):
         rcfg, cfg = ref_get_config(arch), get_config(arch)
         if reduce:
             rcfg, cfg = rcfg.reduced(), cfg.reduced()
-        rcfg, cfg = (dataclasses.replace(c, kv_quant=False) for c in (rcfg, cfg))
         assert [dataclasses.asdict(g) for g in layer_groups(cfg)] == \
             [dataclasses.asdict(g) for g in ref_layer_groups(rcfg)]
 

@@ -97,6 +97,16 @@ def test_stack_envs_pads_with_zero_rows_and_split_rows_drops_them():
     assert stack_envs(envs)["x"].shape[0] == 3
 
 
+def test_device_batch_stacks_and_pads_stage_0s_input():
+    from repro_torch.serving.server import device_batch
+
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.standard_normal((1, 4, 4, 3)).astype(np.float32)) for _ in range(3)]
+    env = device_batch(xs, torch.device("cpu"), 4)
+    assert list(env) == ["input"] and env["input"].device.type == "cpu"
+    assert torch.equal(env["input"], torch.cat(xs + [torch.zeros(1, 4, 4, 3)]))
+
+
 def test_gather_flushes_on_size_and_on_sentinel():
     q: "queue.Queue" = queue.Queue()
     end = object()
