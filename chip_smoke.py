@@ -168,26 +168,33 @@ Phases (any failure exits non-zero):
    same bits; 6b the SSD scan
    (B6) at Hymba's 50 heads
    of P = 64, N = 16, chunk 64 and 128, a nonzero h0, head-stride-0 B/C,
-   f32 and bf16; 6c, 6e, 6f, 6g and 6h (``lm_phase``, one body for the
-   five models) serve Hymba-1.5B (32 layers), SmolLM-360M (32 dense
+   f32 and bf16, and its wide form with the normalizer at xLSTM's N = P =
+   512, chunk 128 (the served prefill's shape, a ragged S of 300, and 768
+   tokens from a given h0 and n0; y, h_final, den and n_final in f32 and
+   bf16, gated relative to the output's scale); 6c, 6e, 6f, 6g, 6h and
+   6i (``lm_phase``, one body for the six models) serve Hymba-1.5B (32 layers), SmolLM-360M (32 dense
    layers), OLMoE-1B-7B (16 MoE layers, 64 experts, top-8), PaliGemma-3B
    (18 layers, MQA at head_dim 256, 256 random SigLIP-width image
-   features projected before the prompt and attended both ways) and
+   features projected before the prompt and attended both ways),
    MusicGen-large (48 layers, four codebooks summed in and read out by
-   four heads, an int8 KV cache) at full width and depth (random weights from seed 0, bf16 on f32 weights, after checking
+   four heads, an int8 KV cache) and xLSTM-1.3B (48 layers: six runs of
+   7 mLSTM layers, each followed by one sLSTM layer; 6i, after 6h) at
+   full width and depth (random weights from seed 0, bf16 on f32 weights, after checking
    that the f32 weights and their bf16 copy fit) through
    ``repro_torch.launch.serve.generate``, the CLI's own loop: batch 4, a
    768-token prompt (896 with Hymba's meta tokens, 1024 with PaliGemma's
    patches; 768 x 4 codebook tokens for MusicGen), 128 greedy steps, the
    first op by op and the rest replaying one captured step.  The launch
-   counters must show one SSD launch a Hymba layer and no other launch in
-   the prefill, exactly n_layers flash-decode launches and no other in
-   each decode step, and one graph launch in each step after the first.
+   counters must show one SSD launch a Hymba or mLSTM layer and no other
+   launch in the prefill, exactly one flash-decode launch an attention
+   layer and no other in each decode step (none in xLSTM's), and one
+   graph launch in each step after the first.
    The same 128 steps op by op, and both again in f32, must give the same
    greedy tokens and bitwise equal logits at every step.  A further run,
    op by op in bf16 and in f32, repeats every B5 and B6 call of the
    prefill and 8 decode steps through the plain version on the same
-   activations.  The kernel route against the plain route, teacher-forced
+   activations (B6 with the normalizer relative to its outputs' scale,
+   as in 6b).  The kernel route against the plain route, teacher-forced
    over the prefill's last hidden state and 8 steps' logits with every
    router call recorded: a routing flip (the experts a token picks, as a
    set) is counted, the first flip in a sequence must lie on a near-tie
@@ -196,20 +203,23 @@ Phases (any failure exits non-zero):
    (bf16 printed).  Printed: the pairs a MoE prefill drops past capacity,
    prefill ms, the steady replayed step against its bounds from the
    bytes a step moves (a MoE step with every expert, as the reference's
-   algorithm reads them, and with the experts its router picked), the
+   algorithm reads them, and with the experts its router picked; xLSTM's
+   f32 recurrent state read and written once), the
    reserved memory after load, and a profiler trace of 3 decode steps, op
    by op and replayed (the device's busy and idle share, the host's CUDA
    API calls a step).  Each model is freed before the next.  6d, between
    6c and 6e, times B5 (its length on the device, the int form beside it)
    at Hymba's served shape, at ``decode_32k``'s (batch 16, 32768 slots)
    and at 6a's served shapes of 6e-6h (6h's on its int8 cache), and B6
-   at the served prefill's (one memset and one kernel launch a call),
+   at the served prefill's (one memset and one kernel launch a call) and
+   at xLSTM's (the wide form with the normalizer),
    each beside its plain version, its bound and, for B5,
    ``F.scaled_dot_product_attention`` with a length mask (on the int8
    cache: the dequantize into bf16 and SDPA, SDPA alone beside it);
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
-   the five above and B5, B6; B5's launches summed over 6c, 6e-6h,
-   with its times at every shape 6d timed), then the ``{"ok": true,
+   the five above and B5, B6; B5's launches summed over 6c, 6e-6h and
+   B6's over 6c and 6i, each with its times at every shape 6d timed),
+   then the ``{"ok": true,
    ...}`` line last.
 
 Tolerances: kernel vs plain version ``|y - r| <= RTOL*|r| + ATOL*max(1, max|r|)``
@@ -360,6 +370,21 @@ INT8_FD_SHAPES = (("musicgen_served_int8", 4, 32, 1, 64, 896),)
 FLIP_GAP = 1e-3
 FD_TOL = 2e-4  # f32 bar of the reference's flash-decode and SSD kernel tests
 SSD_BF16_TOL = 5e-2  # the reference's bf16 bar for the SSD kernel
+# phase 6i: xLSTM-1.3B (42 mLSTM layers through B6 with its normalizer,
+# 6 sLSTM layers), served by lm_phase() as 6c serves Hymba; its mLSTM
+# head size d_model / n_heads, B6's N = P at its served prefill
+XLSTM_LMS = (("6i", "xlstm-1.3b"),)
+XLSTM_DH = 512
+ATTN_KINDS = ("dense", "moe", "hymba")  # the layer groups with an attention cache
+# A random-weight xLSTM stack is chaotic in f32: its plain route against
+# itself, with B6's plain version at chunk 64 instead of 128 (the same
+# scan summed in another order), differs by RMS ~0.3 on logits of range
+# ~4.5 (25-78x the 3e-2 bar) after a 768-token prompt.  So 6i holds the
+# kernel route, teacher-forced in f32, within REORDER_SLACK times that
+# reordering's RMS distance from the plain route; every B6 call is held
+# to its own bar on the served activations besides
+REORDER_CHUNK = 64
+REORDER_SLACK = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -436,6 +461,14 @@ def cuda_api_call(name: str) -> bool:
     """A profiler key that names a CUDA runtime or driver API call
     (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cuLaunchKernel``, ...)."""
     return name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper())
+
+
+def scaled_ratio(torch, y, r, tol):
+    """Worst ``|y - r| / (tol |r| + tol max(1, max|r|))``: a tolerance
+    relative to the output's scale, the absolute floor scaled by its range
+    as ``tol_ok``'s."""
+    y, r = y.float(), r.float()
+    return float(((y - r).abs() / (tol * r.abs() + tol * max(1.0, float(r.abs().max())))).max())
 
 
 def bf16_ulp(torch, r):
@@ -571,6 +604,41 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                               "head_stride_0": shared, "dtype": str(dtype).split(".")[-1],
                               "err_over_tol": ratio, "finite": bool(torch.isfinite(y).all())})
             ssd_worst = max(ssd_worst, ratio)
+    # xLSTM's mLSTM: the wide form with the normalizer at N = P = 512,
+    # chunk 128 (B, S, H, h0 and n0 given): the served prefill's shape, a
+    # ragged S (padded to 3 chunks) and 6 chunks from a given state.
+    # Inputs as the mLSTM makes them, the input gate e^min(i, 8) with i
+    # of spread 2 (B reaches ~3000 k).  y, den and both states held at
+    # the same tolerances relative to the output's scale (the absolute
+    # floor scaled by max|r|, as tol_ok: the scan's sums run over 512 and
+    # 128 terms as large as the output's range); the elementwise ratio of
+    # the Hymba cases printed beside it
+    norm_cases, norm_worst = [], 0.0
+    n = p = XLSTM_DH
+    for (b, s_len, h, state) in ((LM_BATCH, LM_PROMPT, 4, False), (2, 300, 4, True), (2, LM_PROMPT, 4, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(b, s_len, h, p, dtype=dtype)
+            la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(dtype)
+            gate = torch.exp(torch.clamp(randn(b, s_len, h, scale=2.0), max=8.0))
+            B = (randn(b, s_len, h, n) * n ** -0.5 * gate[..., None]).to(dtype)
+            C = randn(b, s_len, h, n, dtype=dtype)
+            h0 = randn(b, h, n, p, scale=0.3) if state else None
+            n0 = randn(b, h, n).abs() if state else None
+            got = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True)
+            want = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True, backend="torch")
+            tol = FD_TOL if dtype == torch.float32 else SSD_BF16_TOL
+            ratios = [scaled_ratio(torch, g, w, tol) for g, w in zip(got, want)]
+            elementwise = [float(((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max())
+                           for g, w in zip(got, want)]
+            err["ssd"] = max([err["ssd"]] + [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)])
+            norm_cases.append({"B": b, "S": s_len, "H": h, "P": p, "N": n, "chunk": 128, "h0_n0": state,
+                               "dtype": str(dtype).split(".")[-1],
+                               "err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), ratios)),
+                               "elementwise_err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), elementwise)),
+                               "max_abs_out": [float(w.float().abs().max()) for w in want],
+                               "finite": all(bool(torch.isfinite(g).all()) for g in got)})
+            norm_worst = max([norm_worst] + ratios)
+            del x, la, gate, B, C, h0, n0, got, want
     torch.cuda.synchronize()
     print(json.dumps({"correctness_lm_kernels": {
         "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
@@ -582,6 +650,9 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                                        "bfloat16": "|y - r_f32| <= 1 bf16 ulp of r_f32 (no finer than at 2^-8 max|r_f32|)"}},
         "ssd": {"cases": ssd_cases, "tolerance": {"float32": f"rtol=atol={FD_TOL}",
                                                   "bfloat16": f"rtol=atol={SSD_BF16_TOL}"}},
+        "ssd_normalizer": {"cases": norm_cases, "tolerance": {
+            "float32": f"|y-r| <= {FD_TOL}*|r| + {FD_TOL}*max(1, max|r|)",
+            "bfloat16": f"|y-r| <= {SSD_BF16_TOL}*|r| + {SSD_BF16_TOL}*max(1, max|r|)"}},
     }}))
     for dname, (ratio, where) in fd_worst.items():
         check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
@@ -592,6 +663,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
           f"{fd_int8_not_dequant_bitwise[:3]}")
     check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
+    check(all(c["finite"] for c in norm_cases), "ssd with the normalizer: an output is not finite")
+    check(norm_worst <= 1.0, f"ssd with the normalizer exceeds its bar (err/tol {norm_worst:.3g})")
 
     # ----------------- 6c. Hymba-1.5B served at full width through B5, B6
     lm = lm_phase(torch, dev, "6c", LM_ARCH, bytes_peak)
@@ -686,6 +759,30 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
     )
     del x, la, B, C
+    # B6 at xLSTM-1.3B's served prefill: the wide form with the normalizer,
+    # one mLSTM layer over the 768-token prompt (N = P = 512, 6 chunks of
+    # 128), by the same count of operations and bytes (den and n_final
+    # beside y and h_final)
+    s_len, h, p, n, chunk = LM_PROMPT, 4, XLSTM_DH, XLSTM_DH, 128
+    x = randn(b, s_len, h, p, dtype=torch.bfloat16)
+    la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(torch.bfloat16)
+    B = (randn(b, s_len, h, n) * n ** -0.5 * torch.exp(torch.clamp(randn(b, s_len, h), max=8.0))[..., None]
+         ).to(torch.bfloat16)
+    C = randn(b, s_len, h, n, dtype=torch.bfloat16)
+    n_chunks = b * h * (-(-s_len // chunk))
+    causal = chunk * (chunk + 1) // 2
+    xl_flops = 2.0 * n_chunks * (causal * n + causal * p + 2 * chunk * n * p)
+    xl_bytes = 2.0 * (2 * x.numel() + la.numel() + 2 * b * s_len * h * n) + 4.0 * (b * h * n * p + b * s_len * h + b * h * n)
+    rows["ssd_xlstm"] = timed(
+        "ssd", f"xLSTM served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, normalizer (wide form)",
+        lambda: OPS.ssd(x, la, B, C, normalizer=True),
+        lambda: OPS.ssd(x, la, B, C, normalizer=True, backend="torch"),
+        None, xl_flops, flops_peak, xl_bytes,
+        library_null_reason=NO_LIBRARY["ssd"],
+        cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
+        blocks=n_chunks * (p // 64),
+    )
+    del x, la, B, C
     torch.cuda.empty_cache()
 
     kernels = []
@@ -700,8 +797,14 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     # B5's row: Hymba's served shape, and beside it every other shape timed
     kernels[0]["shapes"] = {
         label: {key: row[key] for key in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for label, row in rows.items() if label != "ssd"}
+        for label, row in rows.items() if label not in ("ssd", "ssd_xlstm")}
     kernels[0]["launches_by_path"] = {"6c hymba-1.5b": launches["flash_decode"]}
+    # B6's row: Hymba's served shape, and beside it xLSTM's (phase 6i adds its launches)
+    kernels[1]["shapes"] = {
+        label: {key: rows[label][key] for key in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")}
+        for label in ("ssd", "ssd_xlstm")}
+    kernels[1]["launches_by_path"] = {"6c hymba-1.5b": launches["ssd"]}
     return kernels
 
 
@@ -773,20 +876,21 @@ def lm_inputs(torch, cfg, dev):
 
 def lm_phase(torch, dev, phase, arch, bytes_peak):
     """Phases 6c (Hymba-1.5B), 6e (SmolLM-360M), 6f (OLMoE-1B-7B), 6g
-    (PaliGemma-3B) and 6h (MusicGen-large): one model at full width and
+    (PaliGemma-3B), 6h (MusicGen-large) and 6i (xLSTM-1.3B): one model at full width and
     depth, random weights from seed 0, bf16 on f32 weights, served through
     ``generate``, the CLI's own loop: batch 4, a 768-token prompt (of four
     codebooks for MusicGen; after Hymba's 128 meta tokens or PaliGemma's
     256 image patches, ``lm_inputs``), 128 greedy steps, the first op by
     op and the rest replaying one captured step.  Gated: the
     f32 weights and their bf16 copy fit; the prefill launches one B6 a
-    Hymba layer and no other counted kernel; each decode step exactly
-    n_layers B5 launches and nothing else, one graph launch in each
+    Hymba or mLSTM layer and no other counted kernel; each decode step
+    exactly one B5 launch an attention layer and nothing else, one graph launch in each
     replayed step; the same steps op by op, in bf16 and f32, give the same
     tokens and bitwise-equal logits; every B5 and B6 call of the prefill
     and LM_CHECK_STEPS op-by-op decode steps, in bf16 and f32, against its
     plain version on the same activations (B5: one bf16 ulp, FD_TOL in
-    f32; B6: SSD_BF16_TOL, FD_TOL in f32), and those runs' logits equal to
+    f32; B6: SSD_BF16_TOL, FD_TOL in f32, with the normalizer relative to
+    the outputs' scale), and those runs' logits equal to
     the served ones; the kernel route against the plain route,
     teacher-forced, within LM_RTOL in f32 on the sequences no routing flip
     has reached, and every primary flip on a near-tie (gap below
@@ -804,6 +908,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import runtime
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_eager_serve_step, make_prefill_step, make_serve_step
     from repro_torch.models import abstract_params, init_cache, init_params, layer_groups, prefix_tokens
@@ -814,7 +919,9 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     n_layers, offset = cfg.n_layers, LM_PROMPT + prefix_tokens(cfg)
     groups = layer_groups(cfg)
     n_moe = sum(g.n for g in groups if g.kind == "moe")
-    n_ssd = sum(g.n for g in groups if g.kind == "hymba")
+    n_ssd = sum(g.n for g in groups if g.kind in ("hymba", "mlstm"))  # B6 in each prefill layer
+    n_fd = sum(g.n for g in groups if g.kind in ATTN_KINDS)  # B5 in each decode layer
+    recurrent = any(g.kind in ("mlstm", "slstm") for g in groups)
     # the f32 parameters and the blocks' bf16 copy must fit beside the rest
     shape = abstract_params(cfg)
     n_params = sum(p.numel() for p in shape.parameters())
@@ -857,8 +964,8 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     decode_graphs = [n for _, _, n in per_step[1:]]
     check(len(decode_counts) == LM_GEN, f"{phase}: {len(decode_counts)} decode steps, want {LM_GEN}")
     for i, c in enumerate(decode_counts):
-        check(all(n == (n_layers if k == "flash_decode" else 0) for k, n in c.items()),
-              f"{phase}: decode step {i} launched {c}, want {n_layers} flash_decode and nothing else")
+        check(all(n == (n_fd if k == "flash_decode" else 0) for k, n in c.items()),
+              f"{phase}: decode step {i} launched {c}, want {n_fd} flash_decode and nothing else")
     check(decode_graphs == [0] + [1] * (LM_GEN - 1),
           f"{phase}: graph launches per decode step {decode_graphs[:4]}..., want 0 (the eager first step), then 1")
     tokens = out["tokens"]
@@ -930,14 +1037,19 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         record("flash_decode", q.dtype, float((d / tol).max()), d)
         return y
 
-    def ssd_checked(x, log_a, B, C, h0=None, chunk=128, backend=None):
-        y, hf = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend=backend)
-        ry, rh = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend="torch")
+    def ssd_checked(x, log_a, B, C, h0=None, chunk=128, backend=None, normalizer=False, n0=None):
+        got = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend=backend, normalizer=normalizer, n0=n0)
+        want = orig_ssd(x, log_a, B, C, h0=h0, chunk=chunk, backend="torch", normalizer=normalizer, n0=n0)
         tol = SSD_BF16_TOL if x.dtype == torch.bfloat16 else FD_TOL
-        d = (y.float() - ry.float()).abs()
-        record("ssd", x.dtype, max(float((d / (tol + tol * ry.float().abs())).max()),
-                                   float(((hf - rh).abs() / (tol + tol * rh.abs())).max())), d)
-        return y, hf
+        d = torch.stack([(g.float() - w.float()).abs().max() for g, w in zip(got, want)])
+        if normalizer:  # the mLSTM's wide form: y, h_final, den, n_final, relative to their scale (6b)
+            ratio = max(scaled_ratio(torch, g, w, tol) for g, w in zip(got, want))
+        else:
+            (y, hf), (ry, rh) = got, want
+            ratio = max(float(((y.float() - ry.float()).abs() / (tol + tol * ry.float().abs())).max()),
+                        float(((hf - rh).abs() / (tol + tol * rh.abs())).max()))
+        record("ssd", x.dtype, ratio, d)
+        return got
 
     OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
     try:  # op by op: the checks read device values on the host, which no capture may
@@ -981,6 +1093,31 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         dname = c.compute_dtype
         kern, kcalls = forced(c, None)
         plain, pcalls = forced(c, "torch")
+        if dname == "float32" and recurrent:
+            # the yardstick of a recurrent stack: the plain route against
+            # itself with B6's plain version at a chunk of REORDER_CHUNK,
+            # the same scan summed in another order
+            orig_ref = SSD.ssd_ref
+
+            def reordered_ref(*args, chunk=128, **kw):
+                return orig_ref(*args, chunk=min(chunk, REORDER_CHUNK), **kw)
+
+            SSD.ssd_ref = reordered_ref
+            try:
+                reordered, _ = forced(c, "torch")
+            finally:
+                SSD.ssd_ref = orig_ref
+
+            def rms_apart(outs, ref):
+                return float(torch.cat([(o - r).flatten() for o, r in zip(outs, ref)]).pow(2).mean().sqrt())
+
+            yardstick = {"kernel_vs_plain_rms": rms_apart(kern, plain),
+                         "plain_reordered_vs_plain_rms": rms_apart(reordered, plain),
+                         "plain_reordered_worst_err_over_tol": max(
+                             float(((a - b).abs() / (LM_ATOL + LM_RTOL * b.abs())).max())
+                             for a, b in zip(reordered, plain)),
+                         "reorder_chunk": REORDER_CHUNK, "slack": REORDER_SLACK}
+            del reordered
         check(len(kcalls) == len(pcalls) == n_moe * (1 + LM_CHECK_STEPS),
               f"{phase}: {len(kcalls)} and {len(pcalls)} router calls, want {n_moe * (1 + LM_CHECK_STEPS)}")
         reached, flips = route_flips(torch, kcalls, pcalls, max(n_moe, 1), LM_BATCH)
@@ -1006,8 +1143,49 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
                         "prefill_pairs_dropped_per_layer": [
                             int((torch.bincount(idx.flatten(), minlength=cfg.n_experts) - cap).clamp(min=0).sum())
                             for idx, _ in kcalls[:n_moe]]})
+        if dname == "float32" and recurrent:
+            row["recurrent_yardstick"] = yardstick
         e2e[dname] = row
         del kern, plain, kcalls, pcalls
+
+    # where an xLSTM prefill's time goes: one more op-by-op prefill with
+    # each mLSTM and sLSTM cell timed by CUDA events around it (a sync a
+    # cell), beside the whole prefill's time
+    prefill_split = None
+    if recurrent:
+        import repro_torch.models.blocks as BLK
+
+        spent = {"mlstm": [], "slstm": []}
+        cells = {"mlstm": BLK.mlstm_mix, "slstm": BLK.slstm_mix}
+
+        def timed_cell(kind):
+            def run(*args, **kw):
+                s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_ev.record()
+                out = cells[kind](*args, **kw)
+                e_ev.record()
+                e_ev.synchronize()
+                spent[kind].append(s_ev.elapsed_time(e_ev))
+                return out
+            return run
+
+        BLK.mlstm_mix, BLK.slstm_mix = timed_cell("mlstm"), timed_cell("slstm")
+        try:
+            caches = init_cache(cfg, LM_BATCH, out["max_len"], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make_prefill_step(cfg)(model, {"tokens": prompt}, caches)
+            torch.cuda.synchronize()
+            split_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            BLK.mlstm_mix, BLK.slstm_mix = cells["mlstm"], cells["slstm"]
+        del caches
+        prefill_split = {
+            "prefill_ms_host_clock": split_ms,
+            **{f"{kind}_cells": len(v) for kind, v in spent.items()},
+            **{f"{kind}_ms": sum(v) for kind, v in spent.items()},
+            **{f"{kind}_share": sum(v) / split_ms for kind, v in spent.items()},
+            "timer": "CUDA events around each cell (a sync a cell), the host clock around the prefill"}
 
     # where a decode step's time goes, op by op and replayed: device busy
     # time of a few steps (profiler, kernels summed) against the served
@@ -1054,14 +1232,22 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         + 4 * (head.numel() + model.final_norm.scale.numel())
     steady = range(2, LM_GEN)
     kv = [sum(g.n * slot_bytes * ((min(offset + i + 1, g.window) if g.window else offset + i + 1) + 1)
-              for g in groups) for i in steady]
+              for g in groups if g.kind in ATTN_KINDS) for i in steady]
+    # xLSTM's recurrent state, f32, read and written once a step: each
+    # mLSTM layer's h [B, H, dh, dh] and n [B, H, dh], each sLSTM layer's
+    # c, n, h, m [B, H, dh] (Hymba's SSM and conv states stay left out)
+    dh = cfg.resolved_head_dim
+    state_bytes = 2 * 4 * LM_BATCH * cfg.n_heads * sum(
+        g.n * (dh * dh + dh if g.kind == "mlstm" else 4 * dh) for g in groups if g.kind in ("mlstm", "slstm"))
+    kv = [b + state_bytes for b in kv]
     all_ms = sum(fixed + 2 * n_moe * cfg.n_experts * expert_params + b for b in kv) / len(kv) / bytes_peak * 1e3
     routed_ms = sum(fixed + 2 * expert_params * experts_read[i] + b
                     for i, b in zip(steady, kv)) / len(kv) / bytes_peak * 1e3
     steady_ms = out["steady_ms_per_step"]
     report = {
         "phase": phase, "model": arch, "params": n_params, "block_params": block_params,
-        "n_layers": n_layers, "moe_layers": n_moe, "ssd_layers": n_ssd, "experts": cfg.n_experts,
+        "n_layers": n_layers, "moe_layers": n_moe, "ssd_layers": n_ssd, "attention_layers": n_fd,
+        "experts": cfg.n_experts,
         "top_k": cfg.top_k, "batch": LM_BATCH, "prompt": LM_PROMPT, "prefix_tokens": prefix_tokens(cfg),
         "n_patches": cfg.n_patches, "n_codebooks": cfg.n_codebooks, "kv_quant": cfg.kv_quant,
         "head_dim": cfg.resolved_head_dim, "kv_heads": cfg.n_kv_heads,
@@ -1076,9 +1262,11 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
             "steady_over_all_experts_bound": steady_ms / all_ms,
             "steady_over_routed_bound": steady_ms / routed_ms,
             "experts_read_per_moe_layer": sum(experts_read[i] for i in steady) / len(kv) / max(n_moe, 1),
+            "recurrent_state_bytes": state_bytes,
             "counts": "bf16 block weights (every expert, or the routed ones), f32 head(s) and final norm, "
-                      "each layer's valid KV prefix read and one slot written (an int8 cache at a byte a "
-                      "value plus its f32 scales); mean over steps 3 on",
+                      "each attention layer's valid KV prefix read and one slot written (an int8 cache at "
+                      "a byte a value plus its f32 scales), xLSTM's f32 recurrent state read and written "
+                      "once; mean over steps 3 on",
         },
         "decode_step_breakdown": {
             "steps_profiled": LM_PROFILE_STEPS, **breakdown,
@@ -1087,6 +1275,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         "launches": {"prefill": prefill_counts, "per_decode_step": decode_counts[0],
                      "graph_launches_per_decode_step": {"first": decode_graphs[0], "later": decode_graphs[1]}},
         "eager_vs_graph": eager_vs_graph,
+        "prefill_split": prefill_split,
         "kernel_parity_on_served_activations": {
             f"{name} {dname}": {"calls": v[0], "worst_err_over_tol": v[1], "max_abs_err": v[2]}
             for (name, dname), v in served.items() if v[0]},
@@ -1103,13 +1292,19 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         check(row["tokens_equal"], f"{phase} {dname}: greedy tokens with graphs differ from the eager run's")
         check(row["kept_logits_bitwise"], f"{phase} {dname}: kept logits with graphs differ from the eager run's")
     for (name, dname), (calls, ratio, _) in served.items():
-        want = n_layers * LM_CHECK_STEPS if name == "flash_decode" else n_ssd
+        want = n_fd * LM_CHECK_STEPS if name == "flash_decode" else n_ssd
         check(calls == want, f"{phase} {dname}: {name} parity saw {calls} calls, want {want}")
         check(ratio <= 1.0, f"{phase} {dname}: {name} on served activations exceeds its bar ({ratio:.3g})")
     check(repeatable, f"{phase}: the checked op-by-op runs' logits differ from the served runs'")
     f32 = e2e["float32"]
-    check(f32["worst_err_over_tol"] <= 1.0, f"{phase}: float32 kernel route differs from the plain route "
-                                            f"(err/tol {f32['worst_err_over_tol']:.3g})")
+    if recurrent:  # as close to the plain route as the plain route reordered is
+        ys = f32["recurrent_yardstick"]
+        check(ys["kernel_vs_plain_rms"] <= REORDER_SLACK * ys["plain_reordered_vs_plain_rms"],
+              f"{phase}: float32 kernel route lies farther from the plain route ({ys['kernel_vs_plain_rms']:.3g} "
+              f"RMS) than {REORDER_SLACK} x the plain route reordered ({ys['plain_reordered_vs_plain_rms']:.3g})")
+    else:
+        check(f32["worst_err_over_tol"] <= 1.0, f"{phase}: float32 kernel route differs from the plain route "
+                                                f"(err/tol {f32['worst_err_over_tol']:.3g})")
     check(f32["rows_gated"] * 2 >= f32["rows_compared"], f"{phase}: routing flips left too few rows to compare")
     check(f32.get("max_primary_gap") is None or f32["max_primary_gap"] < FLIP_GAP,
           f"{phase}: a float32 routing flip off a near-tie: {f32.get('primary_flips', [])[:3]}")
@@ -3114,6 +3309,16 @@ def main() -> int:
         fd_row["launches"] += n
         fd_row["launches_by_path"][f"{phase} {arch}"] = n
         fd_row["max_abs_err"] = max(fd_row["max_abs_err"], lm["max_abs_err"]["flash_decode"])
+        mark(phase)
+
+    # ------------- 6i. xLSTM-1.3B served through B6 with its normalizer
+    ssd_row = lm_kernels[1]
+    for phase, arch in XLSTM_LMS:
+        lm = lm_phase(torch, dev, phase, arch, bytes_peak)
+        n = lm["launches"]["ssd"]
+        ssd_row["launches"] += n
+        ssd_row["launches_by_path"][f"{phase} {arch}"] = n
+        ssd_row["max_abs_err"] = max(ssd_row["max_abs_err"], lm["max_abs_err"]["ssd"])
         mark(phase)
 
     # ------------------------------------------------ 7. kernels line

@@ -486,6 +486,317 @@ int launch(const void* x, const void* la, const void* Bm, const void* Cm, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The wide form: a large state and the normalizer channel (xLSTM's mLSTM).
+//
+// The mLSTM runs the same scan with N = P = dh = 512 at Q = 128: a 1 MB
+// f32 state per (batch, head), and a [Q, N] operand of 256 KB, more than
+// a block's shared memory.  Two things make it fit:
+//
+//   * a column of P is a sequence of its own (h[:, p] needs x[:, p] and
+//     nothing else of x), so the grid gains a P-tile axis: one block per
+//     (chunk, batch, head, P-tile of WPT columns), each with its own
+//     ordered handoff of its [N, WPT] slice of the state, tickets dealt
+//     chunk-major over all four as above;
+//   * B and C are streamed through shared memory in slices of WNS rows of
+//     N.  The first pass over the slices sums the scores C B^T in
+//     registers and writes H_c's [N, WPT] into shared memory; after the
+//     handoff the second pass streams C and the state before the chunk
+//     (read back from L2 in slices) for exp(L) (C h).
+//
+// The scores are the same for every P-tile of a (batch, head, chunk), and
+// each P-tile recomputes them: at xLSTM's shape they are a sixth of the
+// block's multiply-adds (the two N x WPT products are the rest).
+//
+// The normalizer is the state of a virtual column of ones in x: it rides
+// the same scores and decay, never exists in memory, and is carried by
+// the first P-tile of each (batch, head): N_c = sum_s exp(L_end - L_s)
+// B_s, n <- exp(L_end) n + N_c handed down with that tile's state, and
+// den_t = exp(L_t) (C_t . n) + sum_{s <= t} scores[t, s], written in f32.
+//
+// One block per SM (227 KB of shared memory at N = 512, Q = 128); 768
+// blocks at xLSTM's served prefill (batch 4, 4 heads, 6 chunks, 8
+// P-tiles).  Bounded by operations, as the first form.
+constexpr int WPT = 64;   // columns of P a block (its P-tile)
+constexpr int WNS = 32;   // rows of N staged at a time (a slice)
+constexpr int WQ = 128;   // the longest chunk the wide form takes (3 score tiles a thread)
+constexpr int WTRI = 3;   // lower-triangle 4 x 4 score tiles a thread holds (QT (QT + 1) / 2 <= 3 NT)
+constexpr int WY = 2;     // 4 x 4 y tiles a thread holds (QT * WPT / 4 <= 2 NT)
+
+// Shared memory of the wide form, in floats (every region a whole number
+// of float4s).  ``big`` holds H_c's [N][WPT] until the state is passed
+// on, then the scores^T [QP][QP]; ``hs`` (the state's slice in the second
+// pass) reuses B^T's slice.
+struct WideLayout {
+  int xs, big, bt, hs, ct, wb, part, las, Ls, eL, wts, tot, nc, nprev, total;
+  __host__ __device__ WideLayout(int Q, int N) {
+    const int QP = up8(Q);
+    int o = 0;
+    xs = o; o += Q * WPT;                   // [Q][WPT]  x, this block's columns
+    big = o; o += imax(N * WPT, QP * QP);   // [N][WPT]  H_c, then [QP][QP] the scores^T
+    bt = hs = o; o += WNS * imax(QP, WPT);  // [WNS][QP] a slice of B^T; then [WNS][WPT] of h
+    ct = o; o += WNS * QP;                  // [WNS][QP] a slice of C^T
+    wb = o; o += Q * WNS;                   // [Q][WNS]  the slice of B, row-major (H_c)
+    part = o; o += WNS * WPT;               // [WNS][WPT] the second group's partial H_c
+    las = o; o += QP;
+    Ls = o; o += QP;
+    eL = o; o += QP;
+    wts = o; o += QP;
+    tot = o; o += up4((Q + 31) / 32);
+    nc = o; o += up4(N);                    // the normalizer's chunk summary N_c
+    nprev = o; o += up4(N);                 // the normalizer state before the chunk
+    total = o;
+  }
+};
+
+template <typename T, typename TL>
+__global__ void __launch_bounds__(NT, 1)
+ssd_wide_kernel(const T* __restrict__ x, const TL* __restrict__ la, const T* __restrict__ Bm,
+                const T* __restrict__ Cm, const float* __restrict__ h0, const float* __restrict__ n0,
+                T* __restrict__ y, float* __restrict__ h_out, float* __restrict__ den,
+                float* __restrict__ n_out, float* states, float* nstates, int* sync, int Bn, int S,
+                int H, int P, int N, int Q, Strides xs_, Strides las_, Strides bs_, Strides cs_,
+                int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const WideLayout lay(Q, N);
+  const int QP = up8(Q), QT = QP / 4, PT4 = WPT / 4, NPT = P / WPT;
+  float *xs = smem + lay.xs, *big = smem + lay.big, *bt = smem + lay.bt, *hs = smem + lay.hs,
+        *ct = smem + lay.ct, *wb = smem + lay.wb, *part = smem + lay.part, *las = smem + lay.las,
+        *Ls = smem + lay.Ls, *eL = smem + lay.eL, *wts = smem + lay.wts, *tot = smem + lay.tot,
+        *nc = smem + lay.nc, *nprev = smem + lay.nprev;
+  __shared__ int ticket_s;
+  const int tid = threadIdx.x;
+  const int NC = S / Q, HBP = H * Bn * NPT;
+  int* flags = sync + 1;  // [NC][B][H][P-tile]; sync[0] is the ticket counter
+
+  // ------------------------------------------- 1. this block's chunk and columns
+  if (tid == 0) ticket_s = atomicAdd(sync, 1);
+  if (QP != Q) {  // B^T and C^T: t >= Q reads as 0
+    for (int i = tid; i < WNS * QP; i += NT) bt[i] = 0.0f;
+    for (int i = tid; i < WNS * QP; i += NT) ct[i] = 0.0f;
+  }
+  __syncthreads();
+  const int ticket = ticket_s;
+  const int c = ticket / HBP;
+  int rest = ticket - c * HBP;
+  const int b = rest / (H * NPT);
+  rest -= b * H * NPT;
+  const int h = rest / NPT, pt = rest - h * NPT;
+  const int s0 = c * Q, p0 = pt * WPT;
+  const bool norm = den != nullptr && pt == 0;  // the P-tile that carries the normalizer
+  const int64_t bh = (int64_t)b * H + h, np = (int64_t)N * P;
+
+  stage<false>(xs, WPT, x + p0, xs_, b, s0, h, Q, WPT, vec & 1, tid);
+  for (int t = tid; t < Q; t += NT)
+    las[t] = to_f(la[b * las_.b + (int64_t)(s0 + t) * las_.s + h * las_.h]);
+  __syncthreads();
+  for (int t = tid; t < ((Q + 31) & ~31); t += NT) segment_scan(t < Q ? las[t] : 0.0f, t, las, tot, Q);
+  __syncthreads();
+  const float l_end = cumsum_finish(las, tot, Q - 1);
+  for (int t = tid; t < QP; t += NT) {
+    const float L = t < Q ? cumsum_finish(las, tot, t) : 0.0f;
+    Ls[t] = L;
+    eL[t] = t < Q ? expf(L) : 0.0f;
+    wts[t] = t < Q ? expf(l_end - L) : 0.0f;
+  }
+  __syncthreads();
+
+  // ------------------------------------------- 2. first pass over N: scores, H_c, N_c
+  // this thread's lower-triangle score tiles (ti >= si), summed over the slices
+  const int ntri = QT * (QT + 1) / 2;
+  int st0[WTRI], ss0[WTRI];
+#pragma unroll
+  for (int r = 0; r < WTRI; ++r) {
+    const int k = tid + r * NT;
+    int ti = (int)((sqrtf(8.0f * k + 1.0f) - 1.0f) * 0.5f);
+    while (ti * (ti + 1) / 2 > k) --ti;
+    while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
+    st0[r] = ti * 4;
+    ss0[r] = (k - ti * (ti + 1) / 2) * 4;
+  }
+  float sacc[WTRI][4][4] = {};
+  // H_c's slice [WNS][WPT] as 4 n x 4 p tiles: 128 tiles, two groups of
+  // threads each summing half of the steps, group 1's sum added in order
+  const int g = tid >> 7, tile = tid & 127;
+  const int nn0 = (tile / PT4) * 4, pp0 = (tile % PT4) * 4;
+  const int run = (Q + 1) / 2, k_lo = min(Q, g * run), k_hi = min(Q, (g + 1) * run);
+  for (int n0s = 0; n0s < N; n0s += WNS) {
+    stage<true>(bt, QP, Bm + n0s, bs_, b, s0, h, Q, WNS, (vec >> 1) & 1, tid);
+    stage<true>(ct, QP, Cm + n0s, cs_, b, s0, h, Q, WNS, (vec >> 2) & 1, tid);
+    stage<false>(wb, WNS, Bm + n0s, bs_, b, s0, h, Q, WNS, (vec >> 1) & 1, tid);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < WTRI; ++r)
+      if (tid + r * NT < ntri) outer_sum(sacc[r], ct, QP, st0[r], bt, QP, ss0[r], 0, WNS);
+    float hc[4][4] = {};
+    for (int k = k_lo; k < k_hi; ++k) {
+      const float w = wts[k];
+      const float4 u = *reinterpret_cast<const float4*>(wb + k * WNS + nn0);
+      const float4 v = *reinterpret_cast<const float4*>(xs + k * WPT + pp0);
+      const float a4[4] = {u.x * w, u.y * w, u.z * w, u.w * w}, b4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) hc[i][j] = fmaf(a4[i], b4[j], hc[i][j]);
+    }
+    if (g == 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        store4(part + (nn0 + i) * WPT + pp0, hc[i][0], hc[i][1], hc[i][2], hc[i][3]);
+    if (norm && tid < WNS) {  // N_c of this slice's rows
+      float acc = 0.0f;
+      for (int k = 0; k < Q; ++k) acc = fmaf(wts[k], wb[k * WNS + tid], acc);
+      nc[n0s + tid] = acc;
+    }
+    __syncthreads();  // the slice is read; part is written
+    if (g == 0)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(part + (nn0 + i) * WPT + pp0);
+        store4(big + (n0s + nn0 + i) * WPT + pp0, hc[i][0] + v.x, hc[i][1] + v.y, hc[i][2] + v.z,
+               hc[i][3] + v.w);
+      }
+  }
+
+  // ------------------------------------------- 3. the state before this chunk, passed on
+  const int64_t slot = (((int64_t)c * Bn + b) * H + h) * NPT + pt;  // this block's flag
+  bool fault = false;
+  if (c > 0 && tid == 0) {
+    const volatile int* flag = flags + slot - HBP;
+    int polls = 0;
+    while (*flag == 0 && ++polls < POLLS) __nanosleep(64);
+    fault = polls >= POLLS;
+    __threadfence();
+  }
+  fault = __syncthreads_or(fault);  // also: H_c is whole in big
+  const float* prev = c == 0 ? (h0 ? h0 + bh * np : nullptr) : states + ((int64_t)(c - 1) * Bn * H + bh) * np;
+  const float* nprev_g = !norm ? nullptr
+                         : c == 0 ? (n0 ? n0 + bh * N : nullptr)
+                                  : nstates + ((int64_t)(c - 1) * Bn * H + bh) * N;
+  const float a_end = expf(l_end);
+  {
+    float* dst = c + 1 < NC ? states + ((int64_t)c * Bn * H + bh) * np : h_out + bh * np;
+    for (int i = tid; i < N * PT4; i += NT) {  // exp(L_end) h + H_c, each step rounded
+      const int n = i / PT4, q = (i - n * PT4) * 4;
+      const float4 hv = prev ? __ldcg(reinterpret_cast<const float4*>(prev + n * (int64_t)P + p0 + q))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 hc = *reinterpret_cast<const float4*>(big + n * WPT + q);
+      store4(dst + n * (int64_t)P + p0 + q, __fadd_rn(__fmul_rn(a_end, hv.x), hc.x),
+             __fadd_rn(__fmul_rn(a_end, hv.y), hc.y), __fadd_rn(__fmul_rn(a_end, hv.z), hc.z),
+             __fadd_rn(__fmul_rn(a_end, hv.w), hc.w));
+    }
+    if (norm) {
+      float* ndst = c + 1 < NC ? nstates + ((int64_t)c * Bn * H + bh) * N : n_out + bh * N;
+      for (int n = tid; n < N; n += NT) {
+        const float v = nprev_g ? __ldcg(nprev_g + n) : 0.0f;
+        nprev[n] = v;
+        ndst[n] = __fadd_rn(__fmul_rn(a_end, v), nc[n]);
+      }
+    }
+  }
+  __syncthreads();  // the state is written; H_c is read
+  if (c + 1 < NC && tid == 0) {
+    __threadfence();  // cumulative: orders the block's writes above before the flag
+    atomicExch(flags + slot, 1);
+  }
+  // the scores^T into big, scaled by the decay and masked to s <= t
+#pragma unroll
+  for (int r = 0; r < WTRI; ++r) {
+    if (tid + r * NT >= ntri) continue;
+    const int t0 = st0[r], si0 = ss0[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = si0 + j;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + i;
+        v[i] = (s <= t && t < Q) ? sacc[r][i][j] * expf(fminf(Ls[t] - Ls[s], 0.0f)) : 0.0f;
+      }
+      store4(big + s * QP + t0, v[0], v[1], v[2], v[3]);
+    }
+  }
+
+  // ------------------------------------------- 4. second pass over N: exp(L) (C h), den
+  float yacc[WY][4][4] = {};
+  float dacc = 0.0f;  // C_t . n for t = tid (the normalizer's tile)
+  if (prev != nullptr || nprev_g != nullptr) {
+    for (int n0s = 0; n0s < N; n0s += WNS) {
+      stage<true>(ct, QP, Cm + n0s, cs_, b, s0, h, Q, WNS, (vec >> 2) & 1, tid);
+      for (int i = tid; i < WNS * PT4; i += NT) {
+        const int n = i / PT4, q = (i - n * PT4) * 4;
+        *reinterpret_cast<float4*>(hs + n * WPT + q) =
+            prev ? __ldcg(reinterpret_cast<const float4*>(prev + (n0s + n) * (int64_t)P + p0 + q))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < WY; ++r) {
+        const int yt = tid + r * NT;
+        if (yt < QT * PT4) outer_sum(yacc[r], ct, QP, (yt / PT4) * 4, hs, WPT, (yt % PT4) * 4, 0, WNS);
+      }
+      if (norm && tid < Q)
+        for (int j = 0; j < WNS; ++j) dacc = fmaf(ct[j * QP + tid], nprev[n0s + j], dacc);
+      __syncthreads();  // the slice is read
+    }
+  } else {
+    __syncthreads();  // the scores are in big
+  }
+
+  // ------------------------------------------- 5. y = exp(L) (C h) + scores x, and den
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int r = 0; r < WY; ++r) {
+    const int yt = tid + r * NT;
+    if (yt >= QT * PT4) continue;
+    const int t0 = (yt / PT4) * 4, q0 = (yt % PT4) * 4;
+    const float4 e = *reinterpret_cast<const float4*>(eL + t0);
+    const float e4[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yacc[r][i][j] *= e4[i];
+    outer_sum(yacc[r], big, QP, t0, xs, WPT, q0, 0, min(t0 + 4, Q));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + i;
+      if (t >= Q) break;
+      store4(y + (((int64_t)b * S + s0 + t) * H + h) * P + p0 + q0, fault ? nan : yacc[r][i][0],
+             fault ? nan : yacc[r][i][1], fault ? nan : yacc[r][i][2], fault ? nan : yacc[r][i][3]);
+    }
+  }
+  if (norm && tid < Q) {  // den_t = exp(L_t) (C_t . n) + sum_{s <= t} scores[t, s]
+    float intra = 0.0f;
+    for (int s = 0; s <= tid; ++s) intra += big[s * QP + tid];
+    den[((int64_t)b * S + s0 + tid) * H + h] = fault ? nan : eL[tid] * dacc + intra;
+  }
+}
+
+template <typename T, typename TL>
+int launch_wide(const void* x, const void* la, const void* Bm, const void* Cm, const void* h0,
+                const void* n0, void* y, void* h_out, void* den, void* n_out, void* states,
+                void* nstates, void* sync, int vec, int Bn, int S, int H, int P, int N, int Q,
+                Strides xs, Strides las, Strides bs, Strides cs, cudaStream_t stream) {
+  const int64_t blocks = (int64_t)(S / Q) * Bn * H * (P / WPT);
+  const size_t bytes = (size_t)WideLayout(Q, N).total * sizeof(float);
+  auto kern = ssd_wide_kernel<T, TL>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const cudaError_t e = cudaMemsetAsync(sync, 0, (size_t)(1 + blocks) * sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<(unsigned)blocks, NT, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const TL*>(la), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(h0), static_cast<const float*>(n0),
+      static_cast<T*>(y), static_cast<float*>(h_out), static_cast<float*>(den),
+      static_cast<float*>(n_out), static_cast<float*>(states), static_cast<float*>(nstates),
+      static_cast<int*>(sync), Bn, S, H, P, N, Q, xs, las, bs, cs, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared memory one block needs at chunk Q (the wrapper refuses more than
@@ -532,5 +843,42 @@ extern "C" int ssd_fwd(const void* x, const void* la, const void* Bm, const void
   if (x_bf16) return launch<bf, float>(SSD_ARGS);
   if (la_bf16) return launch<float, bf>(SSD_ARGS);
   return launch<float, float>(SSD_ARGS);
+#undef SSD_ARGS
+}
+
+// Shared memory one block of the wide form needs at chunk Q and state
+// rows N (the wrapper refuses more than the card's 227 KB).
+extern "C" int ssd_wide_smem_bytes(int Q, int N) {
+  return static_cast<int>(WideLayout(Q, N).total * sizeof(float));
+}
+
+// The wide form (a large state, the normalizer channel): the operands as
+// for ssd_fwd, and besides them n0 [B,H,N] f32 contiguous or null for
+// zeros, den [B,S,H] f32 and n_out [B,H,N] f32 (both null: no
+// normalizer), nstates [S/Q - 1, B, H, N] f32 (the normalizer state each
+// chunk but the first starts from).  sync holds 1 + S/Q * B * H * P/64
+// int32.  Q at most 128, P a multiple of 64 and N of 32.
+extern "C" int ssd_wide_fwd(const void* x, const void* la, const void* Bm, const void* Cm,
+                            const void* h0, const void* n0, void* y, void* h_out, void* den,
+                            void* n_out, void* states, void* nstates, void* sync, int x_bf16,
+                            int la_bf16, int vec, int Bn, int S, int H, int P, int N, int Q,
+                            long long xs_b, long long xs_s, long long xs_h,
+                            long long las_b, long long las_s, long long las_h,
+                            long long bs_b, long long bs_s, long long bs_h,
+                            long long cs_b, long long cs_s, long long cs_h, void* stream) {
+  if (Bn < 1 || H < 1 || Q < 1 || Q > WQ || S < Q || S % Q != 0 || P < WPT || P % WPT != 0 ||
+      N < WNS || N % WNS != 0 || (den == nullptr) != (n_out == nullptr) ||
+      (int64_t)(S / Q) * Bn * H * (P / WPT) >= (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides xs{xs_b, xs_s, xs_h}, las{las_b, las_s, las_h}, bs{bs_b, bs_s, bs_h},
+      cs{cs_b, cs_s, cs_h};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+#define SSD_ARGS x, la, Bm, Cm, h0, n0, y, h_out, den, n_out, states, nstates, sync, vec, Bn, S, H, \
+                 P, N, Q, xs, las, bs, cs, st
+  if (x_bf16 && la_bf16) return launch_wide<bf, bf>(SSD_ARGS);
+  if (x_bf16) return launch_wide<bf, float>(SSD_ARGS);
+  if (la_bf16) return launch_wide<float, bf>(SSD_ARGS);
+  return launch_wide<float, float>(SSD_ARGS);
 #undef SSD_ARGS
 }

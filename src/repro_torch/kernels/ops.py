@@ -77,15 +77,20 @@ def ssd(
     h0: Optional[torch.Tensor] = None,
     chunk: int = 128,
     backend: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    normalizer: bool = False,
+    n0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Chunked selective scan, batched: x ``[B,S,H,P]``, log_a ``[B,S,H]``,
     B/C ``[B,S,H,N]`` (a head stride of 0 is kept), h0 ``[B,H,N,P]`` or
-    ``None`` for zeros -> (y ``[B,S,H,P]``, h_final ``[B,H,N,P]`` f32).
-    The reference's single-sequence ``ssd`` vmaps over the batch instead.
+    ``None`` for zeros -> (y ``[B,S,H,P]``, h_final ``[B,H,N,P]`` f32);
+    with ``normalizer=True`` also (den ``[B,S,H]`` f32, n_final
+    ``[B,H,N]`` f32) from n0 ``[B,H,N]`` or zeros, as the reference's
+    ``ssd_scan``.  The reference's single-sequence ``ssd`` vmaps over the
+    batch instead.
 
     A ragged S is padded to a chunk multiple with ``log_a = 0`` (a = 1)
-    and ``B = 0`` (no input), which leaves y and the state exact, and y is
-    sliced back, as ``ssd_scan`` does."""
+    and ``B = 0`` (no input), which leaves y, den and both states exact,
+    and y and den are sliced back, as ``ssd_scan`` does."""
     _check_backend(backend)
     s = x.shape[1]
     q = min(chunk, s)
@@ -93,5 +98,10 @@ def ssd(
     if pad:
         x, log_a, B, C = (_pad_seq(t, pad) for t in (x, log_a, B, C))
     run = SSD.ssd if backend is None else SSD.ssd_ref
-    y, h_final = run(x, log_a, B, C, h0=h0, chunk=q)
-    return (y[:, :s] if pad else y), h_final
+    out = run(x, log_a, B, C, h0=h0, chunk=q, normalizer=normalizer, n0=n0)
+    if not pad:
+        return out
+    if normalizer:
+        y, h_final, den, n_final = out
+        return y[:, :s], h_final, den[:, :s], n_final
+    return out[0][:, :s], out[1]

@@ -12,6 +12,14 @@ next, and then computes its scores and output (an ordered handoff
 through scratch the wrapper allocates, a fixed size per shape).  f32
 arithmetic, y in x's type, h_final in f32.
 
+The mLSTM (xLSTM) needs two things more: the normalizer channel (``den``
+and ``n_final``, in f32) and a large state (N = P = 512, 1 MB a
+sequence and head).  The wide form of the same kernel splits P into
+tiles of 64 columns, each an independent sequence with its own handoff,
+and streams B and C through shared memory in slices of N; its first P
+tile carries the normalizer.  :func:`ssd` picks the form by shape, so
+Hymba's shape keeps the first form and its bits.
+
 B and C are read through strides: Hymba computes one B and one C per
 token and broadcasts them to every head (``repro/models/ssm.py:180-181``),
 so ``mamba_mix`` passes ``expand``ed views with head stride 0 and the
@@ -40,6 +48,9 @@ from . import runtime as R
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM = 232_448  # bytes of shared memory a block may use on sm_90
+# the wide form (csrc/ssd.cu, ssd_wide_fwd): columns of P a block, rows of
+# N staged at a time, the longest chunk
+WIDE_PT, WIDE_NS, WIDE_Q = 64, 32, 128
 
 
 def ssd_ref(
@@ -124,8 +135,17 @@ def _smem_bytes(q: int, p: int, n: int) -> int:
     return R.bind("ssd", "ssd_smem_bytes", [R.I, R.I, R.I])(q, p, n)
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_smem_bytes(q: int, n: int) -> int:
+    return R.bind("ssd", "ssd_wide_smem_bytes", [R.I, R.I])(q, n)
+
+
 def _strides(t: torch.Tensor, ndim: int):
     return [t.stride(i) for i in range(ndim)]
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _rows_of_16_bytes(t: torch.Tensor) -> bool:
@@ -140,6 +160,13 @@ def _rows_of_16_bytes(t: torch.Tensor) -> bool:
     )
 
 
+def _narrow_fits(q: int, p: int, n: int) -> bool:
+    """The first form (``ssd_fwd``) takes the shape: P a multiple of 4, N
+    rounded up to 4 times P at most 1024 (one 4 x 4 tile of the state a
+    thread), and its shared memory."""
+    return p % 4 == 0 and (-(-n // 4)) * (p // 4) <= 256 and _smem_bytes(q, p, n) <= MAX_SMEM
+
+
 def ssd(
     x: torch.Tensor,
     log_a: torch.Tensor,
@@ -147,11 +174,20 @@ def ssd(
     C: torch.Tensor,
     h0: Optional[torch.Tensor] = None,
     chunk: int = 128,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    normalizer: bool = False,
+    n0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Batched SSD over S a multiple of ``min(chunk, S)``: returns
-    (y [B,S,H,P] in x's type, h_final [B,H,N,P] f32); launches
-    ``csrc/ssd.cu`` on the current stream for CUDA tensors.  ``h0=None``
-    means a zero state."""
+    (y [B,S,H,P] in x's type, h_final [B,H,N,P] f32), and with
+    ``normalizer=True`` also (den [B,S,H] f32, n_final [B,H,N] f32), as
+    :func:`ssd_ref`; launches ``csrc/ssd.cu`` on the current stream for
+    CUDA tensors.  ``h0=None`` and ``n0=None`` mean a zero state.
+
+    Two forms, chosen by shape: the first (``ssd_fwd``, one block a
+    chunk) where it takes the shape and there is no normalizer, which
+    keeps Hymba's bits; else the wide form (``ssd_wide_fwd``, one block a
+    chunk and 64 columns of P: chunk at most 128, P a multiple of 64, N
+    of 32), which carries the normalizer.  A shape neither takes raises."""
     if x.dim() != 4 or log_a.dim() != 3 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(
             f"ssd: want x [B,S,H,P], log_a [B,S,H], B/C [B,S,H,N], got {tuple(x.shape)}, "
@@ -166,40 +202,54 @@ def ssd(
         raise ValueError(f"ssd: pad S = {s} to a multiple of the chunk {q} (kernels/ops.py::ssd does)")
     if h0 is not None and tuple(h0.shape) != (b, h, n, p):
         raise ValueError(f"ssd: h0 must be {(b, h, n, p)}, got {tuple(h0.shape)}")
+    if n0 is not None and (not normalizer or tuple(n0.shape) != (b, h, n)):
+        raise ValueError(f"ssd: n0 goes with normalizer=True and must be {(b, h, n)}, got {tuple(n0.shape)}")
     if not R.on_card(x, "ssd"):
-        return ssd_ref(x, log_a, B, C, chunk=q, h0=h0)
+        return ssd_ref(x, log_a, B, C, chunk=q, h0=h0, normalizer=normalizer, n0=n0)
     R.require(x, "x", 4, DTYPES)
     R.require(log_a, "log_a", 3, DTYPES)
     dev = x.device
-    if any(t.device != dev for t in (log_a, B, C)) or (h0 is not None and h0.device != dev):
+    if any(t is not None and t.device != dev for t in (log_a, B, C, h0, n0)):
         raise ValueError(f"ssd: every operand must be on {dev}")
     if B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd: x, B, C must share a dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
-    if p % 4 or (-(-n // 4)) * (p // 4) > 256:
-        raise ValueError(f"ssd: P = {p} must be a multiple of 4, and N rounded up to 4 times P "
-                         f"at most 1024 (N = {n})")
-    if _smem_bytes(q, p, n) > MAX_SMEM:
-        raise ValueError(f"ssd: chunk {q} with P = {p}, N = {n} needs more shared memory than a block has")
+    wide = normalizer or not _narrow_fits(q, p, n)
+    if wide and (q > WIDE_Q or p % WIDE_PT or n % WIDE_NS or _wide_smem_bytes(q, n) > MAX_SMEM):
+        raise ValueError(
+            f"ssd: chunk {q}, P = {p}, N = {n}{' with the normalizer' if normalizer else ''}: the first "
+            f"form takes P a multiple of 4 with N rounded up to 4 times P at most 1024 and no "
+            f"normalizer, the wide form chunk <= {WIDE_Q}, P a multiple of {WIDE_PT} and N of "
+            f"{WIDE_NS}, each within a block's shared memory")
     # the last dim must be contiguous; every other stride is passed (0 is fine)
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
     h0c = None if h0 is None else h0.float().contiguous()
     nc = s // q
     y = torch.empty((b, s, h, p), device=dev, dtype=x.dtype)
     h_out = torch.empty((b, h, n, p), device=dev, dtype=torch.float32)
-    # the state each chunk but the first starts from; a ticket counter and one flag a chunk
+    # the state each chunk but the first starts from; a ticket counter and one flag a block
     states = torch.empty((nc - 1, b, h, n, p), device=dev, dtype=torch.float32)
-    sync = torch.empty(1 + nc * b * h, device=dev, dtype=torch.int32)
+    sync = torch.empty(1 + nc * b * h * (p // WIDE_PT if wide else 1), device=dev, dtype=torch.int32)
     vec = sum(bit for bit, t in ((1, x), (2, B), (4, C)) if _rows_of_16_bytes(t))
-    fn = R.bind("ssd", "ssd_fwd", [R.P] * 9 + [R.I] * 9 + [R.L] * 12 + [R.P])
-    err = fn(
-        x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(),
-        None if h0c is None else h0c.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        states.data_ptr() if nc > 1 else None, sync.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(log_a.dtype == torch.bfloat16), vec,
-        b, s, h, p, n, q,
-        *_strides(x, 3), *_strides(log_a, 3), *_strides(B, 3), *_strides(C, 3),
-        R.stream(dev),
-    )
-    R.check(err, "ssd_fwd")
+    strides = (*_strides(x, 3), *_strides(log_a, 3), *_strides(B, 3), *_strides(C, 3))
+    flags = (int(x.dtype == torch.bfloat16), int(log_a.dtype == torch.bfloat16), vec, b, s, h, p, n, q)
+    if not wide:
+        fn = R.bind("ssd", "ssd_fwd", [R.P] * 9 + [R.I] * 9 + [R.L] * 12 + [R.P])
+        err = fn(x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(h0c), y.data_ptr(),
+                 h_out.data_ptr(), _ptr(states) if nc > 1 else None, sync.data_ptr(), *flags, *strides,
+                 R.stream(dev))
+        R.check(err, "ssd_fwd")
+        R.count("ssd")
+        return y, h_out
+    den = n_out = nstates = n0c = None
+    if normalizer:
+        den = torch.empty((b, s, h), device=dev, dtype=torch.float32)
+        n_out = torch.empty((b, h, n), device=dev, dtype=torch.float32)
+        nstates = torch.empty((nc - 1, b, h, n), device=dev, dtype=torch.float32)
+        n0c = None if n0 is None else n0.float().contiguous()
+    fn = R.bind("ssd", "ssd_wide_fwd", [R.P] * 13 + [R.I] * 9 + [R.L] * 12 + [R.P])
+    err = fn(x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(h0c), _ptr(n0c), y.data_ptr(),
+             h_out.data_ptr(), _ptr(den), _ptr(n_out), _ptr(states) if nc > 1 else None,
+             _ptr(nstates) if nc > 1 else None, sync.data_ptr(), *flags, *strides, R.stream(dev))
+    R.check(err, "ssd_wide_fwd")
     R.count("ssd")
-    return y, h_out
+    return (y, h_out, den, n_out) if normalizer else (y, h_out)

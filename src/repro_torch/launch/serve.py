@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
 
@@ -13,17 +14,20 @@ PaliGemma's vision prefix, random 1152-wide patch features before it, as
 the reference stubs its vision tower), one prefill that fills the caches, then ``--gen`` greedy
 decode steps (the first one re-feeds the prompt's last token, as the
 reference does).  On the card each decode step runs the flash-decode
-kernel (B5) in every layer (on an int8 KV cache for the configs with
-``kv_quant``, dequantized as it reads), and Hymba's prefill the SSD kernel (B6) in
-every layer; a dense or MoE prefill launches no hand-written kernel (its
-attention is the plain blockwise form, as the reference's).  The
+kernel (B5) in every attention layer (on an int8 KV cache for the
+configs with ``kv_quant``, dequantized as it reads); Hymba's prefill
+runs the SSD kernel (B6) in every layer and xLSTM's in every mLSTM
+layer, with its normalizer channel; a dense or MoE prefill launches no
+hand-written kernel (its attention is the plain blockwise form, as the
+reference's), nor does an xLSTM decode step (its recurrent steps are
+plain, as the reference's).  The
 prefill runs op by op; the decode loop runs its first step op by op,
 captures one step as a CUDA graph and replays it for the rest
 (``launch/steps.py::GraphedServeStep``; ``generate(..., graphs=False)``
 runs every step op by op).  Times are CUDA-event times taken after a
 device sync.  With ``--device cpu`` the kernels' plain versions run and the times are host
-clock times of the CPU, not of any device.  The dense, MoE and Hymba
-blocks run; xLSTM raises ``NotImplementedError`` naming its ROADMAP item.
+clock times of the CPU, not of any device.  Every block kind of the
+configs runs: dense, MoE, Hymba and xLSTM.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import torch
 from ..configs import get_config
 from ..kernels.config import resolve_device
 from ..models import ModelConfig, init_cache, init_params
-from ..models.model import N_META_TOKENS, SIGLIP_DIM, check_supported, prefix_tokens
+from ..models.model import N_META_TOKENS, SIGLIP_DIM, prefix_tokens
 from .steps import make_eager_serve_step, make_prefill_step, make_serve_step
 
 
@@ -171,7 +175,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_supported(cfg)
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=args.seed, device=dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)

@@ -1,6 +1,6 @@
-"""Transformer substrate, as far as the port runs it: dense, MoE and
-Hymba (parallel attention + Mamba heads) blocks, served by prefill and
-greedy decode."""
+"""Transformer substrate: dense, MoE, Hymba (parallel attention + Mamba
+heads) and xLSTM (mLSTM and sLSTM) blocks, served by prefill and greedy
+decode."""
 from .config import ModelConfig
 from .model import (
     CausalLM,

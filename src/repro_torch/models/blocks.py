@@ -1,8 +1,9 @@
 """Transformer blocks: norms, FFN, GQA attention with a ring-buffer KV
-cache, the dense block (optionally MoE) and the Hymba block (attention
-heads and Mamba heads in parallel).
+cache, the dense block (optionally MoE), the Hymba block (attention
+heads and Mamba heads in parallel) and the xLSTM block (an mLSTM or
+sLSTM cell).
 
-Port of ``repro/models/blocks.py`` for the dense, MoE and Hymba blocks.
+Port of ``repro/models/blocks.py``.
 Parameters are ``nn.Module``s whose attribute names are the reference's
 dict keys; the block bodies are plain functions on them, as in the
 reference.  A block's cache is a dict of per-layer views into the
@@ -14,8 +15,8 @@ keeps one copy of the cache on the card.
 backward), ``"prefill"`` (fill the cache) or ``"decode"`` (one step
 against it).  ``backend`` reaches the kernels through ``kernels/ops.py``:
 ``None`` launches them for CUDA tensors, ``"torch"`` takes their plain
-versions.  The xLSTM blocks are not ported yet; the MoE block runs the
-reference's local path (``models/moe.py``).  An int8 KV cache
+versions.  The MoE block runs the reference's local path
+(``models/moe.py``).  An int8 KV cache
 (``kv_quant``) holds each new token's k and v quantized per head
 (:func:`_quantize_kv`), and the decode kernel dequantizes as it reads.
 """
@@ -31,7 +32,17 @@ from ..kernels import ops
 from .attention import blockwise_attention, rope
 from .config import ModelConfig
 from .moe import MoE, init_moe_params, moe_local
-from .ssm import Mamba, init_mamba_params, mamba_mix
+from .ssm import (
+    MLSTM,
+    SLSTM,
+    Mamba,
+    init_mamba_params,
+    init_mlstm_params,
+    init_slstm_params,
+    mamba_mix,
+    mlstm_mix,
+    slstm_mix,
+)
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -91,13 +102,18 @@ def init_ffn(p: FFN, gen: torch.Generator) -> None:
 
 
 def ffn_apply(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ p.w1
+    """The weights are promoted to x's type where x is wider, as JAX
+    promotes them (the xLSTM block's FFN sees its f32 residual); where
+    the types agree nothing is converted."""
+    dt = torch.promote_types(x.dtype, p.w1.dtype)
+    x = x.to(dt)
+    h = x @ p.w1.to(dt)
     if p.b1 is not None:
         h = h + p.b1
     a = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     if p.w3 is not None:
-        a = a * (x @ p.w3)
-    y = a @ p.w2
+        a = a * (x @ p.w3.to(dt))
+    y = a @ p.w2.to(dt)
     if p.b2 is not None:
         y = y + p.b2
     return y
@@ -333,3 +349,53 @@ def hymba_block_apply(cfg: ModelConfig, p: HymbaBlock, x: torch.Tensor, cache, m
     x = x + fused
     h2 = norm_apply(p.ln2, x, cfg.norm, cfg.norm_eps)
     return x + ffn_apply(p.ffn, h2, cfg)
+
+
+# ------------------------------------------------------------ xlstm block
+class XLSTMBlock(nn.Module):
+    """``ln1``, the cell (``mix``: :class:`MLSTM` or :class:`SLSTM`) and,
+    where ``cfg.d_ff > 0``, ``ln2`` and an FFN (xLSTM-1.3B has none: its
+    up-projection lives inside the cell)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, kind: str):
+        super().__init__()
+        if kind not in ("mlstm", "slstm"):
+            raise ValueError(f"xLSTM block kind must be mlstm or slstm, got {kind!r}")
+        self.kind = kind
+        self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        cell = MLSTM if kind == "mlstm" else SLSTM
+        self.mix = cell(cfg.d_model, cfg.n_heads, dtype, device)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, dtype, device) if cfg.d_ff else None
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg, dtype, device) if cfg.d_ff else None
+
+
+def init_xlstm_block(p: XLSTMBlock, gen: torch.Generator) -> None:
+    for norm in (p.ln1, p.ln2):
+        if norm is not None:
+            init_norm(norm)
+    (init_mlstm_params if p.kind == "mlstm" else init_slstm_params)(p.mix, gen)
+    if p.ffn is not None:
+        init_ffn(p.ffn, gen)
+
+
+def xlstm_block_apply(cfg: ModelConfig, p: XLSTMBlock, x: torch.Tensor, cache, mode: str,
+                      backend: Optional[str] = None) -> torch.Tensor:
+    """``x + mix(ln1(x))``, then the optional FFN.  ``cache`` (this
+    layer's mLSTM ``(h, n)`` or sLSTM ``(c, n, h, m)``, or None) is
+    updated in place: the mLSTM's decode step writes its state where it
+    lies, every other new state is copied in.  The mLSTM's output is f32
+    (``mlstm_mix``), so x comes back f32 and ``_apply_group`` casts it."""
+    h = norm_apply(p.ln1, x, cfg.norm, cfg.norm_eps)
+    decode = mode == "decode"
+    if p.kind == "mlstm":
+        y, new_state = mlstm_mix(p.mix, h, cfg, state=cache, decode=decode, backend=backend)
+    else:
+        y, new_state = slstm_mix(p.mix, h, cfg, state=cache, decode=decode)
+    if cache is not None:
+        for dst, src in zip(cache, new_state):
+            if src is not dst:
+                dst.copy_(src)
+    x = x + y
+    if p.ffn is not None:
+        x = x + ffn_apply(p.ffn, norm_apply(p.ln2, x, cfg.norm, cfg.norm_eps), cfg)
+    return x

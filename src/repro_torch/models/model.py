@@ -1,14 +1,15 @@
 """CausalLM assembly: embeddings -> layer groups -> final norm -> head.
 
-Port of ``repro/models/model.py`` for the blocks ported so far: dense,
-MoE and Hymba, with the reference's model features: the int8 KV cache
+Port of ``repro/models/model.py``: the dense, MoE, Hymba and xLSTM
+(mLSTM and sLSTM) blocks, with the reference's model features: the int8 KV cache
 (``kv_quant``), PaliGemma's vision prefix (``n_patches`` projected image
 features before the prompt, attended both ways) and MusicGen's
 codebooks (``n_codebooks`` token streams, summed embeddings, one head
 each).  A model is a sequence of *layer groups*, each a
 homogeneous run of blocks (a dense model is one group; DeepSeek's leading
 dense layers are a group before its MoE group; Hymba's are grouped by
-attention window).  The reference stacks a
+attention window; xLSTM's are runs of mLSTM layers, each followed by
+one sLSTM layer).  The reference stacks a
 group's parameters and ``lax.scan``s over them; here each layer is its own
 module and a Python loop walks them.  The parameters are held in
 ``param_dtype`` (f32); the blocks run on a copy in ``compute_dtype``
@@ -35,12 +36,15 @@ from .blocks import (
     DenseBlock,
     HymbaBlock,
     Norm,
+    XLSTMBlock,
     dense_block_apply,
     hymba_block_apply,
     init_dense_block,
     init_hymba_block,
     init_norm,
+    init_xlstm_block,
     norm_apply,
+    xlstm_block_apply,
 )
 from .config import ModelConfig
 from .ssm import HEAD_P
@@ -48,24 +52,38 @@ from .ssm import HEAD_P
 N_META_TOKENS = 128  # hymba learnable meta tokens
 SIGLIP_DIM = 1152  # paligemma vision-stub feature width
 Position = Union[int, torch.Tensor]  # an int, or a 0-d int32 tensor on the device
-NOT_PORTED = "ROADMAP.md queue 1 item 13"
-BLOCK_KINDS = ("dense", "moe", "hymba")  # the ported block kinds
+M_INIT = -1e30  # the sLSTM stabilizer's initial state
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    kind: str  # dense | moe | hymba (mlstm | slstm in the reference)
+    kind: str  # dense | moe | hymba | mlstm | slstm
     n: int
     window: int = 0  # 0 = full attention
     layer_offset: int = 0  # index of first layer in the whole model
 
 
 def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
-    """The reference's groups: Hymba's runs of layers with the same
-    attention window (the full-attention layers apart); a MoE model's
-    leading dense layers, then its MoE layers; one group of a dense
-    model.  A dense or MoE group's window is ``cfg.sliding_window``."""
-    check_supported(cfg)
+    """The reference's groups: xLSTM's runs of ``slstm_every - 1`` mLSTM
+    layers, each followed by one sLSTM layer (all mLSTM with
+    ``slstm_every = 0``); Hymba's runs of layers with the same attention
+    window (the full-attention layers apart); a MoE model's leading dense
+    layers, then its MoE layers; one group of a dense model.  A dense or
+    MoE group's window is ``cfg.sliding_window``.  An unknown
+    ``block_kind`` raises ``ValueError``."""
+    if cfg.block_kind == "xlstm":
+        period = cfg.slstm_every or cfg.n_layers
+        groups: List[GroupSpec] = []
+        off = 0
+        while off < cfg.n_layers:
+            n_m = min(period - 1, cfg.n_layers - off)
+            if n_m:
+                groups.append(GroupSpec("mlstm", n_m, layer_offset=off))
+                off += n_m
+            if off < cfg.n_layers:
+                groups.append(GroupSpec("slstm", 1, layer_offset=off))
+                off += 1
+        return groups
     if cfg.block_kind == "hymba":
         full = set(cfg.full_attn_layers)
         groups = []
@@ -88,17 +106,19 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
             )
         )
         return groups
+    if cfg.block_kind != "dense":
+        raise ValueError(f"{cfg.name}: unknown block_kind {cfg.block_kind!r}")
     return [GroupSpec("dense", cfg.n_layers, window=cfg.sliding_window)]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the xLSTM blocks."""
-    if cfg.block_kind not in BLOCK_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: block_kind {cfg.block_kind!r} is not ported yet ({NOT_PORTED}); "
-            f"{', '.join(repr(k) for k in BLOCK_KINDS)} run"
-        )
+def _make_block(cfg: ModelConfig, kind: str, dtype: torch.dtype, device) -> nn.Module:
+    if kind in ("dense", "moe"):
+        return DenseBlock(cfg, dtype, device, moe=kind == "moe")
+    if kind == "hymba":
+        return HymbaBlock(cfg, dtype, device)
+    if kind in ("mlstm", "slstm"):
+        return XLSTMBlock(cfg, dtype, device, kind)
+    raise ValueError(kind)
 
 
 def prefix_tokens(cfg: ModelConfig) -> int:
@@ -126,7 +146,6 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dt = _dtype(cfg.param_dtype)
         kw = dict(dtype=dt, device=device)
@@ -137,8 +156,7 @@ class CausalLM(nn.Module):
         self.register_parameter(
             "meta_tokens", _frozen((N_META_TOKENS, cfg.d_model), **kw) if cfg.block_kind == "hymba" else None)
         self.groups = nn.ModuleList(
-            nn.ModuleList(HymbaBlock(cfg, dt, device) if spec.kind == "hymba"
-                          else DenseBlock(cfg, dt, device, moe=spec.kind == "moe") for _ in range(spec.n))
+            nn.ModuleList(_make_block(cfg, spec.kind, dt, device) for _ in range(spec.n))
             for spec in layer_groups(cfg)
         )
         self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
@@ -153,7 +171,8 @@ class CausalLM(nn.Module):
         """The blocks in ``dtype`` (the config's ``compute_dtype``), copied
         from the parameters at first use, or the parameter modules
         themselves when the dtypes agree.  Every floating parameter is
-        cast, a MoE router too, as the reference's per-block ``astype``.
+        cast, a MoE router and the sLSTM's recurrence ``r`` and bias ``b``
+        too, as the reference's per-block ``astype``.
         Weights changed after the first forward are not seen: the port
         only serves."""
         if dtype not in self._compute:
@@ -173,9 +192,10 @@ def _init_weights(model: CausalLM, gen: torch.Generator) -> None:
         model.vision_proj.normal_(0.0, SIGLIP_DIM ** -0.5, generator=gen)
     if model.meta_tokens is not None:
         model.meta_tokens.normal_(0.0, 0.02, generator=gen)
+    init = {HymbaBlock: init_hymba_block, DenseBlock: init_dense_block, XLSTMBlock: init_xlstm_block}
     for grp in model.groups:
         for blk in grp:
-            (init_hymba_block if isinstance(blk, HymbaBlock) else init_dense_block)(blk, gen)
+            init[type(blk)](blk, gen)
     init_norm(model.final_norm)
     for head in (model.heads, model.lm_head):
         if head is not None:
@@ -204,15 +224,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: DeviceLike = 
     "v": [n, B, W, Hkv, dh], "pos": [n, W]}``, with ``kv_quant`` k and v in
     int8 and ``"k_scale", "v_scale": [n, B, W, Hkv]`` f32 beside them; a
     Hymba group's is ``{"attn": <the same>, "ssm": (conv [n, B, K-1, dI],
-    h [n, B, H, N, 64] f32)}``.  W is ``max_len`` on full-attention layers
-    and ``min(max_len, window)`` on window layers.  max_len includes the
-    prefix positions (``prefix_tokens``)."""
-    check_supported(cfg)
+    h [n, B, H, N, 64] f32)}``; an mLSTM group's ``(h [n, B, H, dh, dh],
+    n [n, B, H, dh])`` and an sLSTM group's ``(c, n, h, m)`` ``[n, B, H,
+    dh]`` each, all f32, m at -1e30 (constant in ``max_len``).  W is
+    ``max_len`` on full-attention layers and ``min(max_len, window)`` on
+    window layers.  max_len includes the prefix positions
+    (``prefix_tokens``)."""
     dev = resolve_device(device)
     dt = _dtype(cfg.compute_dtype)
     dh = cfg.resolved_head_dim
     caches: List[Any] = []
     for spec in layer_groups(cfg):
+        f32 = dict(dtype=torch.float32, device=dev)
+        if spec.kind == "mlstm":
+            caches.append((torch.zeros((spec.n, batch, cfg.n_heads, dh, dh), **f32),
+                           torch.zeros((spec.n, batch, cfg.n_heads, dh), **f32)))
+            continue
+        if spec.kind == "slstm":
+            # four tensors, where the reference reuses one array for c, n
+            # and h: the port writes each in place
+            shape = (spec.n, batch, cfg.n_heads, dh)
+            caches.append((torch.zeros(shape, **f32), torch.zeros(shape, **f32), torch.zeros(shape, **f32),
+                           torch.full(shape, M_INIT, **f32)))
+            continue
         w = min(max_len, spec.window) if spec.window else max_len
         kv_dt = torch.int8 if cfg.kv_quant else dt
         attn = {
@@ -255,6 +289,8 @@ def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cac
         c = None if cache is None else _layer_cache(cache, i)
         if spec.kind == "hymba":
             x = hymba_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
+        elif spec.kind in ("mlstm", "slstm"):
+            x = xlstm_block_apply(cfg, blk, x.to(cdt), c, mode, backend)
         else:  # the MoE aux loss is for training, which the port does not run yet
             x, _ = dense_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend, prefix)
         x = x.to(cdt)

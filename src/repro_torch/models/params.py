@@ -6,7 +6,9 @@ converted to numpy by the caller (``jax.tree.map(np.asarray, params)``),
 and load it into the port's modules here: the top-level ``embed`` (``[K,
 V, D]`` with codebooks), ``vision_proj``, ``meta_tokens``, ``heads`` or
 ``lm_head`` and ``final_norm`` as they are.  Layouts are the same
-(``[d, h, dh]`` projections, ``[in, out]`` matrices), so nothing is
+(``[d, h, dh]`` projections, ``[in, out]`` matrices; the mLSTM's
+``wq_m``/``wk_m``/``wv_m`` ``[d, h, dh]``, the sLSTM's ``wx`` ``[d, h,
+4dh]``, ``r`` ``[h, dh, 4dh]`` and ``b`` ``[h, 4dh]``), so nothing is
 transposed; the reference stacks each layer group's parameters ``[n,
 ...]``, and layer ``i`` of group ``g`` is ``groups.{g}.{i}`` here (a MoE
 layer's expert stacks ``[n, E, D, F]`` become ``[E, D, F]``).  Each

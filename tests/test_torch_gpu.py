@@ -766,6 +766,103 @@ def test_reduced_hymba_served_through_both_kernels(cuda):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
+# The wide form with the normalizer (xLSTM's mLSTM): (B, S, H, P = N,
+# chunk, h0 and n0 given).  xLSTM-1.3B's served shape at N = P = 512 over
+# 6 chunks (the shape the first form refused), a ragged S through ops
+# (padded to 3 chunks), the reduced xLSTM's dh = 64, a chunk of 100 (t
+# padded to 104 in shared memory), and one of 21 (the reduced model's
+# prefill of 21 tokens: t padded to 24, below the 64 columns of a state
+# slice that reuse B's)
+SSD_NORM_CASES = [(4, 768, 4, 512, 128, False), (2, 300, 2, 512, 128, True),
+                  (2, 256, 4, 64, 128, True), (1, 300, 2, 128, 100, True), (2, 21, 4, 64, 128, True)]
+
+
+def _mlstm_inputs(cuda, rng, b, s, h, n, dt):
+    """v, the log of a sigmoid forget gate, k scaled by dh**-0.5 times the
+    input gate e^min(i, 8), and q, as the mLSTM makes them."""
+    x = _on(cuda, rng, b, s, h, n).to(dt)
+    la = torch.nn.functional.logsigmoid(2.0 + _on(cuda, rng, b, s, h)).to(dt)
+    gate = torch.exp(torch.clamp(_on(cuda, rng, b, s, h, scale=2.0), max=8.0))
+    B = (_on(cuda, rng, b, s, h, n) * n ** -0.5 * gate[..., None]).to(dt)
+    return x, la, B, _on(cuda, rng, b, s, h, n).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_NORM_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_with_the_normalizer_matches_plain(cuda, case, dtype):
+    """y, h_final, den and n_final against the plain version, f32 at the
+    reference's 2e-4 and bf16 at its 5e-2, relative to the output's scale
+    (the absolute floor scaled by max|r|: with the input gate at up to
+    e^8 the scan's sums run over 512 and 128 terms as large as the
+    output's range, and an output that cancels to near 0 keeps their f32
+    rounding); den and both states in f32."""
+    b, s, h, n, chunk, state = case
+    rng = np.random.default_rng(s + n)
+    x, la, B, C = _mlstm_inputs(cuda, rng, b, s, h, n, getattr(torch, dtype))
+    h0 = _on(cuda, rng, b, h, n, n, scale=0.3) if state else None
+    n0 = _on(cuda, rng, b, h, n).abs() if state else None
+    before = K.launch_counts()["ssd"]
+    got = ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ssd"] == before + 1
+    # the same bits on a second call: no block reads what another writes out of order
+    assert all(torch.equal(a, b) for a, b in zip(got, ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0)))
+    want = ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0, backend="torch")
+    assert [g.dtype for g in got] == [x.dtype] + [torch.float32] * 3
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    for g, w in zip(got, want):
+        w = w.float().cpu().numpy()
+        np.testing.assert_allclose(g.float().cpu().numpy(), w, rtol=tol, atol=tol * max(1.0, float(np.abs(w).max())))
+
+
+def test_ssd_kernel_takes_the_large_state_without_the_normalizer(cuda):
+    """N = P = 512, which the first form refuses, runs on the wide form
+    and gives the normalizer's y and state without it."""
+    rng = np.random.default_rng(11)
+    x, la, B, C = _mlstm_inputs(cuda, rng, 2, 256, 2, 512, torch.float32)
+    y, hf = ops.ssd(x, la, B, C)
+    ry, rh = ops.ssd(x, la, B, C, backend="torch")
+    np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(hf.cpu().numpy(), rh.cpu().numpy(), rtol=2e-4, atol=2e-4)
+    y2, hf2, _, _ = ops.ssd(x, la, B, C, normalizer=True)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    with pytest.raises(ValueError):  # the normalizer needs P a multiple of 64
+        ops.ssd(x[..., :12], la, B, C, normalizer=True)
+    with pytest.raises(ValueError):  # and a chunk of at most 128
+        ops.ssd(x, la, B, C, chunk=256, normalizer=True)
+
+
+def test_reduced_xlstm_decode_graph_bitwise_equal_op_by_op(cuda):
+    """A reduced xLSTM (7 mLSTM layers and one sLSTM, dh = 64) served on
+    the card: 7 SSD launches in the prefill and none in a decode step; the
+    replayed step gives the op-by-op step's tokens and logits bitwise, in
+    bf16 and f32; in f32 the kernel route is within 1e-4 of the plain
+    route's prefill hidden state."""
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), compute_dtype=dtype)
+        model = init_params(cfg, seed=0, device=cuda)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 21), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(0))
+        per_phase = []
+
+        def hook(phase, i):
+            per_phase.append((phase, K.launch_counts(), runtime.graph_launches()))
+            K.reset_launches()
+
+        K.reset_launches()
+        out = generate(cfg, model, prompt, 6, keep_logits=6, step_hook=hook)
+        assert per_phase[0][1]["ssd"] == 7 and sum(per_phase[0][1].values()) == 7
+        assert [g for _, _, g in per_phase[1:]] == [0] + [1] * 5
+        assert all(sum(c.values()) == 0 for _, c, _ in per_phase[1:])
+        eager = generate(cfg, model, prompt, 6, keep_logits=6, graphs=False)
+        assert torch.equal(out["tokens"], eager["tokens"])
+        assert all(torch.equal(a, b) for a, b in zip(out["logits"], eager["logits"]))
+        if dtype == "float32":
+            plain = generate(cfg, model, prompt, 1, backend="torch")
+            np.testing.assert_allclose(out["last_hidden"].cpu().numpy(), plain["last_hidden"].cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
 # ------------------------------------------- CUDA graphs (kernels/graphs.py)
 def _tiny_plan(backend):
     """The tiny net's planned stages, their weights, and seeded micro-batches of 4."""

@@ -1,10 +1,9 @@
 """The port's serving launcher, ``python -m repro_torch.launch.serve``.
 
-On the CPU it runs a reduced Hymba through its kernels' plain versions
-(``--device cpu``; the dense and MoE models in tests/test_torch_dense.py);
-without ``--device`` it means the card and raises on a host without one;
-architectures whose blocks or features are not ported raise
-``NotImplementedError`` naming their ROADMAP item.
+On the CPU it runs a reduced Hymba and a reduced xLSTM through their
+kernels' plain versions (``--device cpu``; the dense and MoE models in
+tests/test_torch_dense.py); without ``--device`` it means the card and
+raises on a host without one.
 """
 from __future__ import annotations
 
@@ -44,10 +43,15 @@ def test_cli_without_device_means_the_card():
         S.main(["--arch", "hymba-1.5b", "--reduced", "--gen", "1"])
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
-def test_cli_refuses_unported_architectures(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.main(["--arch", arch, "--reduced", "--device", "cpu", "--gen", "1"])
+def test_cli_serves_reduced_xlstm_on_the_cpu(capsys):
+    before = runtime.launch_counts()
+    out = S.main(["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu", "--batch", "2",
+                  "--prompt-len", "8", "--gen", "4"])
+    assert runtime.launch_counts() == before  # plain versions only
+    assert tuple(out["tokens"].shape) == (2, 4)
+    assert out["max_len"] == 8 + 4  # no prefix tokens
+    text = capsys.readouterr().out
+    assert "prefill: 2x8 in" in text and "meta tokens" not in text and "tok/s" in text
 
 
 def test_generate_is_greedy_over_the_step_functions():

@@ -1,6 +1,6 @@
 """The port's transformer substrate against the JAX package's: the
-configs and parameter shapes of every ported architecture (dense, MoE and
-Hymba blocks), the shared modules, and Hymba.
+configs and parameter shapes of every architecture (dense, MoE, Hymba
+and xLSTM blocks), the shared modules, and Hymba.
 
 Both packages get the same configuration and the reference's weights
 (``params_from_numpy``), and their inputs are made with numpy from a seed.
@@ -51,13 +51,14 @@ from repro_torch.models import (
     forward,
     init_cache,
     init_params,
+    layer_groups,
     params_from_numpy,
     prefill,
     serve_step,
 )
 from repro_torch.models.attention import blockwise_attention, rope
 from repro_torch.models.blocks import hymba_block_apply
-from repro_torch.models.model import N_META_TOKENS, check_supported
+from repro_torch.models.model import N_META_TOKENS
 from repro_torch.models.params import tree_leaf
 from repro_torch.models.ssm import mamba_mix
 
@@ -105,7 +106,8 @@ def test_configs_equal_the_reference_field_by_field():
 # vision projection, the codebook embeddings and heads (the int8 KV cache
 # adds no parameter)
 PORTED = ["smollm-360m", "starcoder2-15b", "command-r-plus-104b", "deepseek-moe-16b",
-          "moonshot-v1-16b-a3b", "olmoe-1b-7b", "hymba-1.5b", "paligemma-3b", "musicgen-large"]
+          "moonshot-v1-16b-a3b", "olmoe-1b-7b", "hymba-1.5b", "paligemma-3b", "musicgen-large",
+          "xlstm-1.3b"]
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
@@ -146,13 +148,14 @@ def test_init_params_is_seeded():
     assert abs(float(a.embed.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 
-# xLSTM's blocks, the one block kind not ported yet
-@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError):
-        init_params(get_config(arch).reduced(), device="cpu")
+# every block kind of the configs is ported; another raises, as the
+# reference's _init_group does
+def test_unknown_block_kind_raises():
+    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), block_kind="retnet")
+    with pytest.raises(ValueError, match="retnet"):
+        layer_groups(cfg)
+    with pytest.raises(ValueError, match="retnet"):
+        init_params(cfg, device="cpu")
 
 
 # the model features build on Hymba too: the int8 cache in its attention
@@ -160,7 +163,6 @@ def test_unported_architectures_raise(arch):
 @pytest.mark.parametrize("field", ["kv_quant", "n_patches", "n_codebooks"])
 def test_features_build_on_hymba(field):
     cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), **{field: 2})
-    check_supported(cfg)
     model = init_params(cfg, device="cpu")
     caches = init_cache(cfg, 2, 9, device="cpu")
     assert (caches[0]["attn"]["k"].dtype == torch.int8) == (field == "kv_quant")
