@@ -216,6 +216,21 @@ Phases (any failure exits non-zero):
    each beside its plain version, its bound and, for B5,
    ``F.scaled_dot_product_attention`` with a length mask (on the int8
    cache: the dequantize into bf16 and SDPA, SDPA alone beside it);
+   6j (``train_phase``): SmolLM-360M trained at full width and depth
+   (32 layers, d 960, vocab 49152, tied embeddings, ``remat``, bf16 on
+   f32 parameters, random weights from seed 0) by ``make_train_step`` on
+   ``make_batch_iterator``: 40 steps of 8 x 1024 tokens, AdamW to 1e-3
+   after a 10-step warmup, a cosine to step 40.  The train step takes
+   the plain routes and launches no counted kernel (gated).  Gated also:
+   the memory fits (16 bytes a parameter), finite losses and grad norms,
+   the last 5 steps' mean loss below step 1's, every parameter moved by
+   step 2, grad_accum=2 against 1 in f32 on one batch (loss and grad
+   norm within 1e-4), and a checkpoint of the trained parameters
+   restored into a fresh model bitwise, whose prefill and first decode
+   step give the trained model's bits.  Printed (line ``train_lm_6j``):
+   the median step time of steps 4-40, tok/s, peak memory, the losses
+   beside ln V, the bound (6 N T plus the causal attention products at
+   the bf16 peak) and the last step's device trace;
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
    the five above and B5, B6; B5's launches summed over 6c, 6e-6h and
    B6's over 6c and 6i, each with its times at every shape 6d timed),
@@ -292,14 +307,16 @@ FLEET_IMAGES = 512
 FLEET_CYCLES = 3
 
 # Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
-# bytes/s and int8 tensor-core op/s; the SXM part unless the card names
-# another.  The quantized conv (B1q) runs on the int8 tensor cores, its
-# bound; the CUDA cores' int32 multiply-add rate, half the f32 FMA rate
-# (64 INT32 lanes per SM against 128 FP32), is printed beside it.
+# bytes/s, int8 tensor-core op/s and bf16 tensor-core FLOP/s; the SXM part
+# unless the card names another.  The quantized conv (B1q) runs on the
+# int8 tensor cores, its bound; the CUDA cores' int32 multiply-add rate,
+# half the f32 FMA rate (64 INT32 lanes per SM against 128 FP32), is
+# printed beside it.  The train step of 6j is bounded by its products at
+# the bf16 rate.
 PEAKS = {
-    "H100 PCIe": (51.2e12, 2.0e12, 1513e12),
-    "H100 NVL": (60.0e12, 3.9e12, 1671e12),
-    "H100": (67.0e12, 3.35e12, 1979e12),
+    "H100 PCIe": (51.2e12, 2.0e12, 1513e12, 756e12),
+    "H100 NVL": (60.0e12, 3.9e12, 1671e12, 835e12),
+    "H100": (67.0e12, 3.35e12, 1979e12, 989e12),
 }
 KERNELS = {
     "conv2d_fused": {
@@ -385,6 +402,17 @@ ATTN_KINDS = ("dense", "moe", "hymba")  # the layer groups with an attention cac
 # to its own bar on the served activations besides
 REORDER_CHUNK = 64
 REORDER_SLACK = 2.0
+# phase 6j: SmolLM-360M trained at full width and depth (remat, bf16 on
+# f32 parameters) through make_train_step on the synthetic token stream:
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, AdamW to TRAIN_LR
+# after TRAIN_WARMUP steps, a cosine to TRAIN_STEPS; steps TRAIN_TIMED_FROM
+# on are timed.  grad_accum=2 against 1 on one batch, in f32, is held to
+# ACCUM_RTOL: the same sums in another order (two half batches, cuBLAS's
+# algorithms for M = 4096 and 8192) through 32 layers
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 40
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TIMED_FROM = 1e-3, 10, 4
+TRAIN_PROMPT = 256  # the trained and the restored model's prefill: 4 x 256 tokens, then one decode step
+ACCUM_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1317,6 +1345,228 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+def train_step_profile(prof, wall_s):
+    """A train step traced by the profiler (device activity only, which
+    keeps the trace's processing short): the device's busy time, its
+    kernels, and the ten largest device times by kernel name.  The
+    profiler slows the traced step's host side, so its wall time is not
+    the step's; the busy time is."""
+    from torch.autograd import DeviceType
+
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+    busy = device_busy(prof, wall_s)
+    families = {}
+    for e in dev_events:
+        name = e.key.lower()
+        if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):  # cuBLAS's kernels
+            fam = "f32 GEMM (CUDA cores)" if "f32f32" in name or "sgemm" in name else "tensor-core GEMM"
+        elif "elementwise" in name:
+            fam = "elementwise"
+        elif "reduce" in name:
+            fam = "reductions"
+        else:
+            fam = "other"
+        families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
+    return {
+        "traced_wall_ms": wall_s * 1e3,
+        "device_busy_ms": None if busy["device_busy_s"] is None else busy["device_busy_s"] * 1e3,
+        "device_kernels": sum(e.count for e in dev_events),
+        "device_ms_by_family": families,
+        "top_device_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top},
+    }
+
+
+def train_phase(torch, dev, bf16_peak):
+    """Phase 6j: SmolLM-360M at full width and depth (32 layers, d 960,
+    vocab 49152, tied embeddings, ``remat``), random weights from SEED,
+    bf16 compute on f32 parameters, trained by ``make_train_step`` on
+    ``make_batch_iterator`` (seed 0): TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens.  Gated: parameters, gradients and both moments (16
+    bytes a parameter) fit before loading; every loss and grad norm
+    finite; the mean loss of the last 5 steps below step 1's; every
+    parameter moved from its initial value by step 2 (step 1 runs at lr
+    0, the warmup's first step); no counted kernel launched during the
+    steps; on one batch, in f32, grad_accum=2 against 1 within ACCUM_RTOL
+    in loss and grad norm; the trained parameters saved with
+    ``save_checkpoint`` and restored into a fresh model bitwise equal,
+    and that model's prefill and first decode step give the trained
+    model's hidden state and logits bitwise.  Printed: the median step
+    time of steps TRAIN_TIMED_FROM on (each step synchronised), tok/s,
+    the peak memory, the losses at steps 1, 10, 20, 30 and 40 beside ln
+    V, the step's bound (6 N T plus the causal attention products of the
+    32 layers, forward and backward, at the bf16 peak), the last step's
+    device trace (``train_step_profile``) and the phase's seconds by
+    part."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import (abstract_params, init_cache, init_params, params_from_numpy,
+                                    params_to_numpy, prefill, serve_step)
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat and cfg.tie_embeddings and cfg.compute_dtype == "bfloat16",
+          f"6j: {TRAIN_ARCH} is not the remat, tied, bf16 config")
+    n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
+    need_gb = 16 * n_params / 1e9  # f32 parameters, gradients, m and v
+    free_b, _ = torch.cuda.mem_get_info(dev)
+    check(need_gb < 0.9 * free_b / 1e9, f"6j: {TRAIN_ARCH} training needs {need_gb:.1f} GB, "
+                                        f"{free_b / 1e9:.1f} GB free")
+    split = {}
+    t0 = time.perf_counter()
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases still hold
+    model = init_params(cfg, seed=SEED, device=dev)
+    named = dict(model.named_parameters())
+    opt = adamw_init(named)
+    initial = {k: p.detach().clone() for k, p in named.items()}
+    step_fn = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+    stream = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev, prefetch=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    split["init_s"] = time.perf_counter() - t0
+    losses, gnorms, lrs, step_s = [], [], [], []
+    moved = None
+    runtime.reset_launches()
+    t_steps = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = next(stream)
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS:  # the last step traced (its time stays in the median's set)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model, opt, metrics = step_fn(model, opt, batch)
+                torch.cuda.synchronize()
+        else:
+            model, opt, metrics = step_fn(model, opt, batch)
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        lrs.append(float(metrics["lr"]))
+        if i == 2:
+            moved = {k: float((p.detach() != initial[k]).float().mean()) for k, p in named.items()}
+            del initial
+    counts = runtime.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    stream.close()
+    split["steps_s"] = time.perf_counter() - t_steps
+    t0 = time.perf_counter()
+    traced = train_step_profile(prof, step_s[-1])
+    del prof
+    split["profile_s"] = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses + gnorms), f"6j: a loss or grad norm is not finite: "
+                                                           f"{losses} {gnorms}")
+    tail = sum(losses[-5:]) / 5
+    check(tail < losses[0], f"6j: the last 5 steps' mean loss {tail:.4f} is not below step 1's {losses[0]:.4f}")
+    still = sorted(k for k, f in moved.items() if f == 0.0)
+    check(not still, f"6j: parameters unmoved after step 2: {still[:5]}")
+    check(all(n == 0 for n in counts.values()), f"6j: the train steps launched counted kernels: {counts}")
+
+    # grad_accum=2 against 1 on one batch, in f32 (the model is not changed)
+    t0 = time.perf_counter()
+    batch = next(make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1, device=dev, prefetch=0))
+    accum = {}
+    for n in (1, 2):
+        c = dataclasses.replace(cfg, compute_dtype="float32", grad_accum=n)
+        loss, _, grads = loss_and_grads(c, model, batch)
+        accum[n] = (float(loss), float(clip_by_global_norm(grads, 1.0)[1]))
+        del grads
+    accum_err = {"loss": abs(accum[2][0] - accum[1][0]) / abs(accum[1][0]),
+                 "grad_norm": abs(accum[2][1] - accum[1][1]) / abs(accum[1][1])}
+    check(max(accum_err.values()) <= ACCUM_RTOL, f"6j: grad_accum=2 against 1 in f32: {accum_err}, "
+                                                 f"bar {ACCUM_RTOL}")
+    split["accum_s"] = time.perf_counter() - t0
+
+    # the step's two parts apart, once each, synchronised (the model is not changed)
+    batch = next(make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=2, device=dev, prefetch=0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(cfg, model, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(named, grads, opt, TRAIN_LR)
+    torch.cuda.synchronize()
+    parts_ms = {"loss_and_grads": (t1 - t0) * 1e3, "adamw_update": (time.perf_counter() - t1) * 1e3}
+    del grads
+
+    # the trained parameters through a checkpoint into a fresh model
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        tree = {"params": params_to_numpy(cfg, model)}
+        path = save_checkpoint(tmp, TRAIN_STEPS, tree, metadata={"arch": cfg.name, "loss": losses[-1]})
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        fresh = params_from_numpy(cfg, restore(tmp, tree)["params"], device=dev)
+        ckpt_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tree
+    same_params = all(torch.equal(p, q) for p, q in zip(model.parameters(), fresh.parameters()))
+    check(same_params, "6j: the restored parameters differ from the trained ones")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (4, TRAIN_PROMPT + 1), device=dev, generator=g)
+    served = []
+    for m in (model, fresh):
+        caches = init_cache(cfg, 4, TRAIN_PROMPT + 1, device=dev)
+        h = prefill(cfg, m, {"tokens": prompt[:, :TRAIN_PROMPT]}, caches)
+        served.append((h, serve_step(cfg, m, caches, prompt[:, TRAIN_PROMPT:], TRAIN_PROMPT)))
+    torch.cuda.synchronize()
+    check(torch.equal(served[0][0], served[1][0]) and torch.equal(served[0][1], served[1][1]),
+          "6j: the restored model's prefill or decode step differs from the trained model's")
+    split["serve_check_s"] = time.perf_counter() - t0
+
+    timed = sorted(step_s[TRAIN_TIMED_FROM - 1:])
+    median_s = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    dense_flop = 6 * n_params * tokens
+    # causal QK^T and PV: 2 products x 2 B H S^2 dh / 2 forward, x 3 with the backward
+    attn_flop = cfg.n_layers * 3 * 2 * TRAIN_BATCH * h * TRAIN_SEQ ** 2 * dh
+    bound_ms = (dense_flop + attn_flop) / bf16_peak * 1e3
+    report = {
+        "phase": "6j", "model": TRAIN_ARCH, "params": n_params, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "remat": cfg.remat, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "base_lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+        "memory_needed_gb": need_gb, "peak_memory_gb": peak_gb, "allocated_before_phase_gb": base_gb,
+        "step_ms_median": median_s * 1e3, "step_ms_min": timed[0] * 1e3, "step_ms_max": timed[-1] * 1e3,
+        "timed_steps": f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS}, each ended by torch.cuda.synchronize()",
+        "first_step_ms": step_s[0] * 1e3, "tok_per_s": tokens / median_s,
+        "bound": {"flop": dense_flop + attn_flop, "dense_6NT_flop": dense_flop, "attention_flop": attn_flop,
+                  "bf16_peak_flop_per_s": bf16_peak, "bound_ms": bound_ms,
+                  "median_over_bound": median_s * 1e3 / bound_ms},
+        "losses": {str(i): losses[i - 1] for i in (1, 10, 20, 30, 40) if i <= TRAIN_STEPS},
+        "ln_vocab": math.log(cfg.vocab_size), "last5_mean_loss": tail,
+        "grad_norms": {str(i): gnorms[i - 1] for i in (1, 10, 20, 30, 40) if i <= TRAIN_STEPS},
+        "lrs": {str(i): lrs[i - 1] for i in (1, 2, 10, 11, 40) if i <= TRAIN_STEPS},
+        "moved_after_step_2": {"params": len(moved), "unmoved": len(still),
+                               "least_moved_fraction": min(moved.values())},
+        "launches_during_steps": counts, "step_parts_ms": parts_ms, "step_40_traced": traced,
+        "accum_f32": {"loss": {"1": accum[1][0], "2": accum[2][0]},
+                      "grad_norm": {"1": accum[1][1], "2": accum[2][1]}, "rel_err": accum_err,
+                      "bar": ACCUM_RTOL},
+        "checkpoint": {"bytes": ckpt_bytes, "save_and_restore_s": ckpt_s, "params_bitwise": same_params,
+                       "prefill_and_step_bitwise": True},
+        "phase_split_s": split, "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"train_lm_6j": report}))
+    del model, fresh, opt, named, served, caches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
 
 
 def device_busy(prof, wall_s):
@@ -2799,7 +3049,7 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-    flops_peak, bytes_peak, int8_peak = peaks(kind)
+    flops_peak, bytes_peak, int8_peak, bf16_peak = peaks(kind)
     int_ops_peak = flops_peak / 2
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3320,6 +3570,10 @@ def main() -> int:
         ssd_row["launches_by_path"][f"{phase} {arch}"] = n
         ssd_row["max_abs_err"] = max(ssd_row["max_abs_err"], lm["max_abs_err"]["ssd"])
         mark(phase)
+
+    # ------------- 6j. SmolLM-360M trained at full width (no counted kernel)
+    train_phase(torch, dev, bf16_peak)
+    mark("6j")
 
     # ------------------------------------------------ 7. kernels line
     kernels = []

@@ -10,9 +10,12 @@ CUDA tensor launches the hand-written kernel (``csrc/gemm.cu``,
 kernel (``csrc/flash_decode.cu``, ``csrc/ssd.cu``) for a CUDA tensor and
 takes the plain version for a CPU tensor; ``"torch"`` asks for the plain
 version on any device, which only the tests and ``chip_smoke.py`` do, to
-hold the kernels' path against the plain one on the card.  The
-reference's ``"jnp"`` and ``"interpret"`` choices have no counterpart
-here.
+hold the kernels' path against the plain one on the card, and the train
+step, since the kernels have no backward.  Asked to launch a kernel
+while autograd records (gradients enabled and an input that requires
+one), either raises rather than return an output with no gradient or
+quietly take the plain version.  The reference's ``"jnp"`` and
+``"interpret"`` choices have no counterpart here.
 """
 from __future__ import annotations
 
@@ -43,6 +46,17 @@ def _check_backend(backend: Optional[str]) -> None:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
+def _no_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where the kernel route of ``name`` would run under autograd:
+    a CUDA input, gradients enabled and an input that requires one."""
+    if (torch.is_grad_enabled() and tensors[0].is_cuda
+            and any(t is not None and t.requires_grad for t in tensors)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; a differentiable call "
+            "takes the plain version with backend='torch'"
+        )
+
+
 def flash_decode(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: FD.Length,
     k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
@@ -58,6 +72,7 @@ def flash_decode(
     _check_backend(backend)
     if backend == "torch":
         return FD.flash_decode_ref(q, k, v, length, k_scale, v_scale)
+    _no_autograd("flash_decode", q, k, v, k_scale, v_scale)
     return FD.flash_decode(q, k, v, length, k_scale, v_scale)
 
 
@@ -92,6 +107,8 @@ def ssd(
     and ``B = 0`` (no input), which leaves y, den and both states exact,
     and y and den are sliced back, as ``ssd_scan`` does."""
     _check_backend(backend)
+    if backend is None:
+        _no_autograd("ssd", x, log_a, B, C, h0, n0)
     s = x.shape[1]
     q = min(chunk, s)
     pad = (-s) % q

@@ -6,7 +6,11 @@ Port of ``repro/models/attention.py``.  The prefill path never holds the
 online-softmax loop over key chunks keep the live block at ``[B, Hkv, G,
 cq, ck]``, with masks (causal, sliding window, prefix-LM) made per block
 from positions.  It is plain PyTorch (the reference's ``_flash`` is jnp,
-not Pallas) and forward only: the port has no train path.  Logits and
+not Pallas), and its backward is the reference's custom VJP
+(:class:`_Flash`): the forward saves only the output and the row
+log-sum-exp, and the backward recomputes each (query chunk, key chunk)
+block's probabilities from them, so training never holds a block's
+scores either.  Logits and
 the PV product are taken on f32 operands, the counterpart of the
 reference's ``preferred_element_type=jnp.float32``.
 
@@ -61,13 +65,14 @@ def _mask_penalty(qpos: torch.Tensor, kpos: torch.Tensor, window: int, prefix: i
     return torch.where(allowed, 0.0, _NEG).to(torch.float32)
 
 
-def _flash_fwd(q, k, v, qp, kp, window: int, prefix: int) -> torch.Tensor:
+def _flash_fwd(q, k, v, qp, kp, window: int, prefix: int):
     """q [B, nq, cq, Hkv, G, dh], k/v [B, nk, ck, Hkv, dh], positions
-    [nq, cq] / [nk, ck] -> out [nq, B, Hkv, G, cq, dh] in q's type."""
+    [nq, cq] / [nk, ck] -> (out [nq, B, Hkv, G, cq, dh] in q's type, lse
+    [nq, B, Hkv, G, cq] f32)."""
     b, nq, cq, hkv, g, dh = q.shape
     nk = k.shape[1]
     scale = dh ** -0.5
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
         qi = q[:, i].float()  # [B, cq, Hkv, G, dh]
         m = torch.full((b, hkv, g, cq), _NEG, dtype=torch.float32, device=q.device)
@@ -82,8 +87,71 @@ def _flash_fwd(q, k, v, qp, kp, window: int, prefix: int) -> torch.Tensor:
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, v[:, j].float())
             m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    return torch.stack(outs)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def _flash_bwd(q, k, v, qp, kp, out, lse, d_out, window: int, prefix: int):
+    """The reference's ``_flash_bwd``: each block's probabilities
+    recomputed from (q, k, lse), ``ds = p (dp - rowsum(dO O))``; dq
+    accumulated over key chunks for each query chunk, dk and dv over
+    query chunks for each key chunk, in f32, returned in the inputs'
+    types."""
+    b, nq, cq, hkv, g, dh = q.shape
+    nk = k.shape[1]
+    scale = dh ** -0.5
+    delta = (d_out.float() * out.float()).sum(dim=-1)  # [nq, B, Hkv, G, cq]
+    d_out = d_out.float()
+
+    def p_block(i, j):
+        logits = torch.einsum("bqkgd,bskd->bkgqs", q[:, i].float(), k[:, j].float()) * scale
+        logits = logits + _mask_penalty(qp[i], kp[j], window, prefix)
+        return torch.exp(logits - lse[i][..., None])  # [B, Hkv, G, cq, ck]
+
+    dq = []
+    for i in range(nq):
+        acc = torch.zeros((b, cq, hkv, g, dh), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            p = p_block(i, j)
+            dp = torch.einsum("bkgqd,bskd->bkgqs", d_out[i], v[:, j].float())
+            ds = p * (dp - delta[i][..., None])
+            acc = acc + torch.einsum("bkgqs,bskd->bqkgd", ds, k[:, j].float()) * scale
+        dq.append(acc)
+    dk, dv = [], []
+    for j in range(nk):
+        dk_acc = torch.zeros((b, k.shape[2], hkv, dh), dtype=torch.float32, device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for i in range(nq):
+            p = p_block(i, j)
+            dv_acc = dv_acc + torch.einsum("bkgqs,bkgqd->bskd", p, d_out[i])
+            dp = torch.einsum("bkgqd,bskd->bkgqs", d_out[i], v[:, j].float())
+            ds = p * (dp - delta[i][..., None])
+            dk_acc = dk_acc + torch.einsum("bkgqs,bqkgd->bskd", ds, q[:, i].float()) * scale
+        dk.append(dk_acc)
+        dv.append(dv_acc)
+    return (torch.stack(dq, dim=1).to(q.dtype), torch.stack(dk, dim=1).to(k.dtype),
+            torch.stack(dv, dim=1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Blocked flash attention whose backward recomputes each block:
+    the reference's ``_flash`` custom VJP.  Saved for the backward: the
+    inputs, the output and the row log-sum-exp, no block's scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qp, kp, window: int, prefix: int):
+        out, lse = _flash_fwd(q, k, v, qp, kp, window, prefix)
+        ctx.save_for_backward(q, k, v, qp, kp, out, lse)
+        ctx.window, ctx.prefix = window, prefix
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, qp, kp, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, qp, kp, out, lse, d_out, ctx.window, ctx.prefix)
+        return dq, dk, dv, None, None, None, None
 
 
 def blockwise_attention(
@@ -96,8 +164,9 @@ def blockwise_attention(
     prefix: int = 0,
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Flash attention forward in plain chunked PyTorch; never holds
-    [S, S].  Returns [B, Sq, H, dh] in q's type."""
+    """Flash attention in plain chunked PyTorch, differentiable through
+    :class:`_Flash`; never holds [S, S].  Returns [B, Sq, H, dh] in q's
+    type."""
     b, sq, h, dh = q.shape
     _, skv, hkv, _ = k.shape
     g = h // hkv
@@ -121,7 +190,7 @@ def blockwise_attention(
     qp = q_positions.reshape(nq, cq)
     kp = k_positions.reshape(nk, ck)
 
-    outs = _flash_fwd(qb, kb, vb, qp, kp, window, prefix)
+    outs = _Flash.apply(qb, kb, vb, qp, kp, window, prefix)
     # outs [nq, B, Hkv, G, cq, dh] -> [B, S, H, dh]
     out = outs.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * cq, h, dh)
     return out[:, :sq].to(q.dtype)

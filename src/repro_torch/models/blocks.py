@@ -11,9 +11,9 @@ group's cache (``models/model.py::init_cache``), which the block updates
 in place: the reference returns new caches instead, and writing in place
 keeps one copy of the cache on the card.
 
-``mode`` is ``"train"`` (no cache: the forward alone, the port has no
-backward), ``"prefill"`` (fill the cache) or ``"decode"`` (one step
-against it).  ``backend`` reaches the kernels through ``kernels/ops.py``:
+``mode`` is ``"train"`` (no cache: the forward, differentiable, of a
+train step or a full-sequence pass), ``"prefill"`` (fill the cache) or
+``"decode"`` (one step against it).  ``backend`` reaches the kernels through ``kernels/ops.py``:
 ``None`` launches them for CUDA tensors, ``"torch"`` takes their plain
 versions.  The MoE block runs the reference's local path
 (``models/moe.py``).  An int8 KV cache
@@ -46,7 +46,7 @@ from .ssm import (
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ------------------------------------------------------------------ norms

@@ -12,11 +12,17 @@ attention window; xLSTM's are runs of mLSTM layers, each followed by
 one sLSTM layer).  The reference stacks a
 group's parameters and ``lax.scan``s over them; here each layer is its own
 module and a Python loop walks them.  The parameters are held in
-``param_dtype`` (f32); the blocks run on a copy in ``compute_dtype``
-(bf16 for the served configs), made once at first use, which is the
-reference's per-block ``astype`` done ahead of time.  The embedding,
-final norm and LM head are read from the f32 parameters, as in the
-reference, as are the vision projection and the codebook heads.
+``param_dtype`` (f32) and are trainable.  Serving (``prefill``,
+``serve_step``) runs the blocks on a copy in ``compute_dtype`` (bf16 for
+the served configs), made at first use and refreshed in place after the
+parameters change (``CausalLM.compute_blocks``), which is the reference's
+per-block ``astype`` done ahead of time.  Training (``forward`` in
+``"train"`` mode, ``loss_fn``) casts each block's parameters as it runs
+it, differentiably, so the gradients land on the f32 parameters; with
+``cfg.remat`` each layer of a scanned group is checkpointed, as the
+reference's ``jax.checkpoint`` of its scan body.  The embedding, final
+norm and LM head are read from the f32 parameters, as in the reference,
+as are the vision projection and the codebook heads.
 
 Every entry point takes an explicit ``device`` (``None`` means the card,
 and a host without one raises) and random weights come from a
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.config import DeviceLike, resolve_device
 from .blocks import (
@@ -131,8 +138,8 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _frozen(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ------------------------------------------------------------------ model
@@ -150,38 +157,55 @@ class CausalLM(nn.Module):
         dt = _dtype(cfg.param_dtype)
         kw = dict(dtype=dt, device=device)
         k = cfg.n_codebooks
-        self.embed = _frozen((k, cfg.vocab_size, cfg.d_model) if k else (cfg.vocab_size, cfg.d_model), **kw)
+        self.embed = _param((k, cfg.vocab_size, cfg.d_model) if k else (cfg.vocab_size, cfg.d_model), **kw)
         self.register_parameter(
-            "vision_proj", _frozen((SIGLIP_DIM, cfg.d_model), **kw) if cfg.n_patches else None)
+            "vision_proj", _param((SIGLIP_DIM, cfg.d_model), **kw) if cfg.n_patches else None)
         self.register_parameter(
-            "meta_tokens", _frozen((N_META_TOKENS, cfg.d_model), **kw) if cfg.block_kind == "hymba" else None)
+            "meta_tokens", _param((N_META_TOKENS, cfg.d_model), **kw) if cfg.block_kind == "hymba" else None)
         self.groups = nn.ModuleList(
             nn.ModuleList(_make_block(cfg, spec.kind, dt, device) for _ in range(spec.n))
             for spec in layer_groups(cfg)
         )
         self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
         self.register_parameter(
-            "heads", _frozen((k, cfg.d_model, cfg.vocab_size), **kw) if k else None)
+            "heads", _param((k, cfg.d_model, cfg.vocab_size), **kw) if k else None)
         self.register_parameter(
             "lm_head",
-            None if k or cfg.tie_embeddings else _frozen((cfg.d_model, cfg.vocab_size), **kw))
-        self._compute: Dict[torch.dtype, List[List[nn.Module]]] = {}
+            None if k or cfg.tie_embeddings else _param((cfg.d_model, cfg.vocab_size), **kw))
+        self._compute: Dict[torch.dtype, Tuple[List[List[nn.Module]], List[int]]] = {}
 
     def compute_blocks(self, dtype: torch.dtype) -> List[List[nn.Module]]:
-        """The blocks in ``dtype`` (the config's ``compute_dtype``), copied
-        from the parameters at first use, or the parameter modules
-        themselves when the dtypes agree.  Every floating parameter is
-        cast, a MoE router and the sLSTM's recurrence ``r`` and bias ``b``
-        too, as the reference's per-block ``astype``.
-        Weights changed after the first forward are not seen: the port
-        only serves."""
+        """The blocks in ``dtype`` (the config's ``compute_dtype``) for
+        serving, or the parameter modules themselves where the dtypes
+        agree.  The copy is made at first use and, whenever a block
+        parameter has changed since (an optimizer step, a restored
+        checkpoint: any in-place write, which bumps the tensor's version
+        counter), refreshed in place, so a CUDA graph captured over it
+        reads the new weights.  Every floating parameter is cast, a MoE
+        router and the sLSTM's recurrence ``r`` and bias ``b`` too, as the
+        reference's per-block ``astype``.  The copy takes no gradient."""
+        params = list(self.groups.parameters())
+        stamp = [p._version for p in params]
         if dtype not in self._compute:
-            self._compute[dtype] = [
-                [blk if all(p.dtype == dtype for p in blk.parameters())
-                 else copy.deepcopy(blk).to(dtype) for blk in grp]
-                for grp in self.groups
-            ]
-        return self._compute[dtype]
+            blocks = []
+            for grp in self.groups:
+                row = []
+                for blk in grp:
+                    if any(p.dtype != dtype for p in blk.parameters()):
+                        blk = copy.deepcopy(blk).to(dtype).requires_grad_(False)
+                    row.append(blk)
+                blocks.append(row)
+            self._compute[dtype] = (blocks, stamp)
+        blocks, seen = self._compute[dtype]
+        if seen != stamp:
+            with torch.no_grad():
+                for grp, copies in zip(self.groups, blocks):
+                    for blk, cp in zip(grp, copies):
+                        if cp is not blk:
+                            for src, dst in zip(blk.parameters(), cp.parameters()):
+                                dst.copy_(src)
+            self._compute[dtype] = (blocks, stamp)
+        return blocks
 
 
 @torch.no_grad()
@@ -282,19 +306,72 @@ def _layer_cache(cache: Any, i: int) -> Any:
 
 
 # ----------------------------------------------------------------- forward
-def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cache, mode: str,
-                 positions: torch.Tensor, prefix: int, backend: Optional[str]) -> torch.Tensor:
+def _block(cfg: ModelConfig, spec: GroupSpec, blk: nn.Module, x: torch.Tensor, cache, mode: str,
+           positions: torch.Tensor, prefix: int,
+           backend: Optional[str]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer in the compute dtype: (x, the aux loss of a dense or MoE
+    layer, 0 without experts; None for the other kinds)."""
     cdt = _dtype(cfg.compute_dtype)
-    for i, blk in enumerate(blocks):
-        c = None if cache is None else _layer_cache(cache, i)
-        if spec.kind == "hymba":
-            x = hymba_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend)
-        elif spec.kind in ("mlstm", "slstm"):
-            x = xlstm_block_apply(cfg, blk, x.to(cdt), c, mode, backend)
-        else:  # the MoE aux loss is for training, which the port does not run yet
-            x, _ = dense_block_apply(cfg, blk, x.to(cdt), c, mode, positions, spec.window, backend, prefix)
-        x = x.to(cdt)
-    return x
+    aux = None
+    if spec.kind == "hymba":
+        x = hymba_block_apply(cfg, blk, x.to(cdt), cache, mode, positions, spec.window, backend)
+    elif spec.kind in ("mlstm", "slstm"):
+        x = xlstm_block_apply(cfg, blk, x.to(cdt), cache, mode, backend)
+    else:
+        x, aux = dense_block_apply(cfg, blk, x.to(cdt), cache, mode, positions, spec.window, backend, prefix)
+    return x.to(cdt), aux
+
+
+class _Call(nn.Module):
+    """Holds one block so that ``torch.func.functional_call`` can run a
+    block function on it with its parameters replaced."""
+
+    def __init__(self, blk: nn.Module):
+        super().__init__()
+        self.blk = blk
+
+    def forward(self, fn, *args):
+        return fn(self.blk, *args)
+
+
+def _train_block(cfg: ModelConfig, spec: GroupSpec, blk: nn.Module, x: torch.Tensor,
+                 positions: torch.Tensor, prefix: int, backend: Optional[str]):
+    """One layer of the train forward on the f32 parameters: each is
+    cast to the compute dtype as the layer runs, as the reference's
+    per-block ``astype``, so autograd carries the gradients back to the
+    f32 parameters (a cast to the same dtype is the parameter itself)."""
+    cdt = _dtype(cfg.compute_dtype)
+    cast = {"blk." + n: p.to(cdt) for n, p in blk.named_parameters()}
+
+    def run(b, x_):
+        return _block(cfg, spec, b, x_, None, "train", positions, prefix, backend)
+
+    return torch.func.functional_call(_Call(blk), cast, (run, x))
+
+
+def _apply_group(cfg: ModelConfig, spec: GroupSpec, blocks, x: torch.Tensor, cache, mode: str,
+                 positions: torch.Tensor, prefix: int,
+                 backend: Optional[str]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The group's layers in order: (x, the sum of their aux losses in
+    train mode, else None).  Training with ``cfg.remat`` checkpoints each
+    layer of a group the reference scans (``scan_layers`` and more than
+    one layer), as its ``jax.checkpoint`` of the scan body: the backward
+    recomputes the layer from its input."""
+    if mode != "train":
+        for i, blk in enumerate(blocks):
+            x, _ = _block(cfg, spec, blk, x, _layer_cache(cache, i), mode, positions, prefix, backend)
+        return x, None
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    remat = cfg.remat and cfg.scan_layers and spec.n > 1 and torch.is_grad_enabled()
+    for blk in blocks:
+        if remat:
+            x, aux = checkpoint(_train_block, cfg, spec, blk, x, positions, prefix, backend,
+                                use_reentrant=False)
+        else:
+            x, aux = _train_block(cfg, spec, blk, x, positions, prefix, backend)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
@@ -340,33 +417,106 @@ def embed_inputs(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tens
     return x, positions, prefix, n_prefix
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
             caches: Optional[List[Any]] = None, mode: str = "train", start_pos: Position = 0,
-            backend: Optional[str] = None) -> torch.Tensor:
-    """Hidden states [B,S,D] after the final norm (the image patches and
-    Hymba's meta tokens dropped outside decode).  With ``mode`` "prefill" or "decode" the caches are
-    updated in place; ``start_pos`` is the position of the first token (an
-    int, or a 0-d int32 tensor on the device)."""
+            backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (hidden [B,S,D] after the final norm, with the image
+    patches and Hymba's meta tokens dropped outside decode; in "train"
+    mode the MoE aux loss, f32, summed over the layers, else None), as
+    the reference's ``forward`` less its caches.  With ``mode`` "prefill"
+    or "decode" the caches are updated in place, under
+    ``torch.no_grad()``, and the aux loss, which serving never reads, is
+    not summed.  In "train" mode the forward runs on the f32 parameters
+    (``_train_block``) and builds the autograd graph when gradients are
+    enabled; the kernels have no backward, so a train forward that needs
+    gradients on CUDA tensors asks for ``backend="torch"``
+    (``kernels/ops.py`` raises otherwise).  ``start_pos`` is the position
+    of the first token (an int, or a 0-d int32 tensor on the device)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     if (caches is None) != (mode == "train"):
         raise ValueError(f"mode {mode!r} {'needs' if mode != 'train' else 'takes no'} caches")
-    x, positions, prefix, n_prefix = embed_inputs(cfg, params, batch, start_pos, mode)
-    blocks_by_group = params.compute_blocks(_dtype(cfg.compute_dtype))
-    for gi, (spec, blocks) in enumerate(zip(layer_groups(cfg), blocks_by_group)):
-        gc = None if caches is None else caches[gi]
-        x = _apply_group(cfg, spec, blocks, x, gc, mode, positions, prefix, backend)
-    x = norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
-    if n_prefix:
-        x = x[:, n_prefix:]
-    return x
+    with torch.set_grad_enabled(mode == "train" and torch.is_grad_enabled()):
+        x, positions, prefix, n_prefix = embed_inputs(cfg, params, batch, start_pos, mode)
+        blocks_by_group = params.groups if mode == "train" else params.compute_blocks(_dtype(cfg.compute_dtype))
+        aux_total = x.new_zeros((), dtype=torch.float32) if mode == "train" else None
+        for gi, (spec, blocks) in enumerate(zip(layer_groups(cfg), blocks_by_group)):
+            gc = None if caches is None else caches[gi]
+            x, aux = _apply_group(cfg, spec, blocks, x, gc, mode, positions, prefix, backend)
+            if aux is not None:
+                aux_total = aux_total + aux
+        x = norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        return x, aux_total
 
 
 def _head_matrix(cfg: ModelConfig, params: CausalLM) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params.embed.T
     return params.lm_head
+
+
+# -------------------------------------------------------------------- loss
+def _xent_chunk(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor):
+    """One chunk's (sum of masked -log p, count of labels >= 0), on f32
+    logits [B, c, V]."""
+    logits = h.float() @ head_w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without holding [B, S, V]: a loop over chunks of S,
+    each checkpointed under autograd so the backward recomputes that
+    chunk's f32 logits [B, c, V] instead of keeping them, as the
+    reference's checkpointed scan.  Labels < 0 are masked; a ragged S is
+    padded with label -1.  Returns (loss_sum, token_count), f32."""
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    labels = labels.long()
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    grad = torch.is_grad_enabled()
+    for i in range(0, s + pad, c):
+        h, lab = hidden[:, i:i + c], labels[:, i:i + c]
+        if grad:
+            ls, ct = checkpoint(_xent_chunk, h, head_w, lab, use_reentrant=False)
+        else:
+            ls, ct = _xent_chunk(h, head_w, lab)
+        loss_sum = loss_sum + ls
+        count = count + ct
+    return loss_sum, count
+
+
+def loss_fn(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
+            backend: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn``: the train forward, the chunked
+    cross-entropy of ``batch["labels"]`` (summed over the codebook heads
+    with codebooks; Hymba's meta tokens and the image patches are
+    already dropped by ``forward``), mean over the labelled tokens, plus
+    ``router_aux_weight`` times the aux loss for MoE.  Returns (loss,
+    {"xent", "aux"}), f32 scalars on the device."""
+    hidden, aux = forward(cfg, params, batch, mode="train", backend=backend)
+    labels = batch["labels"]
+    if cfg.n_codebooks:
+        total = count = hidden.new_zeros((), dtype=torch.float32)
+        for k in range(cfg.n_codebooks):
+            ls, ct = chunked_xent(hidden, params.heads[k], labels[..., k], cfg.loss_chunk)
+            total = total + ls
+            count = count + ct
+    else:
+        total, count = chunked_xent(hidden, _head_matrix(cfg, params), labels, cfg.loss_chunk)
+    xent = total / torch.clamp(count, min=1.0)
+    loss = xent + cfg.router_aux_weight * aux if cfg.n_experts else xent
+    return loss, {"xent": xent, "aux": aux}
 
 
 # -------------------------------------------------------------- serve step
@@ -381,8 +531,8 @@ def serve_step(cfg: ModelConfig, params: CausalLM, caches: List[Any], tokens: to
     once (``embed_inputs``).  Nothing on the step reads a device value on
     the host, so the step can be captured as a CUDA graph
     (``launch/steps.py::make_serve_step``)."""
-    hidden = forward(cfg, params, {"tokens": tokens}, caches=caches, mode="decode",
-                     start_pos=pos, backend=backend)
+    hidden, _ = forward(cfg, params, {"tokens": tokens}, caches=caches, mode="decode",
+                        start_pos=pos, backend=backend)
     h = hidden[:, -1].float()
     if cfg.n_codebooks:
         return torch.einsum("bd,kdv->bkv", h, params.heads.float())
@@ -394,5 +544,5 @@ def prefill(cfg: ModelConfig, params: CausalLM, batch: Dict[str, torch.Tensor],
     """Run the prompt (``batch["tokens"]``, and ``batch["patches"]`` with
     the vision prefix) through the model filling ``caches`` in place;
     returns the last hidden state [B, D]."""
-    hidden = forward(cfg, params, batch, caches=caches, mode="prefill", backend=backend)
+    hidden, _ = forward(cfg, params, batch, caches=caches, mode="prefill", backend=backend)
     return hidden[:, -1]

@@ -133,7 +133,7 @@ class MoE(nn.Module):
         super().__init__()
 
         def param(*shape, dt=dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
 
         self.router = param(d_model, n_experts, dt=torch.float32)
         self.w1 = param(n_experts, d_model, d_ff)

@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters across from and back to the JAX package.
 
 ``init_params`` in the two packages draws different random numbers from
 the same seed, so parity runs take the reference's parameter pytree,
@@ -15,18 +15,21 @@ layer's expert stacks ``[n, E, D, F]`` become ``[E, D, F]``).  Each
 value takes the port's parameter's dtype: a MoE router stays f32, as in
 the reference; the blocks' copy in the compute dtype
 (``CausalLM.compute_blocks``) rounds it, as the reference's per-block
-cast does.
+cast does.  :func:`params_to_numpy` is the inverse: the model's
+parameters as the reference's pytree of numpy arrays, each group's
+layers stacked ``[n, ...]`` again, which is also the layout of a
+checkpoint that either package loads (``checkpoint/checkpoint.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..kernels.config import DeviceLike, resolve_device
 from .config import ModelConfig
-from .model import CausalLM
+from .model import CausalLM, layer_groups
 
 
 def tree_leaf(tree: Mapping[str, Any], name: str) -> Tuple[Any, Optional[int]]:
@@ -63,3 +66,35 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceL
                 raise ValueError(f"{name}: reference shape {arr.shape}, port {tuple(p.shape)}")
             p.copy_(torch.tensor(arr, dtype=p.dtype))
     return model
+
+
+def params_to_numpy(cfg: ModelConfig,
+                    params: Union[CausalLM, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The model's parameters, or any tensors keyed by its parameter names
+    (gradients, the optimizer's moments), as the reference's pytree of
+    numpy arrays: the top-level leaves as they are, ``final_norm`` a dict,
+    ``groups`` a list with one dict a layer group whose leaves stack its
+    layers ``[n, ...]`` (a MoE layer's expert stacks ``[n, E, D, F]``).
+    Each array has its tensor's dtype (bf16 comes back as f32, which holds
+    it exactly)."""
+    tree: Dict[str, Any] = {"groups": [{} for _ in layer_groups(cfg)]}
+    stacks: List[Dict[Tuple[str, ...], list]] = [{} for _ in layer_groups(cfg)]
+    named = params.named_parameters() if isinstance(params, CausalLM) else params.items()
+    for name, p in named:
+        t = p.detach()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "groups":
+            stacks[int(parts[1])].setdefault(tuple(parts[3:]), []).append(arr)
+            continue
+        node = tree
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = arr
+    for group, leaves in zip(tree["groups"], stacks):
+        for path, layers in leaves.items():
+            node = group
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = np.stack(layers)
+    return tree

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.ssd import ssd_ref as ssd_scan
@@ -72,7 +73,7 @@ class Mamba(nn.Module):
         nh = d_inner // HEAD_P
 
         def p(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
         self.w_in = p(d_model, 2 * d_inner)
         self.conv_w = p(conv_kernel, d_inner)
@@ -157,8 +158,8 @@ def mamba_mix(p: Mamba, u: torch.Tensor, cfg, state=None, decode: bool = False,
     return y @ p.w_out, (new_conv_state, h_new)
 
 
-def _frozen(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+def _param(*shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ------------------------------------------------------------------ mLSTM
@@ -170,13 +171,13 @@ class MLSTM(nn.Module):
         super().__init__()
         dh = d_model // n_heads
         kw = dict(dtype=dtype, device=device)
-        self.wq_m = _frozen(d_model, n_heads, dh, **kw)
-        self.wk_m = _frozen(d_model, n_heads, dh, **kw)
-        self.wv_m = _frozen(d_model, n_heads, dh, **kw)
-        self.w_gates = _frozen(d_model, 2 * n_heads, **kw)
-        self.b_gates = _frozen(2 * n_heads, **kw)
-        self.w_o_gate = _frozen(d_model, d_model, **kw)
-        self.w_out = _frozen(d_model, d_model, **kw)
+        self.wq_m = _param(d_model, n_heads, dh, **kw)
+        self.wk_m = _param(d_model, n_heads, dh, **kw)
+        self.wv_m = _param(d_model, n_heads, dh, **kw)
+        self.w_gates = _param(d_model, 2 * n_heads, **kw)
+        self.b_gates = _param(2 * n_heads, **kw)
+        self.w_o_gate = _param(d_model, d_model, **kw)
+        self.w_out = _param(d_model, d_model, **kw)
 
 
 def init_mlstm_params(m: MLSTM, gen: torch.Generator) -> None:
@@ -256,10 +257,10 @@ class SLSTM(nn.Module):
         super().__init__()
         dh = d_model // n_heads
         kw = dict(dtype=dtype, device=device)
-        self.wx = _frozen(d_model, n_heads, 4 * dh, **kw)
-        self.r = _frozen(n_heads, dh, 4 * dh, **kw)
-        self.b = _frozen(n_heads, 4 * dh, **kw)
-        self.w_out_slstm = _frozen(d_model, d_model, **kw)
+        self.wx = _param(d_model, n_heads, 4 * dh, **kw)
+        self.r = _param(n_heads, dh, 4 * dh, **kw)
+        self.b = _param(n_heads, 4 * dh, **kw)
+        self.w_out_slstm = _param(d_model, d_model, **kw)
 
 
 def init_slstm_params(m: SLSTM, gen: torch.Generator) -> None:
@@ -271,30 +272,17 @@ def init_slstm_params(m: SLSTM, gen: torch.Generator) -> None:
     m.w_out_slstm.normal_(0.0, d ** -0.5, generator=gen)
 
 
-def slstm_mix(p: SLSTM, u: torch.Tensor, cfg, state=None, decode: bool = False):
-    """sLSTM: scalar-memory cell with a head-wise block-diagonal
-    recurrence and the exponential-gate stabilizer m.  state: (c, n, h, m)
-    [B,H,dh] f32 each, or None for zeros with m = -1e30.  Returns (out
-    [B,S,D], (c, n, h, m)), new tensors.
+SLSTM_REMAT_CHUNK = 128  # steps a checkpointed chunk of the sLSTM's loop holds (the reference's)
 
-    A plain loop over time: the reference's ``lax.scan``, with no Pallas
-    kernel.  Its nested ``jax.checkpoint`` chunking (taken when S is a
-    multiple of 128 above 128) only saves training memory and gives the
-    same values, so it has no counterpart here.  Dtypes: the carry is f32,
-    so ``h @ r`` (r bf16) is f32, as JAX's promotion makes it, and
-    ``x_t + h r + b`` is f32; the outputs are cast back to u's type."""
-    b, s, d = u.shape
-    nh, dh = p.r.shape[0], p.r.shape[1]
-    if state is None:
-        zeros = u.new_zeros((b, nh, dh), dtype=torch.float32)
-        state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
-    c, n, h, m = state
-    wx = _project_heads(u, p.wx)  # [B, S, nh, 4*dh]
-    r = p.r.float()  # promoted once, as the reference's einsum does each step
+
+def _slstm_steps(wx: torch.Tensor, r: torch.Tensor, bias: torch.Tensor, c: torch.Tensor,
+                 n: torch.Tensor, h: torch.Tensor, m: torch.Tensor):
+    """The recurrence over the steps of wx [B, T, nh, 4dh]: returns (ys
+    [B, T, nh, dh] f32, c, n, h, m)."""
     ys = []
-    for t in range(s):
+    for t in range(wx.shape[1]):
         rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1)  # einsum("bhe,hef->bhf", h, r)
-        pre = wx[:, t] + rec + p.b
+        pre = wx[:, t] + rec + bias
         z_in, i_in, f_in, o_in = pre.float().chunk(4, dim=-1)
         z = torch.tanh(z_in)
         o = torch.sigmoid(o_in)
@@ -306,5 +294,41 @@ def slstm_mix(p: SLSTM, u: torch.Tensor, cfg, state=None, decode: bool = False):
         h = o * (c / torch.clamp(n, min=1e-6))
         m = m_new
         ys.append(h)
-    y = torch.stack(ys, dim=1).reshape(b, s, nh * dh).to(u.dtype)
+    return torch.stack(ys, dim=1), c, n, h, m
+
+
+def slstm_mix(p: SLSTM, u: torch.Tensor, cfg, state=None, decode: bool = False):
+    """sLSTM: scalar-memory cell with a head-wise block-diagonal
+    recurrence and the exponential-gate stabilizer m.  state: (c, n, h, m)
+    [B,H,dh] f32 each, or None for zeros with m = -1e30.  Returns (out
+    [B,S,D], (c, n, h, m)), new tensors.
+
+    A plain loop over time: the reference's ``lax.scan``, with no Pallas
+    kernel.  Under autograd, with S a multiple of ``SLSTM_REMAT_CHUNK``
+    above it, each chunk of that many steps is checkpointed, as the
+    reference's nested ``jax.checkpoint``: the backward keeps the carry
+    at each chunk's start and recomputes the chunk, where plain BPTT
+    would keep every step's.  The values are the same either way.
+    Dtypes: the carry is f32,
+    so ``h @ r`` (r bf16) is f32, as JAX's promotion makes it, and
+    ``x_t + h r + b`` is f32; the outputs are cast back to u's type."""
+    b, s, d = u.shape
+    nh, dh = p.r.shape[0], p.r.shape[1]
+    if state is None:
+        zeros = u.new_zeros((b, nh, dh), dtype=torch.float32)
+        state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
+    c, n, h, m = state
+    wx = _project_heads(u, p.wx)  # [B, S, nh, 4*dh]
+    r = p.r.float()  # promoted once, as the reference's einsum does each step
+    chunk = SLSTM_REMAT_CHUNK
+    if torch.is_grad_enabled() and s % chunk == 0 and s > chunk:
+        parts = []
+        for i in range(0, s, chunk):
+            ys, c, n, h, m = checkpoint(_slstm_steps, wx[:, i:i + chunk], r, p.b, c, n, h, m,
+                                        use_reentrant=False)
+            parts.append(ys)
+        ys = torch.cat(parts, dim=1)
+    else:
+        ys, c, n, h, m = _slstm_steps(wx, r, p.b, c, n, h, m)
+    y = ys.reshape(b, s, nh * dh).to(u.dtype)
     return y @ p.w_out_slstm, (c, n, h, m)

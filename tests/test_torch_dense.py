@@ -109,7 +109,7 @@ def _block_outputs(variant, dtype, mode="train"):
     blk = port_model(cfg, ref_params).compute_blocks(getattr(torch, dtype))[0][0]
     got, _ = dense_block_apply(cfg, blk, torch.from_numpy(x).to(getattr(torch, dtype)), None, "train",
                                torch.from_numpy(pos), cfg.sliding_window)
-    return np.asarray(want, np.float32), got.float().numpy()
+    return np.asarray(want, np.float32), got.detach().float().numpy()
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -186,6 +186,6 @@ def test_dense_prefill_hidden_equals_the_forward_without_cache():
     _, cfg = cfgs("olmoe-1b-7b")
     model = init_params(cfg, seed=1, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 9))).long()
-    full = forward(cfg, model, {"tokens": toks}, mode="train")
+    full, _ = forward(cfg, model, {"tokens": toks}, mode="train")
     last = prefill(cfg, model, {"tokens": toks}, init_cache(cfg, 2, 9, device="cpu"))
     assert torch.equal(full[:, -1], last)

@@ -205,7 +205,7 @@ def test_embed_inputs_sums_the_codebooks_as_the_reference():
     for mode, start in (("prefill", 0), ("decode", 7)):
         rx, rpos, rprefix, rn = ref_embed_inputs(rcfg, ref_params, {"tokens": jnp.asarray(toks)}, start, mode)
         x, pos, prefix, n = embed_inputs(cfg, model, {"tokens": torch.from_numpy(toks).long()}, start, mode)
-        np.testing.assert_array_equal(x.numpy(), np.asarray(rx))
+        np.testing.assert_array_equal(x.detach().numpy(), np.asarray(rx))
         np.testing.assert_array_equal(pos.numpy(), np.asarray(rpos))
         assert (prefix, n) == (rprefix, rn) == (0, 0)
 
@@ -223,7 +223,7 @@ def test_embed_inputs_prepends_the_projected_patches_as_the_reference():
     x, pos, prefix, n = embed_inputs(
         cfg, model, {"tokens": torch.from_numpy(toks).long(), "patches": torch.from_numpy(patches)}, 0, "prefill")
     assert x.shape == (2, cfg.n_patches + 5, cfg.d_model)
-    np.testing.assert_allclose(x.numpy(), np.asarray(rx), rtol=MODULE_TOL, atol=MODULE_TOL)
+    np.testing.assert_allclose(x.detach().numpy(), np.asarray(rx), rtol=MODULE_TOL, atol=MODULE_TOL)
     np.testing.assert_array_equal(pos.numpy(), np.asarray(rpos))
     assert prefix == n == rprefix == rn == cfg.n_patches == prefix_tokens(cfg)
     # decode: the patches live in the cache; the token alone, at its position
@@ -263,7 +263,7 @@ def test_dense_block_with_the_prefix_matches_the_reference():
                                        {"window": 0, "prefix": cfg.n_patches})
     got, _ = dense_block_apply(cfg, blk, torch.from_numpy(x), None, "train", torch.from_numpy(pos), 0,
                                prefix=cfg.n_patches)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
 
 
 # ------------------------------------------------------- prefill + decode

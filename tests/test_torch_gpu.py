@@ -1666,3 +1666,121 @@ def test_fleet_of_graph_boards_keeps_single_stage_bits_across_board_loss(cuda, m
     assert snap["failed"] == 0 and snap["completed"] == snap["submitted"] == len(outs)
     assert snap["boards"][victim]["alive"] and snap["boards"][victim]["generation"] == 4
     assert all(torch.equal(o, want[n][i]) for n, i, o in outs)
+
+
+# ---------------------------------------------------------------- training
+# per-leaf gradient bar on the card against the CPU, f32 (TF32 off): the
+# same sums in other orders through two layers; xLSTM's is wider, since a
+# random-weight xLSTM is chaotic in f32 (the reference's own f32
+# gradients lie 2.6e-4 of a leaf's scale from its float64 ones;
+# tests/test_torch_train_recurrent.py)
+TRAIN_GRAD_TOL = {"smollm-360m": 1e-4, "olmoe-1b-7b": 1e-4, "hymba-1.5b": 1e-4, "xlstm-1.3b": 1e-3}
+
+
+def _train_batch(cfg, dev, b=4, s=32):
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1)))
+    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_GRAD_TOL))
+def test_reduced_models_train_one_f32_step_on_the_card_as_on_the_cpu(cuda, arch):
+    """A reduced config of each block kind (dense, MoE, Hymba, xLSTM) in
+    f32 on the same weights and batch: the loss, every gradient (within
+    its leaf's bar of the leaf's scale) and one train step's loss and
+    grad norm on the card equal the CPU's; the step launches no counted
+    kernel."""
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="float32", grad_accum=1)
+    tree = params_to_numpy(cfg, init_params(cfg, seed=0, device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = params_from_numpy(cfg, tree, device=dev)
+        batch = _train_batch(cfg, dev)
+        loss, _, grads = loss_and_grads(cfg, model, batch)
+        K.reset_launches()
+        _, opt, metrics = make_train_step(cfg, warmup=0)(model, adamw_init(dict(model.named_parameters())), batch)
+        assert all(n == 0 for n in K.launch_counts().values())
+        out[str(dev)] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                         float(metrics["loss"]), float(metrics["grad_norm"]))
+    (l0, g0, m0, n0), (l1, g1, m1, n1) = out["cpu"], out["cuda"]
+    assert l1 == pytest.approx(l0, rel=1e-5) and m1 == pytest.approx(m0, rel=1e-5)
+    assert n1 == pytest.approx(n0, rel=TRAIN_GRAD_TOL[arch])
+    for k, g in g0.items():
+        scale = float(g.abs().max())
+        assert float((g1[k] - g).abs().max()) <= TRAIN_GRAD_TOL[arch] * max(scale, 1e-30), k
+
+
+def test_kernel_routes_raise_under_autograd(cuda):
+    """B6 and B5 on their kernel route (``backend=None``, CUDA tensors)
+    raise when autograd records, rather than return an output with no
+    gradient; without gradients they launch, and ``backend="torch"``
+    differentiates."""
+    rng = np.random.default_rng(0)
+    x, log_a = _on(cuda, rng, 1, 64, 2, 64), -_on(cuda, rng, 1, 64, 2).abs()
+    bm, cm = _on(cuda, rng, 1, 64, 2, 16), _on(cuda, rng, 1, 64, 2, 16)
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd(xg, log_a, bm, cm)
+    with torch.no_grad():
+        ops.ssd(xg, log_a, bm, cm)
+    y, _ = ops.ssd(xg, log_a, bm, cm, backend="torch")
+    assert y.grad_fn is not None
+    q = _on(cuda, rng, 2, 2, 3, 64).requires_grad_()
+    k, v = _on(cuda, rng, 2, 40, 2, 64), _on(cuda, rng, 2, 40, 2, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_decode(q, k, v, 33)
+    with torch.no_grad():
+        ops.flash_decode(q, k, v, 33)
+    assert ops.flash_decode(q, k, v, 33, backend="torch").grad_fn is not None
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A model's parameters on the card saved and restored into a fresh
+    model on the card, bitwise; a bf16 tensor on the card comes back bf16
+    on the card."""
+    from repro_torch.checkpoint import restore, save_checkpoint
+    from repro_torch.models import params_from_numpy, params_to_numpy
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = init_params(cfg, seed=3, device=cuda)
+    half = torch.randn(5, 7, device=cuda).to(torch.bfloat16)
+    tree = {"params": params_to_numpy(cfg, model), "half": half}
+    save_checkpoint(str(tmp_path), 1, tree)
+    got = restore(str(tmp_path), {"params": tree["params"], "half": torch.zeros_like(half)})
+    fresh = params_from_numpy(cfg, got["params"], device=cuda)
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), fresh.parameters()))
+    assert got["half"].device.type == "cuda" and got["half"].dtype == torch.bfloat16
+    assert torch.equal(got["half"], half)
+
+
+def test_captured_decode_step_serves_the_trained_weights(cuda):
+    """A decode step captured as a CUDA graph before a train step replays
+    after it with the new weights (the blocks' bf16 copy is refreshed in
+    place): its logits equal a fresh model's, loaded with the trained
+    weights, op by op."""
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models import init_cache, params_from_numpy, params_to_numpy, prefill, serve_step
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), grad_accum=1)
+    model = init_params(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 17), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    step = make_serve_step(cfg)
+    caches = init_cache(cfg, 4, 17, device=cuda)
+    prefill(cfg, model, {"tokens": prompt[:, :16]}, caches)
+    before = step(model, caches, prompt[:, 16:], 16)  # eager, then captured
+    make_train_step(cfg, warmup=0)(model, adamw_init(dict(model.named_parameters())), _train_batch(cfg, cuda))
+    prefill(cfg, model, {"tokens": prompt[:, :16]}, caches)
+    graphs_before = runtime.graph_launches()
+    after = step(model, caches, prompt[:, 16:], 16)
+    assert runtime.graph_launches() == graphs_before + 1  # a replay of the old capture
+    fresh = params_from_numpy(cfg, params_to_numpy(cfg, model), device=cuda)
+    fc = init_cache(cfg, 4, 17, device=cuda)
+    prefill(cfg, fresh, {"tokens": prompt[:, :16]}, fc)
+    want = serve_step(cfg, fresh, fc, prompt[:, 16:], 16)
+    assert torch.equal(after, want) and not torch.equal(after, before)

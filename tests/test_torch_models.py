@@ -207,13 +207,13 @@ def test_mamba_mix_prefill_and_decode_match_reference(ref_params):
     want, (rconv, rh) = ref_mamba_mix(mp, jnp.asarray(u), rcfg)
     got, (conv, hs) = mamba_mix(model.groups[1][0].mamba, torch.from_numpy(u), cfg)
     for g, w in ((got, want), (conv, rconv), (hs, rh)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
     u1 = _np(rng, 2, 1, cfg.d_model)
     want1, (rconv1, rh1) = ref_mamba_mix(mp, jnp.asarray(u1), rcfg, state=(rconv, rh), decode=True)
     got1, (conv1, hs1) = mamba_mix(model.groups[1][0].mamba, torch.from_numpy(u1), cfg,
                                    state=(conv, hs), decode=True)
     for g, w in ((got1, want1), (conv1, rconv1), (hs1, rh1)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
 
 
 def _block_outputs(ref_params, dtype):
@@ -230,7 +230,7 @@ def _block_outputs(ref_params, dtype):
     blk = _model(cfg, ref_params).compute_blocks(getattr(torch, dtype))[1][0]
     got = hymba_block_apply(cfg, blk, torch.from_numpy(x).to(getattr(torch, dtype)), None, "train",
                             torch.from_numpy(pos), cfg.sliding_window)
-    return np.asarray(want, np.float32), got.float().numpy()
+    return np.asarray(want, np.float32), got.detach().float().numpy()
 
 
 def test_hymba_block_matches_reference(ref_params):
@@ -304,7 +304,7 @@ def test_prefill_hidden_equals_the_forward_without_cache(ref_params):
     _, cfg = _cfgs()
     model = _model(cfg, ref_params)
     toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 9))).long()
-    full = forward(cfg, model, {"tokens": toks}, mode="train")
+    full, _ = forward(cfg, model, {"tokens": toks}, mode="train")
     last = prefill(cfg, model, {"tokens": toks}, init_cache(cfg, 2, 9 + N_META_TOKENS, device="cpu"))
     assert torch.equal(full[:, -1], last)
     with pytest.raises(ValueError):

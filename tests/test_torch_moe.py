@@ -133,7 +133,7 @@ def test_moe_local_matches_reference(case):
     kw = dict(top_k=k, capacity_factor=cf, act=act, glu=glu, renorm=renorm)
     want, raux = ref_moe.moe_local(jax.tree.map(jnp.asarray, ref), jnp.asarray(x), **kw)
     got, aux = M.moe_local(mine, torch.from_numpy(x), **kw)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
     np.testing.assert_allclose(float(aux), float(raux), rtol=MODULE_TOL, atol=MODULE_TOL)
     _, idx, _ = M.router(torch.from_numpy(x).reshape(-1, d), mine.router, k, renorm)
     _, ridx, _ = ref_moe.router(jnp.asarray(x).reshape(-1, d), jnp.asarray(ref["router"]), k, renorm)
@@ -234,7 +234,7 @@ def test_moe_block_matches_reference(case, monkeypatch):
                                           {"window": cfg.sliding_window})
     got, aux = dense_block_apply(cfg, blk, torch.from_numpy(x), None, "train", torch.from_numpy(pos),
                                  cfg.sliding_window)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
     np.testing.assert_allclose(float(aux), float(raux), rtol=MODULE_TOL, atol=MODULE_TOL)
     assert len(seen["ref"]) == len(seen["port"]) == 1
     np.testing.assert_array_equal(seen["port"][0], seen["ref"][0])

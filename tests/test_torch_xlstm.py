@@ -170,7 +170,7 @@ def _mlstm_both(ref_params, dtype, s, decode, seed=3):
     got, (gh, gn) = mlstm_mix(blk, torch.from_numpy(u).to(tdt), cfg,
                               state=None if state is None else tuple(torch.from_numpy(a.copy()) for a in state),
                               decode=decode)
-    return [(np.asarray(w, np.float32), g.float().numpy()) for w, g in ((want, got), (wh, gh), (wn, gn))]
+    return [(np.asarray(w, np.float32), g.detach().float().numpy()) for w, g in ((want, got), (wh, gh), (wn, gn))]
 
 
 @pytest.mark.parametrize("decode", [False, True], ids=["prefill_300", "decode"])
@@ -210,7 +210,7 @@ def test_mlstm_scan_runs_at_chunk_128_whatever_ssd_chunk_says(ref_params, monkey
     want, _ = ref_mlstm_mix(lp, jnp.asarray(u), rcfg)
     got, _ = mlstm_mix(blk, torch.from_numpy(u), cfg)
     assert chunks == [128]
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SCAN_TOL, atol=SCAN_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=SCAN_TOL, atol=SCAN_TOL)
 
 
 def _slstm_both(ref_params, dtype, s, decode, seed=5):
@@ -233,7 +233,7 @@ def _slstm_both(ref_params, dtype, s, decode, seed=5):
                          state=None if state is None else tuple(torch.from_numpy(a) for a in state),
                          decode=decode)
     assert got.dtype == tdt and all(t.dtype == torch.float32 for t in gst)
-    return [(np.asarray(w, np.float32), g.float().numpy()) for w, g in zip((want, *wst), (got, *gst))]
+    return [(np.asarray(w, np.float32), g.detach().float().numpy()) for w, g in zip((want, *wst), (got, *gst))]
 
 
 SLSTM_CASES = [(256, False), (300, False), (1, True)]
@@ -274,9 +274,9 @@ def test_xlstm_block_matches_reference(kind, d_ff):
                                          jnp.arange(70, dtype=jnp.int32), {}, kind=kind)
     cache = tuple(t[0] for t in init_cache(cfg, 2, 70, device="cpu")[gi])
     got = xlstm_block_apply(cfg, blk, torch.from_numpy(u), cache, "prefill")
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=MODULE_TOL, atol=MODULE_TOL)
     for g, w in zip(cache, wst):  # the new state, written into the cache
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=MODULE_TOL, atol=MODULE_TOL)
 
 
 # --------------------------------------------------------- groups, caches
