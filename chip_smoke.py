@@ -231,6 +231,15 @@ Phases (any failure exits non-zero):
    the median step time of steps 4-40, tok/s, peak memory, the losses
    beside ln V, the bound (6 N T plus the causal attention products at
    the bf16 peak) and the last step's device trace;
+   6k (``dryrun_phase``): ``launch/dryrun.py::run_one`` on ``meta``
+   tensors with the card's peaks for every config at ``decode_32k`` and
+   ``long_500k`` (skipped where the config has no sub-quadratic decode)
+   and SmolLM-360M at ``train_4k`` and ``prefill_32k`` (line
+   ``dryrun_6k``), then for 6e's decode step and 6j's train step: the
+   parameter, compute-copy, cache and AdamW-state bytes counted on
+   ``meta`` must equal what those phases held on the card, the traced
+   decode step's B5 calls 6e's launches a step, and neither measured
+   step may be faster than its roofline bound;
 7. print ``{"kernels": [...]}`` with each kernel's numbers (seven rows:
    the five above and B5, B6; B5's launches summed over 6c, 6e-6h and
    B6's over 6c and 6i, each with its times at every shape 6d timed),
@@ -306,18 +315,14 @@ MMPP_S = 3.0
 FLEET_IMAGES = 512
 FLEET_CYCLES = 3
 
-# Published dense peaks (NVIDIA data sheets): f32 CUDA-core FLOP/s, HBM
+# Published dense peaks (NVIDIA data sheets, ``repro_torch/roofline/
+# analysis.py::PEAKS``, read by ``peaks``): f32 CUDA-core FLOP/s, HBM
 # bytes/s, int8 tensor-core op/s and bf16 tensor-core FLOP/s; the SXM part
 # unless the card names another.  The quantized conv (B1q) runs on the
 # int8 tensor cores, its bound; the CUDA cores' int32 multiply-add rate,
 # half the f32 FMA rate (64 INT32 lanes per SM against 128 FP32), is
 # printed beside it.  The train step of 6j is bounded by its products at
 # the bf16 rate.
-PEAKS = {
-    "H100 PCIe": (51.2e12, 2.0e12, 1513e12, 756e12),
-    "H100 NVL": (60.0e12, 3.9e12, 1671e12, 835e12),
-    "H100": (67.0e12, 3.35e12, 1979e12, 989e12),
-}
 KERNELS = {
     "conv2d_fused": {
         "source": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -425,10 +430,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    return PEAKS["H100"]
+    """(f32 FLOP/s, HBM bytes/s, int8 op/s, bf16 FLOP/s) of the card."""
+    from repro_torch.roofline.analysis import card_peaks
+
+    p = card_peaks(name)
+    return p.f32_flops, p.hbm_bytes_per_s, p.int8_ops, p.bf16_flops
 
 
 def tol_ok(y, r):
@@ -519,6 +525,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     from repro_torch.kernels import ops as OPS
     from repro_torch.models.blocks import _quantize_kv
     from repro_torch.models.model import N_META_TOKENS
+    from repro_torch.roofline.analysis import flash_decode_cost, ssd_cost
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     err = {"flash_decode": 0.0, "ssd": 0.0}
@@ -728,11 +735,10 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         q = randn(b, hkv, g, d, scale=0.5, dtype=torch.bfloat16)
         k = randn(b, w, hkv, d, scale=0.5, dtype=torch.bfloat16)
         v = randn(b, w, hkv, d, dtype=torch.bfloat16)
-        sc, kv_bytes, extra = {}, 2.0 * 2 * b * length * hkv * d, {}
+        sc, extra = {}, {}
         if quant:  # int8 values and an f32 scale a (slot, head); the library dequantizes first
             (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
             sc = {"k_scale": ks, "v_scale": vs}
-            kv_bytes = 2.0 * b * length * hkv * (d + 4)
             extra = {"library": "FD.dequantize of K and V into bf16, then F.scaled_dot_product_attention",
                      "library_sdpa_alone_ms": None}
         kt = lambda: (FD.dequantize(k, ks, torch.bfloat16) if quant else k).transpose(1, 2)  # [B, Hkv, W, D]
@@ -745,6 +751,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         y = OPS.flash_decode(q, k, v, dev_len, **sc)
         check(torch.equal(y, OPS.flash_decode(q, k, v, length, **sc)), f"flash_decode {label}: device length not bitwise")
         lib = lambda: F.scaled_dot_product_attention(q4, kt(), vt(), attn_mask=mask, enable_gqa=True)
+        fd_flops, fd_bytes = flash_decode_cost(b, hkv, g, d, length, quant=quant)  # bf16 q, K and V
         lib_err = float((lib().reshape(q.shape).float() - y.float()).abs().max())
         if quant:
             kd, vd = kt(), vt()
@@ -756,8 +763,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
             + (" q, int8 K/V with f32 scales" if quant else "") + ", length on the device",
             lambda: OPS.flash_decode(q, k, v, dev_len, **sc),
             lambda: OPS.flash_decode(q, k, v, length, **sc, backend="torch"),
-            lib, 4.0 * b * hkv * g * length * d, flops_peak,
-            2.0 * 2 * q.numel() + kv_bytes,
+            lib, fd_flops, flops_peak, fd_bytes,
             library_max_abs_diff=lib_err,
             int_length_kernel_ms=device_ms(lambda: OPS.flash_decode(q, k, v, length, **sc), torch),
             **extra,
@@ -772,10 +778,9 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     B = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
     C = randn(b, s_len, 1, n, scale=0.4, dtype=torch.bfloat16).expand(b, s_len, h, n)
     n_chunks = b * h * (-(-s_len // chunk))
-    # the causal half of the Q x Q products and the two N x P terms, per chunk
-    causal = chunk * (chunk + 1) // 2
-    ssd_flops = 2.0 * n_chunks * (causal * n + causal * p + 2 * chunk * n * p)
-    ssd_bytes = 2.0 * (2 * x.numel() + la.numel() + 2 * b * s_len * n) + 4.0 * b * h * n * p
+    # the causal half of the Q x Q products and the two N x P terms, per chunk;
+    # B and C read once for all heads (a head stride of 0)
+    ssd_flops, ssd_bytes = ssd_cost(b, s_len, h, n, p, chunk, bc_heads=1)
     rows["ssd"] = timed(
         "ssd", f"served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, B/C head stride 0",
         lambda: OPS.ssd(x, la, B, C, chunk=chunk),
@@ -798,9 +803,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
          ).to(torch.bfloat16)
     C = randn(b, s_len, h, n, dtype=torch.bfloat16)
     n_chunks = b * h * (-(-s_len // chunk))
-    causal = chunk * (chunk + 1) // 2
-    xl_flops = 2.0 * n_chunks * (causal * n + causal * p + 2 * chunk * n * p)
-    xl_bytes = 2.0 * (2 * x.numel() + la.numel() + 2 * b * s_len * h * n) + 4.0 * (b * h * n * p + b * s_len * h + b * h * n)
+    xl_flops, xl_bytes = ssd_cost(b, s_len, h, n, p, chunk, normalizer=True)
     rows["ssd_xlstm"] = timed(
         "ssd", f"xLSTM served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, normalizer (wide form)",
         lambda: OPS.ssd(x, la, B, C, normalizer=True),
@@ -940,6 +943,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_eager_serve_step, make_prefill_step, make_serve_step
     from repro_torch.models import abstract_params, init_cache, init_params, layer_groups, prefix_tokens
+    from repro_torch.roofline.analysis import storage_bytes
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
@@ -1336,11 +1340,19 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     check(f32["rows_gated"] * 2 >= f32["rows_compared"], f"{phase}: routing flips left too few rows to compare")
     check(f32.get("max_primary_gap") is None or f32["max_primary_gap"] < FLIP_GAP,
           f"{phase}: a float32 routing flip off a near-tie: {f32.get('primary_flips', [])[:3]}")
+    # what the card holds, for phase 6k's dry run of the same decode step
+    params_on_card = storage_bytes(list(model.parameters()))
     result = {"launches": {"flash_decode": sum(c["flash_decode"] for c in decode_counts),
                            "ssd": prefill_counts["ssd"]},
               "max_abs_err": {name: max(served[(name, d)][2] for d in ("bfloat16", "float32"))
                               for name in LM_KERNELS},
-              "max_len": out["max_len"]}
+              "max_len": out["max_len"],
+              "held_bytes": {"params": sum(params_on_card.values()),
+                             "compute_copy": sum(nb for key, nb in storage_bytes(model).items()
+                                                 if key not in params_on_card),
+                             "caches": sum(storage_bytes(out["caches"]).values())},
+              "flash_decode_per_step": decode_counts[1]["flash_decode"],
+              "steady_ms_per_step": steady_ms, "peak_memory_gb": peak_gb}
     del model, out, prompt, patches, stream, shape, head, picked
     gc.collect()
     torch.cuda.empty_cache()
@@ -1415,6 +1427,7 @@ def train_phase(torch, dev, bf16_peak):
     from repro_torch.models import (abstract_params, init_cache, init_params, params_from_numpy,
                                     params_to_numpy, prefill, serve_step)
     from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+    from repro_torch.roofline.analysis import storage_bytes
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
@@ -1461,6 +1474,8 @@ def train_phase(torch, dev, bf16_peak):
             del initial
     counts = runtime.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    held = {"params": sum(storage_bytes(list(model.parameters())).values()),
+            "optimizer": sum(storage_bytes(opt).values())}  # for phase 6k's dry run
     stream.close()
     split["steps_s"] = time.perf_counter() - t_steps
     t0 = time.perf_counter()
@@ -1542,6 +1557,7 @@ def train_phase(torch, dev, bf16_peak):
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "remat": cfg.remat, "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "base_lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
         "memory_needed_gb": need_gb, "peak_memory_gb": peak_gb, "allocated_before_phase_gb": base_gb,
+        "held_bytes": held,
         "step_ms_median": median_s * 1e3, "step_ms_min": timed[0] * 1e3, "step_ms_max": timed[-1] * 1e3,
         "timed_steps": f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS}, each ended by torch.cuda.synchronize()",
         "first_step_ms": step_s[0] * 1e3, "tok_per_s": tokens / median_s,
@@ -1566,6 +1582,93 @@ def train_phase(torch, dev, bf16_peak):
     del model, fresh, opt, named, served, caches, batch
     gc.collect()
     torch.cuda.empty_cache()
+    return report
+
+
+def dryrun_phase(torch, kind, lm_6e, train_6j):
+    """Phase 6k: the dry run (``launch/dryrun.py::run_one``) on ``meta``
+    tensors with the detected card's peaks, for every arch at
+    ``decode_32k`` and ``long_500k`` (skipped exactly where the config has
+    no sub-quadratic decode, as in the reference) and SmolLM-360M at
+    ``train_4k`` and ``prefill_32k`` (line ``dryrun_6k``), then held
+    against two runs of the card: 6e's SmolLM-360M decode step (batch 4,
+    the cache ``lm_phase`` allocated) and 6j's train step (8 x 1024,
+    remat, bf16 on f32).  Gated: every record ``ok`` or ``skipped`` where
+    it should be; the parameter, compute-copy, cache and AdamW-state
+    bytes counted on ``meta`` equal those the phases held on the card; the
+    B5 calls of the traced decode step equal 6e's launches a step; neither
+    measured step is faster than its roofline bound, ``max(compute_s,
+    memory_s)``.  Printed beside them: the predicted peak against 6j's
+    ``max_memory_allocated`` and 6j's hand-written bound against the
+    roofline's compute term and useful ratio."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import run_one
+
+    t_phase = time.perf_counter()
+    combos = [(a, s) for s in ("decode_32k", "long_500k") for a in ARCHS]
+    combos += [(TRAIN_ARCH, "train_4k"), (TRAIN_ARCH, "prefill_32k")]
+    records, wrong = [], []
+    for arch, shape in combos:
+        try:
+            rec = run_one(arch, shape, card=kind)
+        except Exception as e:  # gated below with the others
+            rec = {"arch": arch, "shape": shape, "status": "error", "error": f"{type(e).__name__}: {e}"}
+        want = "skipped" if shape == "long_500k" and not get_config(arch).supports_long_context() else "ok"
+        if rec["status"] != want:
+            wrong.append((arch, shape, rec.get("error", rec["status"])))
+        records.append(rec)
+
+    def brief(rec):
+        if rec["status"] != "ok":
+            return {k: rec[k] for k in ("arch", "shape", "status") if k in rec}
+        roof = rec["roofline"]
+        return {"arch": rec["arch"], "shape": rec["shape"], "status": "ok", "trace_s": rec["trace_s"],
+                "per_chip_gb": rec["memory"]["per_chip_gb"], "fits": rec["memory"]["fits"],
+                "flops": roof["flops_per_chip"], "bytes": roof["bytes_per_chip"],
+                "compute_ms": roof["compute_s"] * 1e3, "memory_ms": roof["memory_s"] * 1e3,
+                "bottleneck": roof["bottleneck"], "useful_ratio": roof["useful_ratio"],
+                "kernel_calls": {k: v["calls"] for k, v in rec["kernel_calls"].items()},
+                "scaled": rec["scaled"]}
+
+    # held against the card: 6e's decode step and 6j's train step
+    dec = run_one("smollm-360m", InputShape("6e_decode", lm_6e["max_len"], LM_BATCH, "decode"), card=kind)
+    trn = run_one(TRAIN_ARCH, InputShape("6j_train", TRAIN_SEQ, TRAIN_BATCH, "train"), card=kind)
+    bound_ms = {name: max(r["roofline"]["compute_s"], r["roofline"]["memory_s"]) * 1e3
+                for name, r in (("6e", dec), ("6j", trn))}
+    measured_ms = {"6e": lm_6e["steady_ms_per_step"], "6j": train_6j["step_ms_median"]}
+    counted = {"6e": {k: dec["memory"]["argument_parts"][k] for k in lm_6e["held_bytes"]},
+               "6j": {k: trn["memory"]["argument_parts"][k] for k in train_6j["held_bytes"]}}
+    held = {"6e": lm_6e["held_bytes"], "6j": train_6j["held_bytes"]}
+    fd_calls = dec["kernel_calls"].get("flash_decode", {}).get("calls", 0)
+    report = {
+        "card": kind, "records": [brief(r) for r in records],
+        "held_against_the_card": {
+            "bytes_counted_on_meta": counted, "bytes_held_on_card": held,
+            "flash_decode_calls_traced": fd_calls, "flash_decode_launches_per_step_6e": lm_6e["flash_decode_per_step"],
+            "measured_ms": measured_ms, "roofline_bound_ms": bound_ms,
+            "measured_over_bound": {k: measured_ms[k] / bound_ms[k] for k in bound_ms},
+            "6e": brief(dec), "6j": brief(trn),
+            "6j_predicted_peak_gb": trn["memory"]["per_chip_gb"],
+            "6j_max_memory_allocated_gb": train_6j["peak_memory_gb"],
+            "6j_allocated_before_phase_gb": train_6j["allocated_before_phase_gb"],
+            "6j_hand_bound_ms": train_6j["bound"]["bound_ms"],
+            "6j_roofline_compute_ms": trn["roofline"]["compute_s"] * 1e3,
+            "6j_roofline_useful_ratio": trn["roofline"]["useful_ratio"],
+            "6j_memory_parts": trn["memory"],
+        },
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"dryrun_6k": report}))
+    check(not wrong, f"6k: dry-run records not as the reference's skips: {wrong}")
+    for ph in ("6e", "6j"):
+        check(counted[ph] == held[ph], f"6k: {ph}'s bytes counted on meta {counted[ph]} differ from the card's "
+                                       f"{held[ph]}")
+        check(measured_ms[ph] >= bound_ms[ph], f"6k: {ph}'s measured {measured_ms[ph]:.4f} ms is below its "
+                                               f"roofline bound {bound_ms[ph]:.4f} ms")
+    check(fd_calls == lm_6e["flash_decode_per_step"],
+          f"6k: the traced decode step counts {fd_calls} flash_decode calls, 6e launched "
+          f"{lm_6e['flash_decode_per_step']} a step")
     return report
 
 
@@ -3553,8 +3656,9 @@ def main() -> int:
     # ------------- 6e-6h. SmolLM-360M, OLMoE-1B-7B, PaliGemma-3B and
     # MusicGen-large served through B5
     fd_row = lm_kernels[0]
+    served_lms = {}
     for phase, arch in DENSE_LMS + FEATURE_LMS:
-        lm = lm_phase(torch, dev, phase, arch, bytes_peak)
+        lm = served_lms[phase] = lm_phase(torch, dev, phase, arch, bytes_peak)
         n = lm["launches"]["flash_decode"]
         fd_row["launches"] += n
         fd_row["launches_by_path"][f"{phase} {arch}"] = n
@@ -3572,8 +3676,12 @@ def main() -> int:
         mark(phase)
 
     # ------------- 6j. SmolLM-360M trained at full width (no counted kernel)
-    train_phase(torch, dev, bf16_peak)
+    trained = train_phase(torch, dev, bf16_peak)
     mark("6j")
+
+    # ------------- 6k. the dry run on meta, held against 6e and 6j
+    dryrun_phase(torch, kind, served_lms["6e"], trained)
+    mark("6k")
 
     # ------------------------------------------------ 7. kernels line
     kernels = []

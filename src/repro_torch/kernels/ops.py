@@ -16,6 +16,13 @@ while autograd records (gradients enabled and an input that requires
 one), either raises rather than return an output with no gradient or
 quietly take the plain version.  The reference's ``"jnp"`` and
 ``"interpret"`` choices have no counterpart here.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) ``backend=None``
+launches nothing and runs no op: it returns empty outputs of the
+kernel's shapes and dtypes and, while ``roofline/analysis.py`` traces a
+step, records one call of the kernel with its FLOPs and bytes
+(``flash_decode_cost``, ``ssd_cost``).  B5's length on the device is not
+read there, so it counts every cache slot.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..roofline.analysis import flash_decode_cost, note_kernel_call, ssd_cost
 from . import flash_decode as FD
 from . import ssd as SSD
 from .gemm import gemm
@@ -73,6 +81,13 @@ def flash_decode(
     if backend == "torch":
         return FD.flash_decode_ref(q, k, v, length, k_scale, v_scale)
     _no_autograd("flash_decode", q, k, v, k_scale, v_scale)
+    if q.device.type == "meta":
+        length = FD._check(q, k, v, length, k_scale, v_scale)
+        b, hkv, g, d = q.shape
+        slots = k.shape[1] if isinstance(length, torch.Tensor) else length
+        note_kernel_call("flash_decode", *flash_decode_cost(
+            b, hkv, g, d, slots, q.element_size(), k.element_size(), quant=k_scale is not None))
+        return torch.empty_like(q)
     return FD.flash_decode(q, k, v, length, k_scale, v_scale)
 
 
@@ -114,11 +129,29 @@ def ssd(
     pad = (-s) % q
     if pad:
         x, log_a, B, C = (_pad_seq(t, pad) for t in (x, log_a, B, C))
-    run = SSD.ssd if backend is None else SSD.ssd_ref
-    out = run(x, log_a, B, C, h0=h0, chunk=q, normalizer=normalizer, n0=n0)
+    if backend is None and x.device.type == "meta":
+        out = _ssd_on_meta(x, log_a, B, C, h0, q, normalizer, n0)
+    else:
+        run = SSD.ssd if backend is None else SSD.ssd_ref
+        out = run(x, log_a, B, C, h0=h0, chunk=q, normalizer=normalizer, n0=n0)
     if not pad:
         return out
     if normalizer:
         y, h_final, den, n_final = out
         return y[:, :s], h_final, den[:, :s], n_final
     return out[0][:, :s], out[1]
+
+
+def _ssd_on_meta(x, log_a, B, C, h0, chunk, normalizer, n0) -> Tuple[torch.Tensor, ...]:
+    """B6's call on ``meta`` tensors (S already a chunk multiple): its
+    cost noted, its outputs empty."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    note_kernel_call("ssd", *ssd_cost(
+        b, s, h, n, p, chunk, normalizer, bc_heads=1 if B.stride(2) == 0 else h,
+        x_bytes=x.element_size(), la_bytes=log_a.element_size(), h0=h0 is not None, n0=n0 is not None))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, h_final = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device), torch.empty((b, h, n, p), **f32)
+    if not normalizer:
+        return y, h_final
+    return y, h_final, torch.empty((b, s, h), **f32), torch.empty((b, h, n), **f32)

@@ -129,9 +129,9 @@ def require(t: torch.Tensor, name: str, ndim: int, dtype=torch.float32) -> None:
 
 
 def on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if t.device.type == "cpu":
+    """True for a CUDA tensor (launch the kernel), False for a CPU or
+    ``meta`` tensor (take the plain version); any other device raises."""
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t.device}")

@@ -351,26 +351,28 @@ class PipelineServer:
         with self._lock:
             gens = [next(self._gen_seq) for _ in range(n)]
             self._stage_gen = gens
-        self._threads = [
+        threads = [
             threading.Thread(
                 target=self._stage0_worker, args=(gens[0],),
                 name=f"{tag}-e{e}-stage0", daemon=True,
             )
         ]
         for i in range(1, n):
-            self._threads.append(
+            threads.append(
                 threading.Thread(
                     target=self._stage_worker, args=(i, gens[i]),
                     name=f"{tag}-e{e}-stage{i}", daemon=True,
                 )
             )
-        self._threads.append(
+        threads.append(
             threading.Thread(
                 target=self._egress_worker, name=f"{tag}-e{e}-egress", daemon=True
             )
         )
-        for t in self._threads:
-            t.start()
+        with self._lock:  # published started, as _recover_stage does
+            self._threads = threads
+            for t in threads:
+                t.start()
         self._start_watchdog()
 
     # ------------------------------------------------------------- recovery
@@ -523,8 +525,19 @@ class PipelineServer:
             name=f"{self.name}-e{self._epoch}-stage{si}-r{restart_no}",
             daemon=True,
         )
-        self._threads[si] = t  # stop()/swap join the replacement, not the corpse
-        t.start()
+        # Published and started under the lock, where every joiner copies
+        # the list (_live_threads): a join never meets a thread that is
+        # published but not started, and stop()/swap join the replacement,
+        # not the corpse.  The reference publishes first and then starts.
+        with self._lock:
+            self._threads[si] = t
+            t.start()
+
+    def _live_threads(self) -> List[threading.Thread]:
+        """The stage threads, copied under the lock that
+        ``_recover_stage`` publishes and starts a replacement under."""
+        with self._lock:
+            return list(self._threads)
 
     def _start_watchdog(self) -> None:
         if self.recovery is None or self._watchdog is not None:
@@ -650,13 +663,13 @@ class PipelineServer:
                     # REPLACEMENT finishes the drain) — so keep joining the
                     # live list until it is quiet or the deadline expires.
                     while True:
-                        for t in list(self._threads):
+                        for t in self._live_threads():
                             t.join(
                                 timeout=max(
                                     0.0, drain_deadline - time.perf_counter()
                                 )
                             )
-                        alive = [t for t in self._threads if t.is_alive()]
+                        alive = [t for t in self._live_threads() if t.is_alive()]
                         if not alive or time.perf_counter() >= drain_deadline:
                             break
                     wedged = [t.name for t in alive]
@@ -736,7 +749,7 @@ class PipelineServer:
                         # can drain.  Fall through — the join deadline below
                         # names the stalled stage.
                         pass
-            for t in list(self._threads):  # also reaps workers after a failure
+            for t in self._live_threads():  # also reaps workers after a failure
                 t.join(timeout=max(0.0, deadline - time.perf_counter()))
         if self._error is not None:
             raise self._error
@@ -747,7 +760,7 @@ class PipelineServer:
         if monitor_error is not None:
             raise ServingError("adaptive monitor failed") from monitor_error
         if started:
-            wedged = [t.name for t in self._threads if t.is_alive()]
+            wedged = [t.name for t in self._live_threads() if t.is_alive()]
             if wedged:
                 raise ServingError(
                     f"server {self.name!r}: stop() deadline ({timeout:.1f}s) "

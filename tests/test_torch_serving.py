@@ -247,6 +247,60 @@ def test_live_crash_redispatch_zero_loss(setup):
     assert snap["worker_restarts"] >= 1 and snap["redispatched"] >= 1
 
 
+def test_stop_never_joins_a_published_unstarted_replacement(setup, monkeypatch):
+    """A stop() that lands between _recover_stage publishing a stage's
+    replacement thread and starting it must not join the unstarted thread
+    (``RuntimeError: cannot join thread before it is started``), and must
+    join the replacement.  The replacement's start() runs the stop() on
+    another thread first and gives it up to a second, so the join lands in
+    that gap wherever the gap is open."""
+    import threading
+    import types
+
+    import repro_torch.serving.server as server_mod
+
+    g, params, _, _, images, plan = setup
+    inj = FaultPlan(events=(FaultEvent("crash", stage=0, at_call=2),)).injector(POLICY)
+    builder = fault_injecting_builder(
+        lambda gr, pl: build_stage_fns(gr, pl, backend="cuda_fused"), inj
+    )
+    srv = PipelineServer(
+        g, params, plan, batch_size=1, flush_timeout_s=0.0,
+        stage_fn_builder=builder, recovery=POLICY, device="cpu",
+    )
+    stop_errors, replacements = [], []
+
+    def stop_now():
+        try:
+            srv.stop(timeout=10.0)
+        except BaseException as e:  # recorded; the assertions below read it
+            stop_errors.append(e)
+
+    class GapThread(threading.Thread):
+        def start(self):
+            if self.name.rsplit("-", 1)[-1].startswith("r"):  # a recovered stage's thread
+                self.stopper = threading.Thread(target=stop_now, daemon=True)
+                replacements.append(self)
+                self.stopper.start()
+                self.stopper.join(timeout=1.0)
+            super().start()
+
+    monkeypatch.setattr(server_mod, "threading",
+                        types.SimpleNamespace(**{**vars(threading), "Thread": GapThread}))
+    srv.start()
+    tickets = [srv.submit(im) for im in images[:4]]
+    for _ in range(500):
+        if replacements and not replacements[0].stopper.is_alive():
+            break
+        threading.Event().wait(0.01)
+    assert len(replacements) == 1, "the injected crash restarted no stage"
+    replacements[0].stopper.join(timeout=15.0)
+    assert not any(isinstance(e, RuntimeError) and "before it is started" in str(e)
+                   for e in stop_errors), stop_errors
+    assert not replacements[0].is_alive(), "stop() did not join the replacement thread"
+    del tickets
+
+
 def test_swap_plan_keeps_outputs_and_closes_cleanly(setup):
     g, params, _, _, images, plan = setup
     srv = PipelineServer(g, params, plan, batch_size=2, backend="cuda_fused", device="cpu")
