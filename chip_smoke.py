@@ -407,6 +407,20 @@ ATTN_KINDS = ("dense", "moe", "hymba")  # the layer groups with an attention cac
 # to its own bar on the served activations besides
 REORDER_CHUNK = 64
 REORDER_SLACK = 2.0
+# phase 6l: the configs that fit one card only in the serving form (the
+# blocks in bf16 alone, 2 bytes a block parameter): StarCoder2-15B (B5 at
+# G = 12, two blocks a KV head), DeepSeek-MoE-16B (a dense layer, then MoE
+# with shared experts) and Moonlight-16B-A3B (an int8 cache under MoE, a
+# 163,840-token vocabulary), each served as 6e serves SmolLM, at full
+# width and depth.  Their f32 gates run on the first F32_CUT_LAYERS layers
+# in f32 (whole, the f32 weights do not fit): for the MoE configs the dense
+# layer and 7 MoE layers
+SERVING_FORM_LMS = (("6l", "starcoder2-15b"), ("6l", "deepseek-moe-16b"), ("6l", "moonshot-v1-16b-a3b"))
+F32_CUT_LAYERS = 8
+# the caching allocator's rounding: a tensor of up to 1 MiB takes a block
+# of a multiple of 512 bytes; a larger one a block that may keep up to
+# 1 MiB past it unsplit (its segment's tail, or a cached block's)
+ALLOC_ROUND, ALLOC_UNSPLIT = 512, 1 << 20
 # phase 6j: SmolLM-360M trained at full width and depth (remat, bf16 on
 # f32 parameters) through make_train_step on the synthetic token stream:
 # TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, AdamW to TRAIN_LR
@@ -905,32 +919,45 @@ def lm_inputs(torch, cfg, dev):
     return prompt, patches
 
 
-def lm_phase(torch, dev, phase, arch, bytes_peak):
+def lm_phase(torch, dev, phase, arch, bytes_peak, serving_form=False, f32_layers=None, tie_serving_form=False):
     """Phases 6c (Hymba-1.5B), 6e (SmolLM-360M), 6f (OLMoE-1B-7B), 6g
-    (PaliGemma-3B), 6h (MusicGen-large) and 6i (xLSTM-1.3B): one model at full width and
-    depth, random weights from seed 0, bf16 on f32 weights, served through
-    ``generate``, the CLI's own loop: batch 4, a 768-token prompt (of four
-    codebooks for MusicGen; after Hymba's 128 meta tokens or PaliGemma's
-    256 image patches, ``lm_inputs``), 128 greedy steps, the first op by
-    op and the rest replaying one captured step.  Gated: the
-    f32 weights and their bf16 copy fit; the prefill launches one B6 a
-    Hymba or mLSTM layer and no other counted kernel; each decode step
-    exactly one B5 launch an attention layer and nothing else, one graph launch in each
-    replayed step; the same steps op by op, in bf16 and f32, give the same
-    tokens and bitwise-equal logits; every B5 and B6 call of the prefill
-    and LM_CHECK_STEPS op-by-op decode steps, in bf16 and f32, against its
-    plain version on the same activations (B5: one bf16 ulp, FD_TOL in
-    f32; B6: SSD_BF16_TOL, FD_TOL in f32, with the normalizer relative to
-    the outputs' scale), and those runs' logits equal to
-    the served ones; the kernel route against the plain route,
-    teacher-forced, within LM_RTOL in f32 on the sequences no routing flip
-    has reached, and every primary flip on a near-tie (gap below
-    FLIP_GAP); bf16 printed.  Printed beside them: the pairs a MoE prefill
-    drops past capacity, the prefill and step times, the steady step
-    against its bounds (``decode_bound``), the reserved memory after load
-    and a profiler trace of LM_PROFILE_STEPS steps, op by op and replayed.
-    The model is freed.  Returns {"launches": {kernel: served-run count},
-    "max_abs_err": {kernel: against its plain version}, "max_len": slots}."""
+    (PaliGemma-3B), 6h (MusicGen-large), 6i (xLSTM-1.3B) and 6l
+    (StarCoder2-15B, DeepSeek-MoE-16B, Moonlight-16B-A3B): one model at
+    full width and depth, random weights from seed 0, bf16 on f32 weights
+    (with ``serving_form``, the blocks held in bf16 only, as the CLI holds
+    them), served through ``generate``, the CLI's own loop: batch 4, a
+    768-token prompt (of four codebooks for MusicGen; after Hymba's 128
+    meta tokens or PaliGemma's 256 image patches, ``lm_inputs``), 128
+    greedy steps, the first op by op and the rest replaying one captured
+    step.  Gated: the weights fit (the serving form: the bytes counted on
+    ``meta`` are what the load allocates, up to the allocator's rounding,
+    and the init holds at most one f32 block above them); the prefill
+    launches one B6 a Hymba or mLSTM layer and no other counted kernel;
+    each decode step exactly one B5 launch an attention layer and nothing
+    else, one graph launch in each replayed step; the same steps op by
+    op, in bf16 and f32, give the same tokens and bitwise-equal logits;
+    every B5 and B6 call of the prefill and LM_CHECK_STEPS op-by-op decode
+    steps, in bf16 and f32, against its plain version on the same
+    activations (B5: one bf16 ulp, FD_TOL in f32, and on an int8 cache
+    bitwise equal to B5 on the dequantized cache; B6: SSD_BF16_TOL, FD_TOL
+    in f32, with the normalizer relative to the outputs' scale), and those
+    runs' logits equal to the served ones; the kernel route against the
+    plain route, teacher-forced, within LM_RTOL in f32 on the sequences no
+    routing flip has reached, and every primary flip on a near-tie (gap
+    below FLIP_GAP); bf16 printed.  The f32 gates need f32 blocks: with
+    ``f32_layers`` they run, after the served model is freed, on a model
+    of the config's first ``f32_layers`` layers in f32 (its own served
+    run giving the stream it is teacher-forced on).  With
+    ``tie_serving_form`` the serving form of the same weights serves the
+    same prompt too: tokens, prefill state and logits bitwise equal to the
+    two-copy run's, its load's bytes as counted on ``meta``.  Printed
+    beside them: the pairs a MoE prefill drops past capacity, the prefill
+    and step times, the steady step against its bounds (``decode_bound``),
+    the reserved memory after load and a profiler trace of
+    LM_PROFILE_STEPS steps, op by op and replayed.  The models are freed.
+    Returns {"launches": {kernel: served-run count}, "max_abs_err":
+    {kernel: against its plain version}, "max_len": slots, "held_bytes"
+    (the serving form's with ``tie_serving_form``), ...}."""
     import dataclasses
     import gc
 
@@ -947,27 +974,61 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                **({"n_layers": f32_layers} if f32_layers else {}))
     n_layers, offset = cfg.n_layers, LM_PROMPT + prefix_tokens(cfg)
+
+    def layer_counts(c):
+        """(MoE layers, B6 in each prefill layer, B5 in each decode layer)."""
+        gs = layer_groups(c)
+        return (sum(g.n for g in gs if g.kind == "moe"), sum(g.n for g in gs if g.kind in ("hymba", "mlstm")),
+                sum(g.n for g in gs if g.kind in ATTN_KINDS))
+
     groups = layer_groups(cfg)
-    n_moe = sum(g.n for g in groups if g.kind == "moe")
-    n_ssd = sum(g.n for g in groups if g.kind in ("hymba", "mlstm"))  # B6 in each prefill layer
-    n_fd = sum(g.n for g in groups if g.kind in ATTN_KINDS)  # B5 in each decode layer
+    n_moe, n_ssd, n_fd = layer_counts(cfg)
     recurrent = any(g.kind in ("mlstm", "slstm") for g in groups)
-    # the f32 parameters and the blocks' bf16 copy must fit beside the rest
+
+    def param_bytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    def rounding(tensors):
+        """The most the allocator may add to these tensors' bytes."""
+        return sum(ALLOC_ROUND if t.numel() * t.element_size() <= ALLOC_UNSPLIT else ALLOC_UNSPLIT
+                   for t in tensors)
+
+    def load(c, serving):
+        """The model of ``c`` on the card, after a check that it fits:
+        (model, bytes counted on meta, bytes the load allocated, the
+        load's peak above what it started from, seconds)."""
+        gc.collect()
+        torch.cuda.empty_cache()  # what earlier phases left cached counts as free
+        counted = param_bytes(abstract_params(c, serving=serving))
+        need = counted if serving else counted + 2 * sum(
+            p.numel() for p in abstract_params(c).groups.parameters())  # the bf16 copy beside the f32 blocks
+        free_b, _ = torch.cuda.mem_get_info(dev)
+        check(need < 0.9 * free_b, f"{phase}: {c.name} needs {need / 1e9:.1f} GB, {free_b / 1e9:.1f} GB free")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        m = init_params(c, seed=SEED, device=dev, serving=serving)
+        m.compute_blocks(getattr(torch, c.compute_dtype))
+        torch.cuda.synchronize()
+        return (m, counted, torch.cuda.memory_allocated(dev) - before,
+                torch.cuda.max_memory_allocated(dev) - before, time.perf_counter() - t0)
+
+    # the served model: the f32 parameters and the blocks' bf16 copy, or
+    # the serving form (each block drawn in f32, cast, then freed)
     shape = abstract_params(cfg)
     n_params = sum(p.numel() for p in shape.parameters())
     block_params = sum(p.numel() for grp in shape.groups for p in grp.parameters())
-    need_gb = (4 * n_params + 2 * block_params) / 1e9
-    free_b, _ = torch.cuda.mem_get_info(dev)
-    check(need_gb < 0.9 * free_b / 1e9, f"{phase}: {arch} needs {need_gb:.1f} GB, {free_b / 1e9:.1f} GB free")
-    t0 = time.perf_counter()
-    allocated0 = torch.cuda.memory_allocated(dev)
-    model = init_params(cfg, seed=SEED, device=dev)
-    model.compute_blocks(torch.bfloat16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    model_gb = (torch.cuda.memory_allocated(dev) - allocated0) / 1e9  # the weights and their bf16 copy
+    largest_f32_block = max(4 * sum(p.numel() for p in blk.parameters()) for grp in shape.groups for blk in grp)
+    block_slack = max(rounding(p.float() for p in blk.parameters()) for grp in shape.groups for blk in grp)
+    slack = rounding(abstract_params(cfg, serving=serving_form).parameters())
+    del shape
+    model, counted_b, model_b, init_peak_b, init_s = load(cfg, serving_form)
+    need_gb = (counted_b if serving_form else 4 * n_params + 2 * block_params) / 1e9
+    model_gb = model_b / 1e9  # the weights (and their bf16 copy)
     reserved_gb = torch.cuda.memory_reserved(dev) / 1e9  # the allocator's whole pool, earlier phases' cache included
     prompt, patches = lm_inputs(torch, cfg, dev)
     for graphs in (True, False):  # warm-up: cuBLAS handles, first launches, a capture
@@ -1006,51 +1067,83 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
           f"{phase}: generated tokens of shape {tuple(tokens.shape)} or out of range")
     check(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]), f"{phase}: served logits are not finite")
     check(bool(torch.isfinite(out["last_hidden"]).all()), f"{phase}: prefill hidden state is not finite")
+    if serving_form:
+        check(0 <= model_b - counted_b <= slack,
+              f"{phase}: the serving form allocated {model_b} bytes, {counted_b} counted on meta "
+              f"(the allocator may add {slack})")
+        check(init_peak_b <= counted_b + largest_f32_block + slack + block_slack,
+              f"{phase}: the init's peak {init_peak_b} bytes lies above the model's {counted_b} and one f32 block "
+              f"({largest_f32_block})")
 
-    # the same steps op by op, in bf16 and in f32: the same greedy tokens,
-    # and every kept logit bitwise equal (the captured kernels and cuBLAS
-    # calls are the eager step's, in the same order).  The bf16 eager run
-    # records the experts each router call picks (a list append): the
-    # served run's routing, since its tokens and logits are the same
+    # the serving form of the same weights, serving the same prompt: the
+    # same bits as the two-copy run (6e), and what phase 6k holds against
+    tie, held_from = None, (model, out)
+    if tie_serving_form:
+        sv, sv_counted, sv_b, sv_peak, _ = load(cfg, True)
+        generate(cfg, sv, prompt[:, :64], 3, patches=patches)  # warm-up: its own capture
+        sv_out = generate(cfg, sv, prompt, LM_GEN, keep_logits=LM_GEN, patches=patches)
+        tie = {"tokens_equal": bool(torch.equal(sv_out["tokens"], tokens)),
+               "last_hidden_bitwise": bool(torch.equal(sv_out["last_hidden"], out["last_hidden"])),
+               "kept_logits_bitwise": len(sv_out["logits"]) == LM_GEN
+               and all(torch.equal(a, b) for a, b in zip(sv_out["logits"], out["logits"])),
+               "bytes_counted_on_meta": sv_counted, "bytes_allocated": sv_b, "init_peak_above_start": sv_peak,
+               "two_copy_bytes_allocated": model_b,
+               "steady_ms_per_step": sv_out["steady_ms_per_step"], "prefill_ms": sv_out["prefill_ms"]}
+        held_from = (sv, sv_out)
+        check(tie["tokens_equal"] and tie["last_hidden_bitwise"] and tie["kept_logits_bitwise"],
+              f"{phase}: the serving form's run differs from the two-copy run's: {tie}")
+        sv_slack = rounding(abstract_params(cfg, serving=True).parameters())
+        tie["allocator_rounding_at_most"] = sv_slack
+        check(0 <= sv_b - sv_counted <= sv_slack,
+              f"{phase}: the serving form allocated {sv_b} bytes, {sv_counted} counted on meta "
+              f"(the allocator may add {sv_slack})")
+    # what the card holds, for phase 6k's dry run of the same decode step
+    params_on_card = storage_bytes(list(held_from[0].parameters()))
+    held_bytes = {"params": sum(params_on_card.values()),
+                  "compute_copy": sum(nb for key, nb in storage_bytes(held_from[0]).items()
+                                      if key not in params_on_card),
+                  "caches": sum(storage_bytes(held_from[1]["caches"]).values())}
+    held_steady_ms = held_from[1]["steady_ms_per_step"]
+    del held_from
+    if tie is not None:
+        del sv, sv_out
+
     orig_router = MOE.router
-    picked = []
 
-    def recording(x, w, k, renorm=True):
-        res = orig_router(x, w, k, renorm=renorm)
-        picked.append(res[1])
-        return res
+    def eager_vs_graph_row(c, m, graph_out, record=None):
+        """The served steps op by op: the same greedy tokens, and every
+        kept logit bitwise equal (the captured kernels and cuBLAS calls are
+        the eager step's, in the same order).  With ``record`` (a list) the
+        eager run records the experts each router call picks: the served
+        run's routing, since its tokens and logits are the same."""
+        if record is not None:
+            def recording(x, w, k, renorm=True):
+                res = orig_router(x, w, k, renorm=renorm)
+                record.append(res[1])
+                return res
 
-    MOE.router = recording
-    try:
-        runs = {"bfloat16": {"graph": out, "eager": generate(cfg, model, prompt, LM_GEN, keep_logits=LM_GEN,
-                                                               graphs=False, patches=patches)}}
-    finally:
-        MOE.router = orig_router
-    runs["float32"] = {mode: generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, graphs=mode == "graph",
-                                      patches=patches)
-                       for mode in ("eager", "graph")}
-    eager_vs_graph = {}
-    for dname, pair in runs.items():
-        e, gr = pair["eager"], pair["graph"]
-        eager_vs_graph[dname] = {
-            "tokens_equal": bool(torch.equal(e["tokens"], gr["tokens"])),
-            "kept_logits_bitwise": len(e["logits"]) == len(gr["logits"]) == LM_GEN
-            and all(torch.equal(a, b) for a, b in zip(e["logits"], gr["logits"])),
+            MOE.router = recording
+        try:
+            e = generate(c, m, prompt, LM_GEN, keep_logits=LM_GEN, graphs=False, patches=patches)
+        finally:
+            MOE.router = orig_router
+        return {
+            "tokens_equal": bool(torch.equal(e["tokens"], graph_out["tokens"])),
+            "kept_logits_bitwise": len(e["logits"]) == len(graph_out["logits"]) == LM_GEN
+            and all(torch.equal(a, b) for a, b in zip(e["logits"], graph_out["logits"])),
             **{mode: {"prefill_ms": r["prefill_ms"], "decode_ms": r["decode_ms"],
                       "decode_ms_per_step": r["decode_ms"] / LM_GEN, "decode_tok_per_s": r["decode_tok_per_s"],
                       "steady_ms_per_step": r["steady_ms_per_step"],
                       "steady_tok_per_s": LM_BATCH / (r["steady_ms_per_step"] / 1e3)}
-               for mode, r in pair.items()},
+               for mode, r in (("eager", e), ("graph", graph_out))},
         }
-        pair.pop("eager")
-    f32_graph = runs["float32"]["graph"]
-    del runs
 
     # kernel parity on the served activations: every B5 and B6 call of a
     # prefill and LM_CHECK_STEPS op-by-op decode steps, in bf16 and f32,
     # repeated through the plain version on the same inputs
     served = {(name, dname): [0, 0.0, 0.0] for name in LM_KERNELS  # calls, worst ratio, max abs
               for dname in ("bfloat16", "float32")}
+    want_calls, int8_not_bitwise = {}, []
     orig_fd, orig_ssd = OPS.flash_decode, OPS.ssd
 
     def record(name, dtype, ratio, d):
@@ -1063,6 +1156,8 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         y = orig_fd(q, k, v, length, k_scale=k_scale, v_scale=v_scale, backend=backend)
         if k_scale is not None:  # an int8 cache, in q's type as the plain version takes it
             k, v = FD.dequantize(k, k_scale, q.dtype), FD.dequantize(v, v_scale, q.dtype)
+            if not torch.equal(orig_fd(q, k, v, length, backend=backend), y):  # B5 dequantizes as it reads
+                int8_not_bitwise.append(str(q.dtype))
         r = orig_fd(q.float(), k.float(), v.float(), length, backend="torch")
         d = (y.float() - r).abs()
         tol = bf16_ulp(torch, r) if q.dtype == torch.bfloat16 else FD_TOL + FD_TOL * r.abs()
@@ -1083,21 +1178,25 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         record("ssd", x.dtype, ratio, d)
         return got
 
-    OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
-    try:  # op by op: the checks read device values on the host, which no capture may
-        checked = {c.compute_dtype: generate(c, model, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS,
-                                             graphs=False, patches=patches) for c in (cfg, cfg32)}
-    finally:
-        OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
-    repeatable = all(torch.equal(a, b) for a, b in zip(checked["bfloat16"]["logits"], out["logits"])) and all(
-        torch.equal(a, b) for a, b in zip(checked["float32"]["logits"], f32_graph["logits"]))
-    del checked, f32_graph
+    def kernel_parity(c, m, served_logits):
+        """Every B5 and B6 call of an op-by-op run of ``c`` held to its
+        plain version; True when that run's logits equal the served ones
+        (the checks read device values on the host, which no capture may)."""
+        _, c_ssd, c_fd = layer_counts(c)
+        want_calls[("flash_decode", c.compute_dtype)] = c_fd * LM_CHECK_STEPS
+        want_calls[("ssd", c.compute_dtype)] = c_ssd
+        OPS.flash_decode, OPS.ssd = fd_checked, ssd_checked
+        try:
+            checked = generate(c, m, prompt, LM_CHECK_STEPS, keep_logits=LM_CHECK_STEPS, graphs=False,
+                               patches=patches)
+        finally:
+            OPS.flash_decode, OPS.ssd = orig_fd, orig_ssd
+        return all(torch.equal(a, b) for a, b in zip(checked["logits"], served_logits))
 
-    # end-to-end, teacher-forced on the served token stream: the kernel
-    # route against the plain route, with every router call recorded
-    stream = out["tokens"]
-
-    def forced(cfg_, backend):
+    def forced(c, m, stream, max_len, backend):
+        """Teacher-forced on ``stream``: the prefill's last hidden state
+        and LM_CHECK_STEPS decode steps' logits, every router call
+        recorded with its gap."""
         calls = []
 
         def rec(x, w, k, renorm=True):
@@ -1108,24 +1207,27 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
 
         MOE.router = rec
         try:
-            caches = init_cache(cfg_, LM_BATCH, out["max_len"], device=dev)
+            caches = init_cache(c, LM_BATCH, max_len, device=dev)
             batch = {"tokens": prompt} if patches is None else {"tokens": prompt, "patches": patches}
-            outs = [make_prefill_step(cfg_, backend)(model, batch, caches).float()]
-            step = make_eager_serve_step(cfg_, backend)
+            outs = [make_prefill_step(c, backend)(m, batch, caches).float()]
+            step = make_eager_serve_step(c, backend)
             tok = prompt[:, -1:]
             for i in range(LM_CHECK_STEPS):
-                outs.append(step(model, caches, tok, offset + i))
+                outs.append(step(m, caches, tok, offset + i))
                 tok = stream[:, i:i + 1]
         finally:
             MOE.router = orig_router
         return outs, calls
 
-    e2e = {}
-    for c in (cfg32, cfg):
-        dname = c.compute_dtype
-        kern, kcalls = forced(c, None)
-        plain, pcalls = forced(c, "torch")
-        if dname == "float32" and recurrent:
+    def teacher_forced(c, m, stream, max_len):
+        """End to end on ``stream``: the kernel route against the plain
+        route, the rows no routing flip has reached (and, for a recurrent
+        stack in f32, the plain route reordered as the yardstick)."""
+        c_moe = layer_counts(c)[0]
+        kern, kcalls = forced(c, m, stream, max_len, None)
+        plain, pcalls = forced(c, m, stream, max_len, "torch")
+        yardstick = None
+        if c.compute_dtype == "float32" and recurrent:
             # the yardstick of a recurrent stack: the plain route against
             # itself with B6's plain version at a chunk of REORDER_CHUNK,
             # the same scan summed in another order
@@ -1136,7 +1238,7 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
 
             SSD.ssd_ref = reordered_ref
             try:
-                reordered, _ = forced(c, "torch")
+                reordered, _ = forced(c, m, stream, max_len, "torch")
             finally:
                 SSD.ssd_ref = orig_ref
 
@@ -1150,9 +1252,9 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
                              for a, b in zip(reordered, plain)),
                          "reorder_chunk": REORDER_CHUNK, "slack": REORDER_SLACK}
             del reordered
-        check(len(kcalls) == len(pcalls) == n_moe * (1 + LM_CHECK_STEPS),
-              f"{phase}: {len(kcalls)} and {len(pcalls)} router calls, want {n_moe * (1 + LM_CHECK_STEPS)}")
-        reached, flips = route_flips(torch, kcalls, pcalls, max(n_moe, 1), LM_BATCH)
+        check(len(kcalls) == len(pcalls) == c_moe * (1 + LM_CHECK_STEPS),
+              f"{phase}: {len(kcalls)} and {len(pcalls)} router calls, want {c_moe * (1 + LM_CHECK_STEPS)}")
+        reached, flips = route_flips(torch, kcalls, pcalls, max(c_moe, 1), LM_BATCH)
         worst, mx, gated = 0.0, 0.0, 0
         for out_i, (x, r) in enumerate(zip(kern, plain)):
             rows = [b for b in range(LM_BATCH) if reached.get(b, out_i + 1) > out_i]
@@ -1163,22 +1265,39 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
             worst = max(worst, float((d / (LM_ATOL + LM_RTOL * r[rows].abs())).max()))
             mx = max(mx, float(d.max()))
         primary = [f for f in flips if f["primary"]]
-        row = {"worst_err_over_tol": worst, "max_abs_err": mx, "rows_gated": gated,
+        row = {"layers": c.n_layers, "worst_err_over_tol": worst, "max_abs_err": mx, "rows_gated": gated,
                "rows_compared": LM_BATCH * (1 + LM_CHECK_STEPS)}
-        if n_moe:
+        if c_moe:
             # pairs past capacity in each MoE layer of the prefill (the kernel route's routing)
-            cap = MOE.capacity(LM_BATCH * LM_PROMPT * cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+            cap = MOE.capacity(LM_BATCH * LM_PROMPT * c.top_k, c.n_experts, c.capacity_factor)
             row.update({"router_flips": len(flips), "primary_flips": primary[:16],
                         "max_primary_gap": max((f["gap"] for f in primary), default=None),
                         "sequences_reached": {str(k): v for k, v in sorted(reached.items())},
-                        "prefill_capacity": cap, "prefill_pairs": LM_BATCH * LM_PROMPT * cfg.top_k,
+                        "prefill_capacity": cap, "prefill_pairs": LM_BATCH * LM_PROMPT * c.top_k,
                         "prefill_pairs_dropped_per_layer": [
-                            int((torch.bincount(idx.flatten(), minlength=cfg.n_experts) - cap).clamp(min=0).sum())
-                            for idx, _ in kcalls[:n_moe]]})
-        if dname == "float32" and recurrent:
+                            int((torch.bincount(idx.flatten(), minlength=c.n_experts) - cap).clamp(min=0).sum())
+                            for idx, _ in kcalls[:c_moe]]})
+        if yardstick is not None:
             row["recurrent_yardstick"] = yardstick
-        e2e[dname] = row
-        del kern, plain, kcalls, pcalls
+        return row
+
+    def f32_gates(c, m, graph_out):
+        """The f32 runs of ``c`` on ``m``: graph = op by op, the kernels on
+        the served activations, the kernel route against the plain one."""
+        row = eager_vs_graph_row(c, m, graph_out)
+        repeat = kernel_parity(c, m, graph_out["logits"])
+        return row, repeat, teacher_forced(c, m, graph_out["tokens"], graph_out["max_len"])
+
+    # bf16 on the served model: the served run op by op, the kernels on its
+    # activations, the kernel route against the plain route (printed)
+    picked = []
+    eager_vs_graph = {"bfloat16": eager_vs_graph_row(cfg, model, out, record=picked)}
+    repeatable = {"bfloat16": kernel_parity(cfg, model, out["logits"])}
+    e2e = {"bfloat16": teacher_forced(cfg, model, tokens, out["max_len"])}
+    if not f32_layers:  # f32 on the same weights
+        f32_out = generate(cfg32, model, prompt, LM_GEN, keep_logits=LM_GEN, patches=patches)
+        eager_vs_graph["float32"], repeatable["float32"], e2e["float32"] = f32_gates(cfg32, model, f32_out)
+        del f32_out
 
     # where an xLSTM prefill's time goes: one more op-by-op prefill with
     # each mLSTM and sLSTM cell timed by CUDA events around it (a sync a
@@ -1194,11 +1313,11 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
             def run(*args, **kw):
                 s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 s_ev.record()
-                out = cells[kind](*args, **kw)
+                res = cells[kind](*args, **kw)
                 e_ev.record()
                 e_ev.synchronize()
                 spent[kind].append(s_ev.elapsed_time(e_ev))
-                return out
+                return res
             return run
 
         BLK.mlstm_mix, BLK.slstm_mix = timed_cell("mlstm"), timed_cell("slstm")
@@ -1276,19 +1395,41 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     routed_ms = sum(fixed + 2 * expert_params * experts_read[i] + b
                     for i, b in zip(steady, kv)) / len(kv) / bytes_peak * 1e3
     steady_ms = out["steady_ms_per_step"]
+    del head, picked
+
+    # the f32 gates on the first f32_layers layers in f32, once the served
+    # model is freed: its own served run is the stream it is forced on
+    f32_gate = None
+    if f32_layers:
+        del model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        m32, _, m32_b, _, _ = load(cfg32, False)
+        g32 = generate(cfg32, m32, prompt, LM_GEN, keep_logits=LM_GEN, patches=patches)
+        eager_vs_graph["float32"], repeatable["float32"], e2e["float32"] = f32_gates(cfg32, m32, g32)
+        f32_gate = {"layers": f32_layers, "of": n_layers, "groups": [(g.kind, g.n) for g in layer_groups(cfg32)],
+                    "model_allocated_gb": m32_b / 1e9, "sample_tokens": g32["tokens"][0, :8].tolist()}
+        del m32, g32
+    else:
+        del model, out
     report = {
         "phase": phase, "model": arch, "params": n_params, "block_params": block_params,
         "n_layers": n_layers, "moe_layers": n_moe, "ssd_layers": n_ssd, "attention_layers": n_fd,
         "experts": cfg.n_experts,
         "top_k": cfg.top_k, "batch": LM_BATCH, "prompt": LM_PROMPT, "prefix_tokens": prefix_tokens(cfg),
         "n_patches": cfg.n_patches, "n_codebooks": cfg.n_codebooks, "kv_quant": cfg.kv_quant,
-        "head_dim": cfg.resolved_head_dim, "kv_heads": cfg.n_kv_heads,
-        "gen": LM_GEN, "max_len": out["max_len"], "compute_dtype": cfg.compute_dtype, "init_and_cast_s": init_s,
-        "memory_needed_gb": need_gb, "model_allocated_gb": model_gb, "reserved_gb_after_load": reserved_gb,
+        "head_dim": cfg.resolved_head_dim, "kv_heads": cfg.n_kv_heads, "q_per_kv": cfg.q_per_kv,
+        "gen": LM_GEN, "max_len": offset + LM_GEN, "compute_dtype": cfg.compute_dtype,
+        "serving_form": serving_form, "init_and_cast_s": init_s,
+        "memory_needed_gb": need_gb, "model_allocated_gb": model_gb, "bytes_counted_on_meta": counted_b,
+        "bytes_allocated_at_load": model_b, "init_peak_above_start_bytes": init_peak_b,
+        "largest_f32_block_bytes": largest_f32_block, "allocator_rounding_at_most": slack,
+        "reserved_gb_after_load": reserved_gb,
         "peak_memory_gb": peak_gb,
-        "prefill_ms": out["prefill_ms"], "decode_ms_per_step": out["decode_ms"] / LM_GEN,
+        "prefill_ms": eager_vs_graph["bfloat16"]["graph"]["prefill_ms"],
+        "decode_ms_per_step": eager_vs_graph["bfloat16"]["graph"]["decode_ms_per_step"],
         "steady_ms_per_step": steady_ms, "steady_tok_per_s": LM_BATCH / (steady_ms / 1e3),
-        "decode_tok_per_s": out["decode_tok_per_s"], "timer": out["timer"],
+        "decode_tok_per_s": eager_vs_graph["bfloat16"]["graph"]["decode_tok_per_s"], "timer": "cuda_events",
         "decode_bound": {
             "all_experts_ms": all_ms, "routed_experts_ms": routed_ms,
             "steady_over_all_experts_bound": steady_ms / all_ms,
@@ -1307,10 +1448,13 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         "launches": {"prefill": prefill_counts, "per_decode_step": decode_counts[0],
                      "graph_launches_per_decode_step": {"first": decode_graphs[0], "later": decode_graphs[1]}},
         "eager_vs_graph": eager_vs_graph,
+        "serving_form_vs_two_copy": tie,
+        "f32_gate_depth_cut": f32_gate,
         "prefill_split": prefill_split,
         "kernel_parity_on_served_activations": {
             f"{name} {dname}": {"calls": v[0], "worst_err_over_tol": v[1], "max_abs_err": v[2]}
             for (name, dname), v in served.items() if v[0]},
+        "int8_cache_calls_not_bitwise_to_dequantized": int8_not_bitwise,
         "checked_runs_bitwise_equal_served_logits": repeatable,
         "teacher_forced_vs_plain_route": {
             **e2e, "compared": f"prefill last hidden state + logits of {LM_CHECK_STEPS} decode steps, "
@@ -1324,10 +1468,13 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
         check(row["tokens_equal"], f"{phase} {dname}: greedy tokens with graphs differ from the eager run's")
         check(row["kept_logits_bitwise"], f"{phase} {dname}: kept logits with graphs differ from the eager run's")
     for (name, dname), (calls, ratio, _) in served.items():
-        want = n_fd * LM_CHECK_STEPS if name == "flash_decode" else n_ssd
-        check(calls == want, f"{phase} {dname}: {name} parity saw {calls} calls, want {want}")
+        check(calls == want_calls[(name, dname)],
+              f"{phase} {dname}: {name} parity saw {calls} calls, want {want_calls[(name, dname)]}")
         check(ratio <= 1.0, f"{phase} {dname}: {name} on served activations exceeds its bar ({ratio:.3g})")
-    check(repeatable, f"{phase}: the checked op-by-op runs' logits differ from the served runs'")
+    check(not int8_not_bitwise, f"{phase}: B5 on the int8 cache differs from B5 on the dequantized cache "
+                                f"({len(int8_not_bitwise)} calls)")
+    check(all(repeatable.values()), f"{phase}: the checked op-by-op runs' logits differ from the served runs' "
+                                    f"{repeatable}")
     f32 = e2e["float32"]
     if recurrent:  # as close to the plain route as the plain route reordered is
         ys = f32["recurrent_yardstick"]
@@ -1340,20 +1487,15 @@ def lm_phase(torch, dev, phase, arch, bytes_peak):
     check(f32["rows_gated"] * 2 >= f32["rows_compared"], f"{phase}: routing flips left too few rows to compare")
     check(f32.get("max_primary_gap") is None or f32["max_primary_gap"] < FLIP_GAP,
           f"{phase}: a float32 routing flip off a near-tie: {f32.get('primary_flips', [])[:3]}")
-    # what the card holds, for phase 6k's dry run of the same decode step
-    params_on_card = storage_bytes(list(model.parameters()))
     result = {"launches": {"flash_decode": sum(c["flash_decode"] for c in decode_counts),
                            "ssd": prefill_counts["ssd"]},
               "max_abs_err": {name: max(served[(name, d)][2] for d in ("bfloat16", "float32"))
                               for name in LM_KERNELS},
-              "max_len": out["max_len"],
-              "held_bytes": {"params": sum(params_on_card.values()),
-                             "compute_copy": sum(nb for key, nb in storage_bytes(model).items()
-                                                 if key not in params_on_card),
-                             "caches": sum(storage_bytes(out["caches"]).values())},
+              "max_len": offset + LM_GEN, "held_bytes": held_bytes,
               "flash_decode_per_step": decode_counts[1]["flash_decode"],
-              "steady_ms_per_step": steady_ms, "peak_memory_gb": peak_gb}
-    del model, out, prompt, patches, stream, shape, head, picked
+              "steady_ms_per_step": held_steady_ms, "peak_memory_gb": peak_gb,
+              "phase_s": report["phase_s"]}
+    del prompt, patches, tokens
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -1591,10 +1733,11 @@ def dryrun_phase(torch, kind, lm_6e, train_6j):
     ``decode_32k`` and ``long_500k`` (skipped exactly where the config has
     no sub-quadratic decode, as in the reference) and SmolLM-360M at
     ``train_4k`` and ``prefill_32k`` (line ``dryrun_6k``), then held
-    against two runs of the card: 6e's SmolLM-360M decode step (batch 4,
-    the cache ``lm_phase`` allocated) and 6j's train step (8 x 1024,
-    remat, bf16 on f32).  Gated: every record ``ok`` or ``skipped`` where
-    it should be; the parameter, compute-copy, cache and AdamW-state
+    against two runs of the card: 6e's SmolLM-360M decode step from the
+    serving form (batch 4, the cache ``lm_phase`` allocated; the dry run
+    traces the serving form too) and 6j's train step (8 x 1024, remat,
+    bf16 on f32).  Gated: every record ``ok`` or ``skipped`` where it
+    should be; the parameter, compute-copy (0), cache and AdamW-state
     bytes counted on ``meta`` equal those the phases held on the card; the
     B5 calls of the traced decode step equal 6e's launches a step; neither
     measured step is faster than its roofline bound, ``max(compute_s,
@@ -3658,7 +3801,9 @@ def main() -> int:
     fd_row = lm_kernels[0]
     served_lms = {}
     for phase, arch in DENSE_LMS + FEATURE_LMS:
-        lm = served_lms[phase] = lm_phase(torch, dev, phase, arch, bytes_peak)
+        # 6e also serves the same weights from the serving form: the same
+        # bits, and what 6k holds against its dry run
+        lm = served_lms[phase] = lm_phase(torch, dev, phase, arch, bytes_peak, tie_serving_form=phase == "6e")
         n = lm["launches"]["flash_decode"]
         fd_row["launches"] += n
         fd_row["launches_by_path"][f"{phase} {arch}"] = n
@@ -3682,6 +3827,16 @@ def main() -> int:
     # ------------- 6k. the dry run on meta, held against 6e and 6j
     dryrun_phase(torch, kind, served_lms["6e"], trained)
     mark("6k")
+
+    # ------------- 6l. StarCoder2-15B, DeepSeek-MoE-16B and Moonlight-16B-A3B
+    # served from the serving form, one after the other, through B5
+    for phase, arch in SERVING_FORM_LMS:
+        lm = lm_phase(torch, dev, phase, arch, bytes_peak, serving_form=True, f32_layers=F32_CUT_LAYERS)
+        n = lm["launches"]["flash_decode"]
+        fd_row["launches"] += n
+        fd_row["launches_by_path"][f"{phase} {arch}"] = n
+        fd_row["max_abs_err"] = max(fd_row["max_abs_err"], lm["max_abs_err"]["flash_decode"])
+        mark(f"{phase} {arch}")
 
     # ------------------------------------------------ 7. kernels line
     kernels = []

@@ -4,9 +4,11 @@
 Port of ``repro/launch/dryrun.py``.  The reference lowers and compiles
 each step on a fake 256- or 512-chip mesh and reads XLA's analyses; the
 port has one card, so it runs its own step (``make_train_step`` with
-AdamW, the prefill, or one decode step through the route that serves,
-``backend=None``, so B5 and B6 count as kernels) on ``meta`` tensors
-under ``roofline/analysis.py``'s counters, with the card's peaks:
+AdamW on the f32 parameters; the prefill or one decode step through the
+route that serves, ``backend=None``, so B5 and B6 count as kernels, on
+the serving form, whose blocks are held in the compute dtype only) on
+``meta`` tensors under ``roofline/analysis.py``'s counters, with the
+card's peaks:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape decode_32k [--card H100] [--out results.json]
@@ -94,16 +96,21 @@ def detect_card(card: Optional[str] = None) -> Tuple[str, CardPeaks, float]:
     return card, peaks, peaks.memory_gb
 
 
+def step_model(cfg: ModelConfig, kind: str):
+    """The model a ``kind`` step runs on, on ``meta``: the f32 parameters
+    for training, the serving form (``launch/serve.py``'s) for a prefill
+    or a decode step."""
+    return abstract_params(cfg, serving=kind != "train")
+
+
 def _step_args(cfg: ModelConfig, model, shape: InputShape) -> Tuple[Any, Tuple[Any, ...], Dict[str, Any]]:
-    """(step, its arguments, the arguments by part) on ``meta`` tensors."""
+    """(step, its arguments, the arguments by part) on ``meta`` tensors,
+    ``model`` being :func:`step_model`'s."""
     specs = input_specs(cfg, shape)
     if shape.kind == "train":
         opt = adamw_init(dict(model.named_parameters()))
         return make_train_step(cfg), (model, opt, specs["batch"]), {
             "optimizer": opt, "batch": specs["batch"]}
-    # the serving copy of the blocks in the compute dtype is resident, made
-    # once before the first step (CausalLM.compute_blocks)
-    model.compute_blocks(getattr(torch, cfg.compute_dtype))
     if shape.kind == "prefill":
         return make_prefill_step(cfg), (model, specs["batch"], specs["caches"]), {
             "batch": specs["batch"], "caches": specs["caches"]}
@@ -112,9 +119,10 @@ def _step_args(cfg: ModelConfig, model, shape: InputShape) -> Tuple[Any, Tuple[A
 
 
 def argument_parts(model, parts: Dict[str, Any]) -> Dict[str, int]:
-    """Bytes of the step's arguments by part: the parameters, the blocks'
-    compute-dtype copy (serving), the optimizer state, the batch and the
-    caches."""
+    """Bytes of the step's arguments by part: the parameters, any other
+    storage the model holds (``compute_copy``: the blocks' compute-dtype
+    copy of a two-copy model, none in :func:`step_model`'s), the
+    optimizer state, the batch and the caches."""
     params = storage_bytes(list(model.parameters()))
     every = storage_bytes(model)
     out = {"params": sum(params.values()),
@@ -215,7 +223,7 @@ def _counts(cfg: ModelConfig, model, shape: InputShape) -> Tuple[Dict[str, int],
         key = tuple(sizes)
         if key not in flats:
             c = with_group_sizes(cfg, sizes)
-            flats[key] = _flat(_trace(c, abstract_params(c), shape))
+            flats[key] = _flat(_trace(c, step_model(c, shape.kind), shape))
         return flats[key]
 
     for b in range(2, cfg.n_layers):
@@ -330,7 +338,7 @@ def run_one(arch: Union[str, ModelConfig], shape_name: Union[str, InputShape],
             "reason": "pure full attention — long_500k requires sub-quadratic decode (DESIGN.md §4)",
         }
     name, peaks, mem_gb = detect_card(card)
-    model = abstract_params(cfg)
+    model = step_model(cfg, shape.kind)
     t0 = time.perf_counter()
     trace, scaled = scaled_trace(cfg, model, shape)
     trace_s = time.perf_counter() - t0

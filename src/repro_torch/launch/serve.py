@@ -5,10 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \\
+        --batch 4 --prompt-len 768 --gen 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
 
-Port of ``repro/launch/serve.py``: random weights from a seed, a random
+Port of ``repro/launch/serve.py``: random weights from a seed, in the
+serving form (``init_params(..., serving=True)``: the blocks held in the
+compute dtype only, so StarCoder2-15B, DeepSeek-MoE-16B and
+Moonlight-16B-A3B fit one 80 GB card), a random
 prompt batch (``[B, S, K]`` of K codebooks for MusicGen; with
 PaliGemma's vision prefix, random 1152-wide patch features before it, as
 the reference stubs its vision tower), one prefill that fills the caches, then ``--gen`` greedy
@@ -176,7 +181,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    params = init_params(cfg, seed=args.seed, device=dev)
+    params = init_params(cfg, seed=args.seed, device=dev, serving=True)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     shape = (args.batch, args.prompt_len) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     prompt = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)

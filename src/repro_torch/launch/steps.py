@@ -34,7 +34,11 @@ def loss_and_grads(cfg: ModelConfig, params: CausalLM,
     ``a.reshape(accum, B // accum, ...)``), run one at a time, their
     gradients summed in f32 and divided by the count, the loss their
     mean and the metrics ({"xent", "aux"}) the last one's.  The model is
-    not changed."""
+    not changed.  A model in the serving form raises ``ValueError``: it
+    holds no f32 block parameters to take gradients on."""
+    if params.serving:
+        raise ValueError(f"{cfg.name}: the serving form holds its blocks in {cfg.compute_dtype} only and "
+                         "cannot be trained; train the f32 parameters (init_params(..., serving=False))")
     accum = max(1, cfg.grad_accum)
     names, ps = zip(*params.named_parameters())
 
@@ -68,7 +72,8 @@ def make_train_step(cfg: ModelConfig, base_lr: float = 3e-4, warmup: int = 2000,
     ``train_step(params, opt_state, batch)`` returns (params, the new
     optimizer state, {"loss", "xent", "aux", "grad_norm", "lr"}), the
     metrics f32 0-d tensors on the device (reading one waits for the
-    step)."""
+    step).  A model in the serving form raises ``ValueError`` before any
+    work (:func:`loss_and_grads`)."""
 
     def train_step(params: CausalLM, opt_state: AdamWState, batch: Batch):
         loss, metrics, grads = loss_and_grads(cfg, params, batch)

@@ -16,7 +16,13 @@ module and a Python loop walks them.  The parameters are held in
 ``serve_step``) runs the blocks on a copy in ``compute_dtype`` (bf16 for
 the served configs), made at first use and refreshed in place after the
 parameters change (``CausalLM.compute_blocks``), which is the reference's
-per-block ``astype`` done ahead of time.  Training (``forward`` in
+per-block ``astype`` done ahead of time.  The *serving form*
+(``init_params(..., serving=True)``, ``params_from_numpy(...,
+serving=True)``) holds the blocks only in ``compute_dtype``, cast once as
+that copy is, and nothing else of them: 2 bytes a block parameter where
+the two copies hold 6, which is what lets StarCoder2-15B, DeepSeek-MoE-16B
+and Moonlight-16B-A3B serve from one card.  It serves the same bits and
+cannot be trained.  Training (``forward`` in
 ``"train"`` mode, ``loss_fn``) casts each block's parameters as it runs
 it, differentiably, so the gradients land on the f32 parameters; with
 ``cfg.remat`` each layer of a scanned group is checkpointed, as the
@@ -149,11 +155,15 @@ class CausalLM(nn.Module):
     patches), ``meta_tokens`` (Hymba only), ``groups.{g}.{i}.<block
     keys>`` (layer ``i`` of group ``g``; the reference stacks it as
     ``groups[g][...][i]``), ``final_norm``, and ``heads`` (``[K, D, V]``,
-    with codebooks) or ``lm_head`` (untied embeddings)."""
+    with codebooks) or ``lm_head`` (untied embeddings).  With ``serving``
+    the blocks' parameters are held in ``cfg.compute_dtype`` only (the
+    module docstring's serving form, ``self.serving``), every other one in
+    ``param_dtype``; their storage is left uninitialised."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
+    def __init__(self, cfg: ModelConfig, device: torch.device, serving: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.serving = serving
         dt = _dtype(cfg.param_dtype)
         kw = dict(dtype=dt, device=device)
         k = cfg.n_codebooks
@@ -163,7 +173,7 @@ class CausalLM(nn.Module):
         self.register_parameter(
             "meta_tokens", _param((N_META_TOKENS, cfg.d_model), **kw) if cfg.block_kind == "hymba" else None)
         self.groups = nn.ModuleList(
-            nn.ModuleList(_make_block(cfg, spec.kind, dt, device) for _ in range(spec.n))
+            nn.ModuleList(self._new_block(spec.kind, device) for _ in range(spec.n))
             for spec in layer_groups(cfg)
         )
         self.final_norm = Norm(cfg.d_model, cfg.norm, dt, device)
@@ -174,6 +184,15 @@ class CausalLM(nn.Module):
             None if k or cfg.tie_embeddings else _param((cfg.d_model, cfg.vocab_size), **kw))
         self._compute: Dict[torch.dtype, Tuple[List[List[nn.Module]], List[int]]] = {}
 
+    def _new_block(self, kind: str, device) -> nn.Module:
+        cfg = self.cfg
+        if not self.serving:
+            return _make_block(cfg, kind, _dtype(cfg.param_dtype), device)
+        # cast on meta as compute_blocks casts (every floating parameter),
+        # then storage in the compute dtype only
+        blk = _make_block(cfg, kind, _dtype(cfg.param_dtype), torch.device("meta"))
+        return blk.to(_dtype(cfg.compute_dtype)).to_empty(device=device).requires_grad_(False)
+
     def compute_blocks(self, dtype: torch.dtype) -> List[List[nn.Module]]:
         """The blocks in ``dtype`` (the config's ``compute_dtype``) for
         serving, or the parameter modules themselves where the dtypes
@@ -183,7 +202,15 @@ class CausalLM(nn.Module):
         counter), refreshed in place, so a CUDA graph captured over it
         reads the new weights.  Every floating parameter is cast, a MoE
         router and the sLSTM's recurrence ``r`` and bias ``b`` too, as the
-        reference's per-block ``astype``.  The copy takes no gradient."""
+        reference's per-block ``astype``.  The copy takes no gradient.  The
+        serving form hands back its blocks themselves, and raises for any
+        other dtype: its blocks hold nothing wider."""
+        if self.serving:
+            held = _dtype(self.cfg.compute_dtype)
+            if dtype != held:
+                raise ValueError(f"{self.cfg.name}: the serving form holds its blocks in {held} only, "
+                                 f"not {dtype}; build the f32 parameters (serving=False) for another dtype")
+            return [list(grp) for grp in self.groups]
         params = list(self.groups.parameters())
         stamp = [p._version for p in params]
         if dtype not in self._compute:
@@ -217,28 +244,43 @@ def _init_weights(model: CausalLM, gen: torch.Generator) -> None:
     if model.meta_tokens is not None:
         model.meta_tokens.normal_(0.0, 0.02, generator=gen)
     init = {HymbaBlock: init_hymba_block, DenseBlock: init_dense_block, XLSTMBlock: init_xlstm_block}
-    for grp in model.groups:
+    for spec, grp in zip(layer_groups(cfg), model.groups):
         for blk in grp:
-            init[type(blk)](blk, gen)
+            if not model.serving:
+                init[type(blk)](blk, gen)
+                continue
+            # the serving form: the block drawn in param_dtype from the same
+            # stream, cast into place, and freed before the next is drawn
+            drawn = _make_block(cfg, spec.kind, _dtype(cfg.param_dtype), model.embed.device)
+            init[type(drawn)](drawn, gen)
+            for dst, src in zip(blk.parameters(), drawn.parameters()):
+                dst.copy_(src)
+            del drawn
     init_norm(model.final_norm)
     for head in (model.heads, model.lm_head):
         if head is not None:
             head.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> CausalLM:
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                serving: bool = False) -> CausalLM:
     """Random weights with the reference's shapes and scales, drawn from
     ``torch.Generator(device).manual_seed(seed)`` (not the reference's
-    numbers: ``jax.random`` and torch differ)."""
+    numbers: ``jax.random`` and torch differ).  With ``serving`` the
+    serving form: the same draws in the same order, each block cast as it
+    is drawn, so its blocks are bit for bit ``init_params(cfg,
+    seed).compute_blocks(compute dtype)`` and its other parameters equal;
+    at most one block is held in ``param_dtype`` at a time."""
     dev = resolve_device(device)
-    model = CausalLM(cfg, dev)
+    model = CausalLM(cfg, dev, serving=serving)
     _init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model
 
 
-def abstract_params(cfg: ModelConfig) -> CausalLM:
-    """The model on the ``meta`` device: shapes and dtypes, no storage."""
-    return CausalLM(cfg, torch.device("meta"))
+def abstract_params(cfg: ModelConfig, serving: bool = False) -> CausalLM:
+    """The model on the ``meta`` device: shapes and dtypes, no storage
+    (the serving form with ``serving``)."""
+    return CausalLM(cfg, torch.device("meta"), serving=serving)
 
 
 # ------------------------------------------------------------------ caches

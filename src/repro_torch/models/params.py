@@ -15,7 +15,10 @@ layer's expert stacks ``[n, E, D, F]`` become ``[E, D, F]``).  Each
 value takes the port's parameter's dtype: a MoE router stays f32, as in
 the reference; the blocks' copy in the compute dtype
 (``CausalLM.compute_blocks``) rounds it, as the reference's per-block
-cast does.  :func:`params_to_numpy` is the inverse: the model's
+cast does.  In the serving form (``serving=True``) each block parameter
+is read in the dtype it has in that form, then cast to the compute dtype
+on load, one at a time: the bits of that copy, and no f32 block held.
+:func:`params_to_numpy` is the inverse: the model's
 parameters as the reference's pytree of numpy arrays, each group's
 layers stacked ``[n, ...]`` again, which is also the layout of a
 checkpoint that either package loads (``checkpoint/checkpoint.py``).
@@ -29,7 +32,7 @@ import torch
 
 from ..kernels.config import DeviceLike, resolve_device
 from .config import ModelConfig
-from .model import CausalLM, layer_groups
+from .model import CausalLM, abstract_params, layer_groups
 
 
 def tree_leaf(tree: Mapping[str, Any], name: str) -> Tuple[Any, Optional[int]]:
@@ -49,11 +52,16 @@ def tree_leaf(tree: Mapping[str, Any], name: str) -> Tuple[Any, Optional[int]]:
     return node, layer
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceLike = None) -> CausalLM:
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceLike = None,
+                      serving: bool = False) -> CausalLM:
     """The reference's parameters as numpy arrays -> a :class:`CausalLM` on
-    ``device`` (``None`` means the card) holding the same values."""
+    ``device`` (``None`` means the card) holding the same values (the
+    serving form with ``serving``: its blocks cast on load)."""
     dev = resolve_device(device)
-    model = CausalLM(cfg, dev)
+    model = CausalLM(cfg, dev, serving=serving)
+    # the dtype each value is read in: the two-copy form's, which casts
+    # the serving form's blocks as compute_blocks would
+    read = {n: p.dtype for n, p in (abstract_params(cfg) if serving else model).named_parameters()}
     with torch.no_grad():
         for name, p in model.named_parameters():
             try:
@@ -64,7 +72,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device: DeviceL
             arr = np.asarray(leaf if layer is None else leaf[layer])
             if arr.shape != tuple(p.shape):
                 raise ValueError(f"{name}: reference shape {arr.shape}, port {tuple(p.shape)}")
-            p.copy_(torch.tensor(arr, dtype=p.dtype))
+            p.copy_(torch.tensor(arr, dtype=read[name]))
     return model
 
 

@@ -45,10 +45,14 @@ sequence in the simulator, on a fake-stage board, and on real silicon.
 The live injector and the simulator consume ordinals identically: a
 retried / re-dispatched invocation advances the same counter in both
 worlds (see :meth:`FaultInjector.sim_delay`, which emulates the server's
-retry loop event for event).
+retry loop event for event).  A warm-up call (:func:`warm_calls`: the
+server's ``warmup()`` and the prepare phase of ``swap_plan``) serves no
+micro-batch and consumes no ordinal, so a swap warming the next epoch
+while the old one serves cannot take a scheduled fault from a worker.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import random
@@ -65,6 +69,7 @@ __all__ = [
     "TransientStageError",
     "WorkerCrash",
     "fault_injecting_builder",
+    "warm_calls",
 ]
 
 STAGE_KINDS = ("transient", "crash", "stall")
@@ -428,6 +433,21 @@ class FaultInjector:
             attempt = 0
 
 
+_WARMING = threading.local()
+
+
+@contextlib.contextmanager
+def warm_calls():
+    """Stage fns called on this thread inside the block skip every
+    injector: a warm-up is not a served invocation (module docstring)."""
+    outer = getattr(_WARMING, "on", False)
+    _WARMING.on = True
+    try:
+        yield
+    finally:
+        _WARMING.on = outer
+
+
 def fault_injecting_builder(
     inner_builder: Callable[..., Sequence[Callable]],
     injector: FaultInjector,
@@ -448,7 +468,8 @@ def fault_injecting_builder(
 
         def wrap(si: int, fn: Callable) -> Callable:
             def faulty(params, batch):
-                injector.on_call(si)
+                if not getattr(_WARMING, "on", False):
+                    injector.on_call(si)
                 return fn(params, batch)
 
             return faulty

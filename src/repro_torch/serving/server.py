@@ -54,7 +54,7 @@ from ..core.pipeline import PipelinePlan
 from ..kernels.config import resolve_device, synchronize
 from .batching import MicroBatch, gather, split_rows, stack_envs
 from .engine import build_stage_fns, on_stream, stage_stream, sync_stream
-from .faults import RecoveryPolicy, TransientStageError
+from .faults import RecoveryPolicy, TransientStageError, warm_calls
 from .metrics import ServerMetrics
 
 _SENTINEL = object()
@@ -804,8 +804,9 @@ class PipelineServer:
                 (self.batch_size, *self.graph.input_shape), device=self.device
             )
         }
-        for fn in fns:
-            env = fn(self.params, env)
+        with warm_calls():  # no injected fault is scheduled on a warm-up
+            for fn in fns:
+                env = fn(self.params, env)
         synchronize(self.device)
 
     def warmup(self) -> None:

@@ -50,8 +50,8 @@ def rms(a, b):
     return float(np.sqrt(np.mean((np.asarray(a, np.float64) - b) ** 2)))
 
 
-def port_model(cfg, ref_params):
-    return params_from_numpy(cfg, jax.tree.map(np.asarray, ref_params), device="cpu")
+def port_model(cfg, ref_params, serving=False):
+    return params_from_numpy(cfg, jax.tree.map(np.asarray, ref_params), device="cpu", serving=serving)
 
 
 def recording(monkeypatch):
@@ -124,16 +124,17 @@ def int8_flips(seen, n_layers, scale_rtol):
     return reached, dist
 
 
-def serve_both(arch, dtype, prompt_len, steps, monkeypatch, seed=0, **kw):
+def serve_both(arch, dtype, prompt_len, steps, monkeypatch, seed=0, serving=False, **kw):
     """Prefill a 2-sequence prompt (``[B, S, K]`` with K codebooks, after
     random 1152-wide patch features with a vision prefix) and run
     ``steps`` teacher-forced decode steps in both packages on the
     reference's f32 weights.  Returns [(ref, port)] for the prefill's last
     hidden state, then each step's logits; the two final caches; and both
-    packages' records (:func:`recording`)."""
+    packages' records (:func:`recording`).  With ``serving`` the port
+    loads the weights in its serving form (the blocks cast on load)."""
     rcfg, cfg = cfgs(arch, dtype, **kw)
     ref_params = ref_init_params(dataclasses.replace(rcfg, compute_dtype="float32"), jax.random.PRNGKey(0))
-    model = port_model(cfg, ref_params)
+    model = port_model(cfg, ref_params, serving=serving)
     seen = recording(monkeypatch)
     rng = np.random.default_rng(seed)
     books = (cfg.n_codebooks,) if cfg.n_codebooks else ()

@@ -156,7 +156,7 @@ def test_reduced_smollm_prefill_flops_counted_from_the_code():
     (query chunk, key chunk) block, and the gated FFN's three products."""
     cfg = dataclasses.replace(get_config("smollm-360m").reduced(), n_layers=3)
     b, s = 2, 320
-    model = abstract_params(cfg)
+    model = D.step_model(cfg, "prefill")  # the serving form: the blocks in bf16 only
     step, args, _ = D._step_args(cfg, model, InputShape("p", s, b, "prefill"))
     trace, _ = trace_step(step, *args)
     d, h, hkv, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff
@@ -170,8 +170,9 @@ def test_reduced_smollm_prefill_flops_counted_from_the_code():
     bf16, f32 = 2, 4
     cache = cfg.n_layers * b * s * hkv * dh * 2 * bf16 + cfg.n_layers * s * 4
     assert D.argument_parts(model, {"caches": args[2]})["caches"] == cache
-    assert trace.argument_bytes == sum(p.numel() for p in model.parameters()) * f32 + \
-        sum(p.numel() for p in model.groups.parameters()) * bf16 + b * s * 4 + cache
+    block = sum(p.numel() for p in model.groups.parameters())
+    assert trace.argument_bytes == (sum(p.numel() for p in model.parameters()) - block) * f32 + \
+        block * bf16 + b * s * 4 + cache
 
 
 def test_reduced_hymba_kernel_calls_with_their_cost():
@@ -180,7 +181,7 @@ def test_reduced_hymba_kernel_calls_with_their_cost():
     prefill one B6 call a layer, Hymba's B and C broadcast over the heads."""
     cfg = get_config("hymba-1.5b").reduced()
     b, s = 2, 384
-    model = abstract_params(cfg)
+    model = D.step_model(cfg, "decode")
     step, args, _ = D._step_args(cfg, model, InputShape("d", s, b, "decode"))
     trace, _ = trace_step(step, *args)
     hkv, g, dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
@@ -242,10 +243,14 @@ def test_run_one_on_every_reduced_block_kind(block, kind):
     mem, roof = rec["memory"], rec["roofline"]
     parts = mem["argument_parts"]
     assert mem["argument_bytes"] == sum(parts.values())
-    assert parts["params"] == 4 * rec["params_total"]
+    assert parts["compute_copy"] == 0
     if kind == "train":  # f32 m and v, and the int32 step; the parameters updated in place
-        assert parts["optimizer"] == 8 * rec["params_total"] + 4 and parts["compute_copy"] == 0
+        assert parts["params"] == 4 * rec["params_total"]
+        assert parts["optimizer"] == 8 * rec["params_total"] + 4
         assert mem["alias_bytes"] == parts["params"]
+    else:  # the serving form: the blocks in bf16 only, the rest in f32
+        block = sum(p.numel() for p in abstract_params(cfg).groups.parameters())
+        assert parts["params"] == 2 * block + 4 * (rec["params_total"] - block)
     assert mem["per_chip_gb"] * 1e9 == pytest.approx(
         mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"] - mem["alias_bytes"])
     assert roof["compute_s"] > 0 and roof["memory_s"] > 0 and roof["bottleneck"] in ("compute", "memory")
@@ -260,6 +265,21 @@ def test_run_one_on_every_reduced_block_kind(block, kind):
     json.dumps(rec)
 
 
+def test_starcoder2_served_decode_record_fits_one_card():
+    """StarCoder2-15B's decode step at batch 4 over 896 slots (a
+    768-token prompt and 128 steps, as ``chip_smoke.py`` serves it) fits
+    one H100 in the serving form: 33.1 GB of weights where the two copies
+    would hold 94.5, 40 B5 calls a step."""
+    cfg = get_config("starcoder2-15b")
+    rec = D.run_one(cfg, InputShape("decode_896", 896, 4, "decode"), card="H100")
+    mem, parts = rec["memory"], rec["memory"]["argument_parts"]
+    block = sum(p.numel() for p in abstract_params(cfg).groups.parameters())
+    assert rec["status"] == "ok" and mem["fits"] and mem["per_chip_gb"] < 80.0
+    assert parts["params"] == 2 * block + 4 * (rec["params_total"] - block)
+    assert round(parts["params"] / 1e9, 1) == 33.1 and parts["compute_copy"] == 0
+    assert rec["kernel_calls"]["flash_decode"]["calls"] == cfg.n_layers
+
+
 @pytest.mark.parametrize("block,kind,units", [
     ("dense", "prefill", 11), ("dense", "train", 11), ("hymba", "prefill", 13), ("xlstm", "prefill", 9)])
 def test_scaled_trace_equals_the_whole_trace(block, kind, units):
@@ -269,7 +289,7 @@ def test_scaled_trace_equals_the_whole_trace(block, kind, units):
     unit, n0, deg = D.scale_unit(cfg, kind)
     assert units > 2 * (n0 + deg + 1)
     shape = InputShape("long", units * unit, 2, kind)
-    model = abstract_params(cfg)
+    model = D.step_model(cfg, shape.kind)
     scaled, how = D.scaled_trace(cfg, model, shape)
     whole = D._trace(cfg, model, shape)
     assert how is not None and how["traced_seq_lens"][-1] < shape.seq_len
@@ -283,7 +303,7 @@ def test_depth_fitted_prefill_counts_equal_the_whole_model(block, layers):
     """Every count of a prefill, the peak's regions included, fitted over
     the depth of each class of groups, equals the whole model's."""
     cfg = dataclasses.replace(get_config(KINDS[block]).reduced(), **layers)
-    model = abstract_params(cfg)
+    model = D.step_model(cfg, "prefill")
     shape = InputShape("s", 256, 2, "prefill")
     fitted, how = D._counts(cfg, model, shape)
     assert how is not None and max(map(sum, how["group_sizes_traced"])) < cfg.n_layers
@@ -307,7 +327,7 @@ def test_scaled_peak_follows_the_region_that_holds_it():
     3.3x faster; the scaled trace fits each region's peak from 2-5 units
     and takes the largest at 16, the whole trace's peak."""
     cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2)
-    model = abstract_params(cfg)
+    model = D.step_model(cfg, "prefill")
     shape = InputShape("p", 16 * 512, 32, "prefill")
     scaled, how = D.scaled_trace(cfg, model, shape)
     whole = D._trace(cfg, model, shape)

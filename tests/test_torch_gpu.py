@@ -1784,3 +1784,42 @@ def test_captured_decode_step_serves_the_trained_weights(cuda):
     prefill(cfg, fresh, {"tokens": prompt[:, :16]}, fc)
     want = serve_step(cfg, fresh, fc, prompt[:, 16:], 16)
     assert torch.equal(after, want) and not torch.equal(after, before)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "deepseek-moe-16b", "moonshot-v1-16b-a3b"])
+def test_serving_form_on_the_card_holds_what_meta_counts_and_serves_the_same_bits(cuda, arch):
+    """A reduced model in the serving form: its load allocates the bytes
+    counted on ``meta`` (up to the allocator's rounding: 512 bytes a
+    tensor of up to 1 MiB, 1 MiB a larger one), its init holds at most one
+    f32 block above them, and its
+    decode, captured and replayed, gives the two-copy form's tokens and
+    logits bit for bit, with one B5 launch an attention layer a step."""
+    from repro_torch.models import abstract_params
+
+    cfg = get_config(arch).reduced()
+    shape = abstract_params(cfg, serving=True)
+    counted = sum(p.numel() * p.element_size() for p in shape.parameters())
+    f32_block = max(4 * sum(p.numel() for p in blk.parameters()) for grp in shape.groups for blk in grp)
+    slack = sum(512 if p.numel() * 4 <= 1 << 20 else 1 << 20 for p in shape.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    serving = init_params(cfg, seed=0, device=cuda, serving=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda) - before
+    assert 0 <= held - counted <= slack, (held, counted)
+    assert torch.cuda.max_memory_allocated(cuda) - before <= counted + f32_block + 2 * slack
+    prompt = torch.randint(0, cfg.vocab_size, (4, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    want = generate(cfg, init_params(cfg, seed=0, device=cuda), prompt, 6, keep_logits=6)
+    per_step = []
+
+    def hook(phase, i):
+        per_step.append((phase, K.launch_counts()["flash_decode"], runtime.graph_launches()))
+        K.reset_launches()
+
+    K.reset_launches()
+    got = generate(cfg, serving, prompt, 6, keep_logits=6, step_hook=hook)
+    assert torch.equal(got["tokens"], want["tokens"]) and torch.equal(got["last_hidden"], want["last_hidden"])
+    assert all(torch.equal(a, b) for a, b in zip(got["logits"], want["logits"]))
+    assert per_step == [("prefill", 0, 0)] + [("decode", cfg.n_layers, 0 if i == 0 else 1) for i in range(6)]

@@ -301,6 +301,32 @@ def test_stop_never_joins_a_published_unstarted_replacement(setup, monkeypatch):
     del tickets
 
 
+def test_swap_warmup_never_takes_a_workers_scheduled_fault(setup):
+    """swap_plan warms the next epoch while the old one serves; that warm-up
+    must not consume the fault schedule's ordinals.  Here the swap comes
+    before any traffic, the order that lets a warm-up reach the scheduled
+    ordinal first: the crash must still fire in a worker (and be recovered),
+    never out of swap_plan."""
+    g, params, _, _, images, plan = setup
+    ref = SingleStageEngine(g, params, backend="cuda_fused", device="cpu").run(images[:4])
+    inj = FaultPlan(events=(FaultEvent("crash", stage=0, at_call=0),)).injector(POLICY)
+    builder = fault_injecting_builder(
+        lambda gr, pl: build_stage_fns(gr, pl, backend="cuda_fused"), inj
+    )
+    srv = PipelineServer(
+        g, params, plan, batch_size=1, flush_timeout_s=0.0,
+        stage_fn_builder=builder, recovery=POLICY, device="cpu",
+    )
+    with srv:
+        srv.swap_plan(plan)  # warms the next epoch's stage 0 first
+        assert inj.calls(0) == 0 and inj.total_fired == 0
+        res = srv.run(images[:4])
+    for a, b in zip(res["outputs"], ref["outputs"]):
+        assert torch.equal(a, b)
+    assert inj.fired_kinds() == {"crash": 1}
+    assert srv.metrics.recovery.snapshot()["worker_restarts"] >= 1
+
+
 def test_swap_plan_keeps_outputs_and_closes_cleanly(setup):
     g, params, _, _, images, plan = setup
     srv = PipelineServer(g, params, plan, batch_size=2, backend="cuda_fused", device="cpu")
