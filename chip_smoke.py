@@ -528,6 +528,121 @@ def bf16_ulp(torch, r):
     return torch.ldexp(torch.ones_like(r), e - 8)
 
 
+def timed_row(torch, bytes_peak, name, where, kern, plain, lib, op_count, op_peak, nbytes, **extra):
+    """One kernel's timing line: device time of the kernel, its plain
+    version and its library call (None: no call), its host-paced time, and
+    its bound from ``op_count`` operations at ``op_peak`` and ``nbytes``
+    bytes at ``bytes_peak``."""
+    op_ms, byte_ms = op_count / op_peak * 1e3, nbytes / bytes_peak * 1e3
+    row = {"shape": where, "kernel": name, "kernel_ms": device_ms(kern, torch),
+           "plain_ms": device_ms(plain, torch),
+           "library_ms": None if lib is None else device_ms(lib, torch),
+           "host_paced_kernel_ms": time_ms(kern, torch),
+           "flop_bound_ms": op_ms, "byte_bound_ms": byte_ms, "bound_ms": max(op_ms, byte_ms),
+           "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+           "timer": "cuda events behind a sleep kernel (device time)", **extra}
+    print(json.dumps(row))
+    return row
+
+
+def b6_wide_inputs(torch, randn):
+    """6d's inputs of B6's wide form at xLSTM-1.3B's served prefill: one
+    mLSTM layer over the 768-token prompt (B 4, H 4, N = P = 512, bf16),
+    the input gate e^min(i, 8) in B."""
+    import torch.nn.functional as F
+
+    b, s_len, h, p, n = LM_BATCH, LM_PROMPT, 4, XLSTM_DH, XLSTM_DH
+    x = randn(b, s_len, h, p, dtype=torch.bfloat16)
+    la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(torch.bfloat16)
+    B = (randn(b, s_len, h, n) * n ** -0.5 * torch.exp(torch.clamp(randn(b, s_len, h), max=8.0))[..., None]
+         ).to(torch.bfloat16)
+    C = randn(b, s_len, h, n, dtype=torch.bfloat16)
+    return x, la, B, C
+
+
+def b6_wide_timed(torch, randn, flops_peak, bytes_peak):
+    """6d's row of B6 at xLSTM-1.3B's served prefill: the wide form with the
+    normalizer, 6 chunks of 128.  ``bound_ms`` is the route's own: the
+    multiply-adds the kernel issues to the bf16 tensor cores
+    (``wide_tensor_core_macs``: the bf16 scores once, every product with
+    an f32 operand as three bf16 terms) at the bf16 rate, or its bytes;
+    beside it ``f32_cuda_core_bound_ms``, ssd_cost's operations at the f32
+    CUDA-core rate, the bound of every earlier run; and the launch: blocks
+    a cluster, clusters resident at once, registers and local memory."""
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.roofline.analysis import ssd_cost
+
+    x, la, B, C = b6_wide_inputs(torch, randn)
+    b, s_len, h, p = x.shape
+    n, chunk = B.shape[-1], 128
+    xl_flops, xl_bytes = ssd_cost(b, s_len, h, n, p, chunk, normalizer=True)
+    launch = SSD.wide_launch_info(chunk, p, torch.bfloat16)
+    macs = SSD.wide_tensor_core_macs(b, s_len, h, n, p, chunk, launch["cluster_blocks"])
+    row = timed_row(
+        torch, bytes_peak,
+        "ssd", f"xLSTM served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, normalizer (wide form)",
+        lambda: OPS.ssd(x, la, B, C, normalizer=True),
+        lambda: OPS.ssd(x, la, B, C, normalizer=True, backend="torch"),
+        None, 2.0 * macs, peaks(torch.cuda.get_device_name(0))[3], xl_bytes,
+        library_null_reason=NO_LIBRARY["ssd"],
+        cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
+        blocks=b * h * (-(-s_len // chunk)) * (p // 64), tensor_core_macs=macs,
+        f32_cuda_core_bound_ms=max(xl_flops / flops_peak, xl_bytes / bytes_peak) * 1e3, launch=launch,
+    )
+    del x, la, B, C
+    torch.cuda.empty_cache()
+    return row
+
+
+def b6_wide_cases(torch, randn, err):
+    """6b's cases of B6's wide form: xLSTM's mLSTM with the normalizer at
+    N = P = 512, chunk 128 (B, S, H, h0 and n0 given): the served
+    prefill's shape, a ragged S (padded to 3 chunks) and 6 chunks from a
+    given state.  Inputs as the mLSTM makes them, the input gate e^min(i,
+    8) with i of spread 2 (B reaches ~3000 k).  Each output held relative
+    to its scale (the absolute floor scaled by max|r|, as tol_ok: the
+    scan's sums run over 512 and 128 terms as large as the output's range)
+    at its own type's bar: y at x's, and den and both states, f32 on bf16
+    inputs too, at the f32 bar (the kernel's products are exact, so only
+    the order of its f32 sums differs); the elementwise ratio of the Hymba
+    cases printed beside it.  Each call is made twice and must give the
+    same bits.  Returns (cases, worst err/tol)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as OPS
+
+    norm_cases, norm_worst = [], 0.0
+    n = p = XLSTM_DH
+    for (b, s_len, h, state) in ((LM_BATCH, LM_PROMPT, 4, False), (2, 300, 4, True), (2, LM_PROMPT, 4, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(b, s_len, h, p, dtype=dtype)
+            la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(dtype)
+            gate = torch.exp(torch.clamp(randn(b, s_len, h, scale=2.0), max=8.0))
+            B = (randn(b, s_len, h, n) * n ** -0.5 * gate[..., None]).to(dtype)
+            C = randn(b, s_len, h, n, dtype=dtype)
+            h0 = randn(b, h, n, p, scale=0.3) if state else None
+            n0 = randn(b, h, n).abs() if state else None
+            got = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True)
+            again = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True)
+            want = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True, backend="torch")
+            tols = [FD_TOL if g.dtype == torch.float32 else SSD_BF16_TOL for g in got]
+            ratios = [scaled_ratio(torch, g, w, tol) for g, w, tol in zip(got, want, tols)]
+            elementwise = [float(((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max())
+                           for g, w, tol in zip(got, want, tols)]
+            err["ssd"] = max([err["ssd"]] + [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)])
+            norm_cases.append({"B": b, "S": s_len, "H": h, "P": p, "N": n, "chunk": 128, "h0_n0": state,
+                               "dtype": str(dtype).split(".")[-1],
+                               "err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), ratios)),
+                               "elementwise_err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), elementwise)),
+                               "max_abs_out": [float(w.float().abs().max()) for w in want],
+                               "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                               "repeat_bitwise": all(torch.equal(g, a) for g, a in zip(got, again))})
+            norm_worst = max([norm_worst] + ratios)
+            del x, la, gate, B, C, h0, n0, got, again, want
+    return norm_cases, norm_worst
+
+
 def hymba_phases(torch, dev, flops_peak, bytes_peak):
     """Phases 6a-6d: B5 and B6 against their plain versions, Hymba-1.5B
     served at full width through them (``lm_phase``), and their timing.
@@ -653,41 +768,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                               "head_stride_0": shared, "dtype": str(dtype).split(".")[-1],
                               "err_over_tol": ratio, "finite": bool(torch.isfinite(y).all())})
             ssd_worst = max(ssd_worst, ratio)
-    # xLSTM's mLSTM: the wide form with the normalizer at N = P = 512,
-    # chunk 128 (B, S, H, h0 and n0 given): the served prefill's shape, a
-    # ragged S (padded to 3 chunks) and 6 chunks from a given state.
-    # Inputs as the mLSTM makes them, the input gate e^min(i, 8) with i
-    # of spread 2 (B reaches ~3000 k).  y, den and both states held at
-    # the same tolerances relative to the output's scale (the absolute
-    # floor scaled by max|r|, as tol_ok: the scan's sums run over 512 and
-    # 128 terms as large as the output's range); the elementwise ratio of
-    # the Hymba cases printed beside it
-    norm_cases, norm_worst = [], 0.0
-    n = p = XLSTM_DH
-    for (b, s_len, h, state) in ((LM_BATCH, LM_PROMPT, 4, False), (2, 300, 4, True), (2, LM_PROMPT, 4, True)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = randn(b, s_len, h, p, dtype=dtype)
-            la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(dtype)
-            gate = torch.exp(torch.clamp(randn(b, s_len, h, scale=2.0), max=8.0))
-            B = (randn(b, s_len, h, n) * n ** -0.5 * gate[..., None]).to(dtype)
-            C = randn(b, s_len, h, n, dtype=dtype)
-            h0 = randn(b, h, n, p, scale=0.3) if state else None
-            n0 = randn(b, h, n).abs() if state else None
-            got = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True)
-            want = OPS.ssd(x, la, B, C, h0=h0, n0=n0, normalizer=True, backend="torch")
-            tol = FD_TOL if dtype == torch.float32 else SSD_BF16_TOL
-            ratios = [scaled_ratio(torch, g, w, tol) for g, w in zip(got, want)]
-            elementwise = [float(((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max())
-                           for g, w in zip(got, want)]
-            err["ssd"] = max([err["ssd"]] + [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)])
-            norm_cases.append({"B": b, "S": s_len, "H": h, "P": p, "N": n, "chunk": 128, "h0_n0": state,
-                               "dtype": str(dtype).split(".")[-1],
-                               "err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), ratios)),
-                               "elementwise_err_over_tol": dict(zip(("y", "h_final", "den", "n_final"), elementwise)),
-                               "max_abs_out": [float(w.float().abs().max()) for w in want],
-                               "finite": all(bool(torch.isfinite(g).all()) for g in got)})
-            norm_worst = max([norm_worst] + ratios)
-            del x, la, gate, B, C, h0, n0, got, want
+    norm_cases, norm_worst = b6_wide_cases(torch, randn, err)
     torch.cuda.synchronize()
     print(json.dumps({"correctness_lm_kernels": {
         "flash_decode": {"cases": fd_cases, "worst_err_over_tol": {k: v[0] for k, v in fd_worst.items()},
@@ -701,7 +782,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
                                                   "bfloat16": f"rtol=atol={SSD_BF16_TOL}"}},
         "ssd_normalizer": {"cases": norm_cases, "tolerance": {
             "float32": f"|y-r| <= {FD_TOL}*|r| + {FD_TOL}*max(1, max|r|)",
-            "bfloat16": f"|y-r| <= {SSD_BF16_TOL}*|r| + {SSD_BF16_TOL}*max(1, max|r|)"}},
+            "bfloat16": f"y: |y-r| <= {SSD_BF16_TOL}*|r| + {SSD_BF16_TOL}*max(1, max|r|); den, h_final, "
+                        f"n_final (f32): the float32 bar"}},
     }}))
     for dname, (ratio, where) in fd_worst.items():
         check(ratio <= 1.0, f"flash_decode exceeds its {dname} bar at {where} (err/tol {ratio:.3g})")
@@ -713,6 +795,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     check(all(c["finite"] for c in ssd_cases), "ssd output is not finite")
     check(ssd_worst <= 1.0, f"ssd exceeds its bar (err/tol {ssd_worst:.3g})")
     check(all(c["finite"] for c in norm_cases), "ssd with the normalizer: an output is not finite")
+    check(all(c["repeat_bitwise"] for c in norm_cases), "ssd with the normalizer: a second call differs")
     check(norm_worst <= 1.0, f"ssd with the normalizer exceeds its bar (err/tol {norm_worst:.3g})")
 
     # ----------------- 6c. Hymba-1.5B served at full width through B5, B6
@@ -726,16 +809,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     rows = {}
 
     def timed(name, where, kern, plain, lib, op_count, op_peak, nbytes, **extra):
-        op_ms, byte_ms = op_count / op_peak * 1e3, nbytes / bytes_peak * 1e3
-        row = {"shape": where, "kernel": name, "kernel_ms": device_ms(kern, torch),
-               "plain_ms": device_ms(plain, torch),
-               "library_ms": None if lib is None else device_ms(lib, torch),
-               "host_paced_kernel_ms": time_ms(kern, torch),
-               "flop_bound_ms": op_ms, "byte_bound_ms": byte_ms, "bound_ms": max(op_ms, byte_ms),
-               "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-               "timer": "cuda events behind a sleep kernel (device time)", **extra}
-        print(json.dumps(row))
-        return row
+        return timed_row(torch, bytes_peak, name, where, kern, plain, lib, op_count, op_peak, nbytes, **extra)
 
     hkv, g, d = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
     n32k = SHAPES["decode_32k"].seq_len
@@ -806,28 +880,7 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
         cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
     )
     del x, la, B, C
-    # B6 at xLSTM-1.3B's served prefill: the wide form with the normalizer,
-    # one mLSTM layer over the 768-token prompt (N = P = 512, 6 chunks of
-    # 128), by the same count of operations and bytes (den and n_final
-    # beside y and h_final)
-    s_len, h, p, n, chunk = LM_PROMPT, 4, XLSTM_DH, XLSTM_DH, 128
-    x = randn(b, s_len, h, p, dtype=torch.bfloat16)
-    la = F.logsigmoid(2.0 + randn(b, s_len, h)).to(torch.bfloat16)
-    B = (randn(b, s_len, h, n) * n ** -0.5 * torch.exp(torch.clamp(randn(b, s_len, h), max=8.0))[..., None]
-         ).to(torch.bfloat16)
-    C = randn(b, s_len, h, n, dtype=torch.bfloat16)
-    n_chunks = b * h * (-(-s_len // chunk))
-    xl_flops, xl_bytes = ssd_cost(b, s_len, h, n, p, chunk, normalizer=True)
-    rows["ssd_xlstm"] = timed(
-        "ssd", f"xLSTM served prefill: B{b} S{s_len} H{h} P{p} N{n} chunk{chunk} bf16, normalizer (wide form)",
-        lambda: OPS.ssd(x, la, B, C, normalizer=True),
-        lambda: OPS.ssd(x, la, B, C, normalizer=True, backend="torch"),
-        None, xl_flops, flops_peak, xl_bytes,
-        library_null_reason=NO_LIBRARY["ssd"],
-        cuda_work_per_call="one memset (ticket counter and flags) and one kernel launch",
-        blocks=n_chunks * (p // 64),
-    )
-    del x, la, B, C
+    rows["ssd_xlstm"] = b6_wide_timed(torch, randn, flops_peak, bytes_peak)
     torch.cuda.empty_cache()
 
     kernels = []
@@ -847,7 +900,8 @@ def hymba_phases(torch, dev, flops_peak, bytes_peak):
     # B6's row: Hymba's served shape, and beside it xLSTM's (phase 6i adds its launches)
     kernels[1]["shapes"] = {
         label: {key: rows[label][key] for key in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "library_ms")}
+                                                  "library_ms", "f32_cuda_core_bound_ms", "launch")
+                if key in rows[label]}
         for label in ("ssd", "ssd_xlstm")}
     kernels[1]["launches_by_path"] = {"6c hymba-1.5b": launches["ssd"]}
     return kernels
@@ -3253,18 +3307,69 @@ def fleet(torch, images, tuner, coserved):
     return path_launches
 
 
+def b6_only(torch, src: str) -> int:
+    """``--b6``: B6's wide form alone, from the ``repro_torch`` under
+    ``src``: the card, the build of ``ssd.cu``, 6b's wide-form cases and
+    the kernel's and the plain version's times on 6d's xLSTM inputs (the
+    bounds and the launch are the full run's 6d row).  With ``--src``
+    naming an earlier tree unpacked beside this one, the same draws run
+    on that tree's kernel, so two trees compare on one card in one call."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as OPS
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} src {src}")
+    t0 = time.perf_counter()
+    build.build_all(["ssd"])
+    print(f"build_s={time.perf_counter() - t0:.3f}")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+    err = {"ssd": 0.0}
+    cases, worst = b6_wide_cases(torch, randn, err)
+    print(json.dumps({"b6_wide_cases": cases, "worst_err_over_tol": worst, "max_abs_err": err["ssd"]}))
+    x, la, B, C = b6_wide_inputs(torch, randn)
+    print(json.dumps({"shape": f"xLSTM served prefill {tuple(x.shape)} bf16, normalizer", "src": src,
+                      "kernel_ms": device_ms(lambda: OPS.ssd(x, la, B, C, normalizer=True), torch),
+                      "plain_ms": device_ms(lambda: OPS.ssd(x, la, B, C, normalizer=True, backend="torch"), torch),
+                      "timer": "cuda events behind a sleep kernel (device time)"}))
+    check(all(c["finite"] for c in cases), "ssd with the normalizer: an output is not finite")
+    check(all(c["repeat_bitwise"] for c in cases), "ssd with the normalizer: a second call differs")
+    check(worst <= 1.0, f"ssd with the normalizer exceeds its bar (err/tol {worst:.3g})")
+    print(json.dumps({"b6_only": True, "src": src, "device": kind}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA card.")
+    ap.add_argument("--b6", action="store_true",
+                    help="only B6's wide form: 6b's wide-form cases and 6d's xLSTM row")
+    ap.add_argument("--src", default=SRC, help="the directory holding repro_torch (with --b6; default: this checkout's src)")
+    args = ap.parse_args()
+    src = os.path.abspath(args.src)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout",
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: {src}/repro_torch not found; run from a checkout",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, src)
+    if args.b6:
+        return b6_only(torch, src)
     import numpy as np
     import torch.nn.functional as F
 

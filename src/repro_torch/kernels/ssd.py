@@ -12,13 +12,29 @@ next, and then computes its scores and output (an ordered handoff
 through scratch the wrapper allocates, a fixed size per shape).  f32
 arithmetic, y in x's type, h_final in f32.
 
-The mLSTM (xLSTM) needs two things more: the normalizer channel (``den``
-and ``n_final``, in f32) and a large state (N = P = 512, 1 MB a
-sequence and head).  The wide form of the same kernel splits P into
-tiles of 64 columns, each an independent sequence with its own handoff,
-and streams B and C through shared memory in slices of N; its first P
-tile carries the normalizer.  :func:`ssd` picks the form by shape, so
-Hymba's shape keeps the first form and its bits.
+The wide form is the counterpart of ``repro/models/ssm.py::ssd_scan``
+with the normalizer channel (``den`` and ``n_final``, in f32), as xLSTM's
+mLSTM calls it: a large state (N = P = 512, 1 MB a sequence and head).
+A block takes 64 columns of P; the P/64 blocks of a chunk run as one
+thread block cluster (8 at P = 512), which computes the scores ``C B^T``
+once, each block a share of the tiles, written into the others' shared
+memory.  Its products run on the bf16 tensor cores with f32 sums: x, B
+and C are staged in bf16 as they are in memory, and every f32 operand
+(``exp(L_end - L_s) x``, the carried state, the decayed scores) is split
+exactly into three bf16 terms, so each product is exact.  f32 inputs keep
+the same structure with the products on the CUDA cores (chains of fmaf,
+nothing split), as the f32 bars need.  Slices of B, C and the state come
+in, and the state goes out, by the tensor memory accelerator through
+tensor maps the C side encodes at each call (B and C by the threads where
+a map cannot describe them).  What bounds it: 14.5 GFLOP at xLSTM-1.3B's
+served prefill by :func:`repro_torch.roofline.analysis.ssd_cost`, 0.2165
+ms at the f32 CUDA-core rate, the bound of the kernel it replaced; its
+own bound, the one 6d's row of ``chip_smoke.py`` keeps, counts the
+multiply-adds it issues to the tensor cores
+(:func:`wide_tensor_core_macs`, 39.4 GFLOP at bf16, 0.040 ms at 989
+TFLOP/s).  The first cluster of a chunk carries the normalizer.
+:func:`ssd` picks the form by shape, so Hymba's shape keeps the first
+form and its bits; a shape neither form takes raises.
 
 B and C are read through strides: Hymba computes one B and one C per
 token and broadcasts them to every head (``repro/models/ssm.py:180-181``),
@@ -38,6 +54,7 @@ raises.  Each call counts once under ``"ssd"`` in ``kernels/runtime.py``'s
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -136,8 +153,43 @@ def _smem_bytes(q: int, p: int, n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_smem_bytes(q: int, n: int) -> int:
-    return R.bind("ssd", "ssd_wide_smem_bytes", [R.I, R.I])(q, n)
+def _wide_smem_bytes(q: int, bf16: bool) -> int:
+    return R.bind("ssd", "ssd_wide_smem_bytes", [R.I, R.I])(q, int(bf16))
+
+
+def wide_tensor_core_macs(b: int, s: int, h: int, n: int, p: int, chunk: int, cluster: int) -> int:
+    """Multiply-adds the wide form issues to the tensor cores in one call
+    from a zero state on bf16 inputs (f32 inputs run on the CUDA cores),
+    at ``cluster`` blocks a cluster (``wide_launch_info``): ``ssd_cost``'s
+    four terms a chunk with the split factors of ``csrc/ssd.cu`` -- the
+    scores ``C B^T`` once a chunk (x 1, in whole 16 x 16 tiles over N, and
+    once more for each further cluster a chunk where P/64 exceeds the
+    cluster), ``scores x`` (x 3, in 32-row strips over P), ``H_c`` and
+    ``C h`` (x 3 each, ``C h`` in every chunk but the first).  t is padded
+    to 32 and N to a whole slice of 64."""
+    q = min(chunk, s)
+    qp = -(-q // 32) * 32
+    tiles = (qp // 16) * (qp // 16 + 1) // 2
+    strips = sum(32 * (32 * i + 32) for i in range(qp // 32))
+    n = -(-n // 64) * 64  # a ragged last slice runs whole
+    groups = (p // WIDE_PT) // cluster
+    nc = -(-s // q)
+    per_chunk = tiles * 256 * n * groups + 3 * (strips * p + qp * n * p)
+    return b * h * (nc * per_chunk + (nc - 1) * 3 * qp * n * p)
+
+
+def wide_launch_info(q: int, p: int, dtype=torch.bfloat16) -> dict:
+    """The wide form's launch on this card at chunk ``q`` and ``p``
+    columns, x, B, C and log_a in ``dtype``: blocks a cluster, clusters
+    resident at once, registers and local-memory bytes (stack and spills)
+    a thread, shared bytes a block."""
+    bf16 = int(dtype == torch.bfloat16)
+    out = (ctypes.c_int * 5)()
+    fn = R.bind("ssd", "ssd_wide_info", [R.I, R.I, R.I, R.I, R.P])
+    R.check(fn(q, p, bf16, bf16, ctypes.addressof(out)), "ssd_wide_info")
+    keys = ("cluster_blocks", "resident_clusters", "registers_per_thread", "local_bytes_per_thread",
+            "smem_bytes_per_block")
+    return dict(zip(keys, list(out)))
 
 
 def _strides(t: torch.Tensor, ndim: int):
@@ -185,9 +237,10 @@ def ssd(
 
     Two forms, chosen by shape: the first (``ssd_fwd``, one block a
     chunk) where it takes the shape and there is no normalizer, which
-    keeps Hymba's bits; else the wide form (``ssd_wide_fwd``, one block a
-    chunk and 64 columns of P: chunk at most 128, P a multiple of 64, N
-    of 32), which carries the normalizer.  A shape neither takes raises."""
+    keeps Hymba's bits; else the wide form (``ssd_wide_fwd``, one cluster
+    a chunk, one block a cluster per 64 columns of P: chunk at most 128,
+    P a multiple of 64, N of 32), which carries the normalizer.  A shape
+    neither takes raises."""
     if x.dim() != 4 or log_a.dim() != 3 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(
             f"ssd: want x [B,S,H,P], log_a [B,S,H], B/C [B,S,H,N], got {tuple(x.shape)}, "
@@ -214,7 +267,8 @@ def ssd(
     if B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd: x, B, C must share a dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
     wide = normalizer or not _narrow_fits(q, p, n)
-    if wide and (q > WIDE_Q or p % WIDE_PT or n % WIDE_NS or _wide_smem_bytes(q, n) > MAX_SMEM):
+    if wide and (q > WIDE_Q or p % WIDE_PT or n % WIDE_NS
+                 or _wide_smem_bytes(q, x.dtype == torch.bfloat16) > MAX_SMEM):
         raise ValueError(
             f"ssd: chunk {q}, P = {p}, N = {n}{' with the normalizer' if normalizer else ''}: the first "
             f"form takes P a multiple of 4 with N rounded up to 4 times P at most 1024 and no "
@@ -223,6 +277,8 @@ def ssd(
     # the last dim must be contiguous; every other stride is passed (0 is fine)
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
     h0c = None if h0 is None else h0.float().contiguous()
+    if h0c is not None and h0c.data_ptr() % 16:  # the kernel reads the state 16 bytes at a time
+        h0c = h0c.clone()
     nc = s // q
     y = torch.empty((b, s, h, p), device=dev, dtype=x.dtype)
     h_out = torch.empty((b, h, n, p), device=dev, dtype=torch.float32)

@@ -832,6 +832,109 @@ def test_ssd_kernel_takes_the_large_state_without_the_normalizer(cuda):
         ops.ssd(x, la, B, C, chunk=256, normalizer=True)
 
 
+# The wide form's clusters (B, S, H, N, P, chunk, h0 and n0 given, blocks a
+# cluster): one P-tile a block and one cluster a chunk at P = 64, 128 and
+# 512 (1, 2 and 8 blocks); P = 576, three clusters of 3 a chunk, each
+# computing the scores; a single chunk (S = Q); N = 32, a single slice of
+# N (bf16 stages 64 rows a slice: half of it past N) and N = 96 (its
+# second slice half past N)
+SSD_CLUSTER_CASES = [(2, 256, 2, 64, 64, 128, True, 1), (2, 256, 2, 128, 128, 128, True, 2),
+                     (1, 384, 2, 512, 512, 128, True, 8), (1, 256, 1, 64, 576, 128, True, 3),
+                     (2, 128, 2, 256, 512, 128, True, 8), (2, 256, 2, 32, 512, 128, True, 8),
+                     (1, 200, 2, 96, 128, 100, False, 2)]
+
+
+def _mlstm_inputs_wide(cuda, rng, b, s, h, n, p, dt):
+    """As _mlstm_inputs, with x of P columns and B, C of N."""
+    x = _on(cuda, rng, b, s, h, p).to(dt)
+    la = torch.nn.functional.logsigmoid(2.0 + _on(cuda, rng, b, s, h)).to(dt)
+    gate = torch.exp(torch.clamp(_on(cuda, rng, b, s, h, scale=2.0), max=8.0))
+    B = (_on(cuda, rng, b, s, h, n) * n ** -0.5 * gate[..., None]).to(dt)
+    return x, la, B, _on(cuda, rng, b, s, h, n).to(dt)
+
+
+def _assert_wide_matches(got, want):
+    """Each output of the wide form against the plain version relative to
+    its scale, at its own type's bar: y in bf16 at 5e-2, and every f32
+    output (den and both states on bf16 inputs too) at 2e-4, since the
+    kernel's products are exact and only the order of its f32 sums
+    differs."""
+    for g, w in zip(got, want):
+        tol = 2e-4 if g.dtype == torch.float32 else 5e-2
+        w = w.float().cpu().numpy()
+        np.testing.assert_allclose(g.float().cpu().numpy(), w, rtol=tol, atol=tol * max(1.0, float(np.abs(w).max())))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CLUSTER_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_wide_form_clusters_match_plain(cuda, case, dtype):
+    """Each cluster size and the edges of the pass over N, with the
+    normalizer, against the plain version (y at its type's bar, the f32
+    outputs at 2e-4); the launch takes the stated blocks a cluster and two
+    calls give the same bits."""
+    b, s, h, n, p, chunk, state, blocks = case
+    rng = np.random.default_rng(s + n + p)
+    dt = getattr(torch, dtype)
+    x, la, B, C = _mlstm_inputs_wide(cuda, rng, b, s, h, n, p, dt)
+    h0 = _on(cuda, rng, b, h, n, p, scale=0.3) if state else None
+    n0 = _on(cuda, rng, b, h, n).abs() if state else None
+    info = SSD.wide_launch_info(min(chunk, s), p, dt)
+    assert info["cluster_blocks"] == blocks and info["resident_clusters"] >= 1
+    got = ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0)
+    again = ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = ops.ssd(x, la, B, C, h0=h0, chunk=chunk, normalizer=True, n0=n0, backend="torch")
+    _assert_wide_matches(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["head_stride_0", "rows_off_16_bytes"])
+def test_ssd_wide_form_takes_operands_no_tensor_map_describes(cuda, kind, dtype):
+    """B and C that the tensor memory accelerator's maps cannot take come
+    in by the threads into the same layout: one B and one C broadcast to
+    every head (a head stride of 0), and rows that start off a 16-byte
+    boundary (read one element at a time); y at its type's bar, the f32
+    outputs at 2e-4."""
+    b, s, h, n, p = 2, 256, 4, 128, 128
+    rng = np.random.default_rng(7 + len(kind))
+    dt = getattr(torch, dtype)
+    x, la, B, C = _mlstm_inputs_wide(cuda, rng, b, s, h, n, p, dt)
+    if kind == "head_stride_0":
+        B, C = B[:, :, :1].expand(b, s, h, n), C[:, :, :1].expand(b, s, h, n)
+    else:
+        B, C = torch.cat([B, B[..., :8]], -1)[..., 1:n + 1], torch.cat([C, C[..., :8]], -1)[..., 3:n + 3]
+        assert not SSD._rows_of_16_bytes(B) and not SSD._rows_of_16_bytes(C)
+    h0, n0 = _on(cuda, rng, b, h, n, p, scale=0.3), _on(cuda, rng, b, h, n).abs()
+    got = ops.ssd(x, la, B, C, h0=h0, normalizer=True, n0=n0)
+    want = ops.ssd(x, la, B, C, h0=h0, normalizer=True, n0=n0, backend="torch")
+    _assert_wide_matches(got, want)
+
+
+def test_ssd_wide_form_bitwise_beside_a_concurrent_copy(cuda):
+    """xLSTM-1.3B's served prefill shape called three times, the second
+    while another stream copies 2 GB: the same bits each time (sums in a
+    fixed order, no atomics in any sum, the chain of chunks unaffected by
+    when its blocks run)."""
+    rng = np.random.default_rng(768)
+    x, la, B, C = _mlstm_inputs(cuda, rng, 4, 768, 4, 512, torch.bfloat16)
+    first = ops.ssd(x, la, B, C, normalizer=True)
+    torch.cuda.synchronize()
+    src = torch.empty(1 << 29, device=cuda)
+    dst = torch.empty_like(src)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(4):
+            dst.copy_(src)
+    second = ops.ssd(x, la, B, C, normalizer=True)
+    torch.cuda.synchronize()
+    third = ops.ssd(x, la, B, C, normalizer=True)
+    torch.cuda.synchronize()
+    del src, dst
+    for got in (second, third):
+        assert all(torch.equal(a, c) for a, c in zip(first, got))
+
+
 def test_reduced_xlstm_decode_graph_bitwise_equal_op_by_op(cuda):
     """A reduced xLSTM (7 mLSTM layers and one sLSTM, dh = 64) served on
     the card: 7 SSD launches in the prefill and none in a decode step; the

@@ -280,8 +280,8 @@ def test_stop_never_joins_a_published_unstarted_replacement(setup, monkeypatch):
         def start(self):
             if self.name.rsplit("-", 1)[-1].startswith("r"):  # a recovered stage's thread
                 self.stopper = threading.Thread(target=stop_now, daemon=True)
-                replacements.append(self)
                 self.stopper.start()
+                replacements.append(self)  # after the start: the wait below joins the stopper
                 self.stopper.join(timeout=1.0)
             super().start()
 

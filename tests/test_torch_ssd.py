@@ -244,3 +244,125 @@ def test_rows_of_16_bytes_decides_the_wide_loads():
     assert _rows_of_16_bytes(torch.zeros(2, 64, 1, 16).expand(2, 64, 50, 16))  # head stride 0
     assert not _rows_of_16_bytes(torch.zeros(2, 64, 3, 12, dtype=torch.bfloat16))  # 24-byte rows
     assert not _rows_of_16_bytes(torch.zeros(2, 64, 3, 65)[..., 1:])  # rows off a 16-byte boundary
+
+
+# ------------------------- the wide form's split operands (csrc/ssd.cu)
+# The wide form runs its products on the bf16 tensor cores with f32 sums
+# and splits every f32 operand into three bf16 terms, hi = bf16(v), mid =
+# bf16(v - hi), lo = bf16(v - hi - mid) (nearest even, as __float2bfloat16_rn
+# and torch's .to(bfloat16)); a product of two bf16 values is exact in f32.
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _split3(v):
+    hi = _bf16(v)
+    r = (v - hi).astype(np.float32)
+    mid = _bf16(r)
+    return hi, mid, _bf16((r - mid).astype(np.float32))
+
+
+def _mlstm_values(rng, size):
+    """f32 values over the range the mLSTM hands the scan: k dh^-0.5 times
+    the input gate e^min(i, 8) (i of spread 2), decays exp(L_end - L_s)
+    from 1 down to the smallest normal f32, their products with v, the
+    carried state and decayed scores."""
+    k = (rng.standard_normal(size) * 512 ** -0.5 * np.exp(np.minimum(rng.standard_normal(size) * 2, 8)))
+    decay = np.exp2(-rng.uniform(0, 126, size))
+    v = rng.standard_normal(size)
+    scores = rng.standard_normal(size) * np.exp(np.minimum(rng.standard_normal(size) * 2, 8)) * 8
+    return {name: a.astype(np.float32) for name, a in (
+        ("gated k", k), ("decay", decay), ("decay v", decay * v), ("state", rng.standard_normal(size) * 30),
+        ("decayed scores", scores * decay))}
+
+
+def test_three_bf16_terms_give_the_f32_value_back():
+    """hi + mid + lo == v bit for bit wherever lo stays in bf16's normal
+    range (|v| >= 2^-110: lo's exponent is at least v's less 16).  Below
+    that, down to the smallest normal f32 (2^-126), lo is a bf16 subnormal
+    and keeps fewer bits: what is lost is under half its spacing, 2^-134,
+    which no output of the scan (of order 1) can see.  Two terms leave up
+    to 2^-17 of the value (its low 7 or 8 bits)."""
+    rng = np.random.default_rng(29)
+    for name, v in _mlstm_values(rng, 200_000).items():
+        hi, mid, lo = _split3(v)
+        back = hi.astype(np.float64) + mid.astype(np.float64) + lo.astype(np.float64)
+        normal = np.abs(v) >= 2.0 ** -110
+        assert normal.any()
+        np.testing.assert_array_equal(back[normal], v[normal].astype(np.float64), err_msg=name)
+        assert np.all(np.abs(back - v.astype(np.float64)) <= 2.0 ** -134), name
+        two = hi.astype(np.float64) + mid.astype(np.float64)
+        assert np.all(np.abs(two - v) <= np.abs(v).astype(np.float64) * 2.0 ** -16 + 2.0 ** -134), name
+
+
+def _tc(a_terms, b_terms):
+    """The wide form's product of split operands: the term products whose
+    orders add to less than 3, each a bf16 x bf16 product summed in f32."""
+    out = None
+    for u, a in enumerate(a_terms):
+        for w, b in enumerate(b_terms):
+            if u + w < 3:
+                p = (a.astype(np.float32) @ b.astype(np.float32)).astype(np.float32)
+                out = p if out is None else (out + p).astype(np.float32)
+    return out
+
+
+def _split_scan(x, la, B, C, h0, n0, q):
+    """The wide form's arithmetic on bf16 inputs in numpy f32 (S a
+    multiple of q): x, B and C as they are (bf16 values), every f32 operand
+    -- w x, the carried state, the decayed scores -- split in three; the
+    cumulative sum, exps, decays and the state's hand-down in f32, as
+    csrc/ssd.cu does them on the CUDA cores.  (f32 inputs take the CUDA
+    cores for the products too, nothing split.)"""
+    one = lambda a: (a,)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    y = np.empty_like(x)
+    den = np.empty((b, s, h), np.float32)
+    hf = np.empty((b, h, n, p), np.float32)
+    nf = np.empty((b, h, n), np.float32)
+    causal = np.tril(np.ones((q, q), bool))
+    for bi in range(b):
+        for hi in range(h):
+            state, nstate = h0[bi, hi].copy(), n0[bi, hi].copy()
+            for c in range(s // q):
+                sl = slice(c * q, (c + 1) * q)
+                xc, Bc, Cc = x[bi, sl, hi], B[bi, sl, hi], C[bi, sl, hi]
+                L = _scan_order_cumsum(la[bi, sl, hi])
+                e, w, a_end = np.exp(L), np.exp(L[-1] - L), np.float32(np.exp(L[-1]))
+                scores = _tc(one(Cc), one(Bc.T))
+                sc = np.where(causal, scores * np.exp(np.minimum(L[:, None] - L[None, :], 0)), 0).astype(np.float32)
+                Hc = _tc(one(Bc.T), _split3((w[:, None] * xc).astype(np.float32)))
+                y[bi, sl, hi] = (e[:, None] * _tc(one(Cc), _split3(state)) + _tc(_split3(sc), one(xc)))
+                den[bi, sl, hi] = e * (Cc @ nstate) + sc.sum(1)
+                state = (a_end * state + Hc).astype(np.float32)
+                nstate = (a_end * nstate + w @ Bc).astype(np.float32)
+            hf[bi, hi], nf[bi, hi] = state, nstate
+    return y, hf, den, nf
+
+
+@pytest.mark.parametrize("b,s,h,n,p,q", [(2, 48, 2, 16, 8, 16), (1, 96, 2, 8, 16, 32), (1, 64, 3, 32, 8, 64),
+                                         (2, 40, 1, 8, 8, 8)])
+def test_split_operand_scan_matches_plain_version_and_reference(b, s, h, n, p, q):
+    """The scan with every f32 operand split in three, on bf16 inputs (the
+    served model's), stays within the f32 bar, relative to each output's
+    scale as the card's tests hold the kernel, of ssd_ref and of the
+    reference's ssd_scan, with the normalizer, inputs as the mLSTM makes
+    them (the input gate up to e^8) and a given state.  One term would not
+    (bf16 rounding of the operand: about 2^-9 of it)."""
+    rng = np.random.default_rng(s + n + p)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    la = np.log(1 / (1 + np.exp(-(2.0 + rng.standard_normal((b, s, h)))))).astype(np.float32)
+    gate = np.exp(np.minimum(rng.standard_normal((b, s, h)) * 2.0, 8.0))
+    B = (rng.standard_normal((b, s, h, n)) * n ** -0.5 * gate[..., None]).astype(np.float32)
+    C = rng.standard_normal((b, s, h, n)).astype(np.float32)
+    x, la, B, C = (_bf16(a) for a in (x, la, B, C))  # bf16 values, as served
+    h0 = (rng.standard_normal((b, h, n, p)) * 0.3).astype(np.float32)
+    n0 = np.abs(rng.standard_normal((b, h, n))).astype(np.float32)
+    got = _split_scan(x, la, B, C, h0, n0, q)
+    plain = ssd_scan(*_t(x, la, B, C), chunk=q, h0=torch.from_numpy(h0), normalizer=True,
+                     n0=torch.from_numpy(n0))
+    ref = ref_ssd_scan(x, la, B, C, chunk=q, h0=h0, normalizer=True, n0=n0)
+    for g, want_t, want_j in zip(got, plain, ref):
+        for w in (want_t.numpy(), np.asarray(want_j)):
+            np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL * max(1.0, float(np.abs(w).max())))
