@@ -38,12 +38,15 @@ class MicroBatch:
 
     ``tickets`` carries the per-image bookkeeping (request ids / futures)
     in row order; ``env`` maps tensor names to arrays whose leading
-    dimension is the padded batch size.
+    dimension is the padded batch size.  ``id`` is given by stage 0 when
+    it gathers the batch, and kept through every stage and re-dispatch,
+    so the span log joins one micro-batch's spans by it.
     """
 
     tickets: Tuple[Any, ...]
     env: Env
     valid: int
+    id: int = -1
 
     @property
     def padded(self) -> int:
@@ -76,6 +79,7 @@ def gather(
     max_batch: int,
     flush_timeout_s: float,
     sentinel: Any,
+    arrived: Optional[List[int]] = None,
 ) -> Tuple[List[Any], bool]:
     """Collect up to ``max_batch`` items from ``q``.
 
@@ -83,11 +87,15 @@ def gather(
     ``flush_timeout_s`` has elapsed since the first item arrived — the
     classic size-or-deadline micro-batch trigger.  Returns
     ``(items, saw_sentinel)``; a sentinel ends collection immediately and
-    is consumed (callers re-emit it downstream).
+    is consumed (callers re-emit it downstream).  A list passed as
+    ``arrived`` receives the ``perf_counter_ns`` at which the first item
+    was taken (the span log's end of the wait and start of the fill).
     """
     first = q.get()
     if first is sentinel:
         return [], True
+    if arrived is not None:
+        arrived.append(time.perf_counter_ns())
     items = [first]
     deadline = time.perf_counter() + flush_timeout_s
     while len(items) < max_batch:

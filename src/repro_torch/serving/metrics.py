@@ -14,20 +14,28 @@ about:
   layer-level timeline);
 * end-to-end request latency and completed-images/second throughput.
 
-All times are seconds.  Counters are monotone over the server's whole
-lifetime; latency *samples* live in bounded sliding windows (a
-persistent server must not grow memory with uptime), so the percentiles
-describe recent behaviour — which is what an operator watches anyway.
+A span log (:class:`SpanLog`, off by default) records, while it is on,
+what each stage thread does with each micro-batch: its wait, stage 0's
+fill and stack, the launch, the sync, the handoff.  It holds no device
+time: a stage's device time is the profiler's busy time on the stage's
+stream, which the spans' thread ids tie to the stage.
+
+All times are seconds, except the span log's nanoseconds.  Counters are
+monotone over the server's whole lifetime; latency *samples* live in
+bounded sliding windows (a persistent server must not grow memory with
+uptime), so the percentiles describe recent behaviour — which is what an
+operator watches anyway.
 ``snapshot()`` is safe to call while the server is running (workers only
 append).
 """
 from __future__ import annotations
 
+import array
 import collections
 import dataclasses
 import threading
 import time
-from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from ..core.queueing import empirical_percentile
 
@@ -115,8 +123,102 @@ class StageMetrics:
             "service_p50_s": percentile(lat, 50),
             "service_p95_s": percentile(lat, 95),
             "service_p99_s": percentile(lat, 99),
-            "service_mean_s": (sum(lat) / len(lat)) if lat else 0.0,
         }
+
+
+class Span(NamedTuple):
+    """One phase of one micro-batch in one stage, in ``perf_counter_ns``.
+
+    ``name`` is ``stage{i}.<phase>``, or ``stage{i}`` for the loop
+    iteration that holds the phases (its self time is the loop's own
+    bookkeeping).  ``ident`` is the writing thread's
+    ``threading.get_ident()``: the pthread id, whose low 32 bits name the
+    thread of a CUDA runtime call in the profiler's trace.
+    """
+
+    name: str
+    micro_batch: int
+    stage: int
+    ident: int
+    start_ns: int
+    end_ns: int
+    redispatched: bool = False
+
+
+PHASES = ("", "wait", "fill", "stack", "launch", "sync", "handoff")
+_PHASE_CODE = {p: i for i, p in enumerate(PHASES)}
+
+
+class _SpanBuffer:
+    """One writing thread's records, filled in order by that thread only,
+    in flat arrays: a record allocates no object the collector tracks."""
+
+    __slots__ = ("ident", "phase", "mb", "stage", "start", "end", "redo", "n", "dropped")
+
+    def __init__(self, capacity: int):
+        self.ident = threading.get_ident()
+        self.phase = array.array("b", bytes(capacity))
+        self.redo = array.array("b", bytes(capacity))
+        self.stage = array.array("i", bytes(4 * capacity))
+        self.mb, self.start, self.end = (array.array("q", bytes(8 * capacity)) for _ in range(3))
+        self.n = 0
+        self.dropped = 0
+
+
+class SpanLog:
+    """The stage threads' spans, kept in memory while tracing is on.
+
+    Each writing thread gets one buffer of ``capacity`` records, made at
+    its first record; a write takes no lock.  A full buffer counts drops
+    and does not grow.
+    """
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"span capacity {capacity} < 1")
+        self.capacity = capacity
+        self._local = threading.local()
+        self._buffers: List[_SpanBuffer] = []
+        self._lock = threading.Lock()
+
+    def add(self, phase: str, micro_batch: int, stage: int, start_ns: int, end_ns: int,
+            redispatched: bool = False) -> None:
+        """Record ``stage{stage}.{phase}`` (``phase`` "" for the iteration)."""
+        buf = getattr(self._local, "buf", None)
+        if buf is None:
+            buf = _SpanBuffer(self.capacity)
+            self._local.buf = buf
+            with self._lock:
+                self._buffers.append(buf)
+        i = buf.n
+        if i < self.capacity:
+            buf.phase[i] = _PHASE_CODE[phase]
+            buf.mb[i] = micro_batch
+            buf.stage[i] = stage
+            buf.start[i] = start_ns
+            buf.end[i] = end_ns
+            buf.redo[i] = redispatched
+            buf.n = i + 1
+        else:
+            buf.dropped += 1
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return sum(b.dropped for b in self._buffers)
+
+    def records(self) -> List[Span]:
+        """Every record so far, in start order."""
+        with self._lock:
+            buffers = list(self._buffers)
+        out = []
+        for b in buffers:
+            for i in range(b.n):
+                phase, stage = PHASES[b.phase[i]], b.stage[i]
+                name = f"stage{stage}.{phase}" if phase else f"stage{stage}"
+                out.append(Span(name, b.mb[i], stage, b.ident, b.start[i], b.end[i], bool(b.redo[i])))
+        out.sort(key=lambda s: s.start_ns)
+        return out
 
 
 class RecoveryMetrics:
@@ -140,8 +242,6 @@ class RecoveryMetrics:
         self.duplicates_suppressed = 0  # late zombie rows deduped at egress
         self.faults = 0  # recovery episodes entered
         self.faults_by_kind: Dict[str, int] = {}
-        self.last_fault_s: Optional[float] = None  # perf_counter stamps
-        self.last_recovery_s: Optional[float] = None
         self.last_stall_age_s: Optional[float] = None  # detection latency
         self.heartbeat_age_s: Dict[int, float] = {}  # stage -> current age
         self._mttr_total = 0.0
@@ -156,7 +256,6 @@ class RecoveryMetrics:
         with self._lock:
             self.faults += 1
             self.faults_by_kind[kind] = self.faults_by_kind.get(kind, 0) + 1
-            self.last_fault_s = time.perf_counter()
 
     def note_restart(self, stage: int) -> None:
         with self._lock:
@@ -179,7 +278,6 @@ class RecoveryMetrics:
         with self._lock:
             self._mttr_total += mttr_s
             self._recoveries += 1
-            self.last_recovery_s = time.perf_counter()
 
     def set_heartbeat_ages(self, ages: Dict[int, float]) -> None:
         with self._lock:
@@ -248,6 +346,21 @@ class ServerMetrics:
         self._completed = 0
         self._first_submit: Optional[float] = None
         self._last_complete: Optional[float] = None
+        # The stage threads test this once a phase; while it is None they
+        # read no clock and record nothing.
+        self.spans: Optional[SpanLog] = None
+
+    def start_spans(self, capacity: int) -> SpanLog:
+        """Turn the span log on (a fresh one), ``capacity`` records a
+        writing thread."""
+        self.spans = SpanLog(capacity)
+        return self.spans
+
+    def stop_spans(self) -> Optional[SpanLog]:
+        """Turn the span log off; returns it (``records()``, ``dropped``),
+        or ``None`` where none was on."""
+        log, self.spans = self.spans, None
+        return log
 
     def new_epoch(self, stage_names: List[str]) -> None:
         """Roll per-stage metrics for a plan hot-swap (server epoch bump).

@@ -279,6 +279,7 @@ class PipelineServer:
         # so a stalled thread abandoned by the watchdog can never corrupt
         # the stream its replacement re-dispatched.
         self._gen_seq = itertools.count(1)
+        self._mb_ids = itertools.count()  # micro-batch ids, given at gather
         self._stage_gen: List[int] = []
         self._processing: List[Optional[Any]] = []  # in-flight work, per stage
         self._busy_since: List[Optional[float]] = []  # heartbeat timestamps
@@ -416,7 +417,8 @@ class PipelineServer:
         if recovered is not None:
             self.metrics.recovery.note_recovered(recovered)
 
-    def _execute(self, si: int, gen: int, fn, env, stream):
+    def _execute(self, si: int, gen: int, fn, env, stream, log=None, mb: int = -1,
+                 redo: bool = False):
         """Run one stage invocation with the transient-retry loop.
 
         The stage's kernels go on ``stream`` (the worker's own), and the
@@ -425,15 +427,23 @@ class PipelineServer:
         :class:`TransientStageError` retries in place with exponential
         backoff up to ``recovery.max_retries``, then escalates (re-raise
         -> worker restart + re-dispatch).  ``_busy_since`` brackets the
-        call so the watchdog sees a heartbeat per invocation."""
+        call so the watchdog sees a heartbeat per invocation.  With the
+        span log on (``log``), the call records micro-batch ``mb``'s
+        ``launch`` and ``sync`` spans."""
         policy = self.recovery
         attempt = 0
         while True:
             self._mark_busy(si, gen)
             try:
                 with on_stream(stream):
+                    a = time.perf_counter_ns() if log is not None else 0
                     out = fn(self.params, env)
+                if log is not None:
+                    b = time.perf_counter_ns()
                 sync_stream(stream)
+                if log is not None:
+                    log.add("launch", mb, si, a, b, redo)
+                    log.add("sync", mb, si, b, time.perf_counter_ns(), redo)
                 return out
             except TransientStageError:
                 attempt += 1
@@ -975,23 +985,30 @@ class PipelineServer:
         fn = self._stage_fns[0]
         m = self.metrics.stages[0]
         qs = self._qs  # epoch-bound: a zombie must not touch new queues
+        ns = time.perf_counter_ns
         try:
             stream = stage_stream(self.device)
             redo = self._take_redispatch(0, gen)
             if redo is not None:
-                self.metrics.recovery.note_redispatch(len(redo))
+                self.metrics.recovery.note_redispatch(len(redo[1]))
             while True:
-                if redo is not None:
-                    items, eof = redo, False
+                log = self.metrics.spans  # one test a phase while it is None
+                w0 = ns() if log is not None else 0
+                again = redo is not None
+                arrived = [] if log is not None and not again else None
+                if again:
+                    (mb, items), eof = redo, False
                     redo = None
                 else:
                     items, eof = gather(
                         self._ingress, self.batch_size, self.flush_timeout_s,
-                        _SENTINEL,
+                        _SENTINEL, arrived,
                     )
                     if items:
-                        self._set_processing(0, gen, items)
+                        mb = next(self._mb_ids)
+                        self._set_processing(0, gen, (mb, items))
                 if items:
+                    formed = ns() if log is not None else 0
                     t0 = time.perf_counter()
                     tickets = tuple(t for t, _ in items)
                     for t in tickets:
@@ -999,12 +1016,14 @@ class PipelineServer:
                             t.dequeued_at = t0
                             self.metrics.note_dequeue(t.submitted_at, t0)
                     with on_stream(stream):
+                        s0 = ns() if log is not None else 0
                         env = device_batch(
                             [x for _, x in items], self.device, self.batch_size
                         )
+                        s1 = ns() if log is not None else 0
                     # materialize before handing off: the stage boundary is
                     # where the activation crosses clusters in the paper
-                    out = self._execute(0, gen, fn, env, stream)
+                    out = self._execute(0, gen, fn, env, stream, log, mb, again)
                     t1 = time.perf_counter()
                     if not self._gen_current(0, gen):
                         return  # declared stalled; replacement re-dispatched
@@ -1012,9 +1031,18 @@ class PipelineServer:
                         m.started_at = t0
                     m.stopped_at = t1
                     m.record(t1 - t0, len(items), self.batch_size - len(items))
+                    h0 = ns() if log is not None else 0
                     ok = self._forward(
-                        qs[0], MicroBatch(tickets, out, valid=len(items)), 0, gen
+                        qs[0], MicroBatch(tickets, out, valid=len(items), id=mb), 0, gen
                     )
+                    if log is not None:
+                        h1 = ns()
+                        if arrived:
+                            log.add("wait", mb, 0, w0, arrived[0])
+                            log.add("fill", mb, 0, arrived[0], formed)
+                        log.add("stack", mb, 0, s0, s1, again)
+                        log.add("handoff", mb, 0, h0, h1, again)
+                        log.add("", mb, 0, w0, h1, again)
                     self._clear_processing(0, gen)
                     if not ok:
                         return
@@ -1028,20 +1056,25 @@ class PipelineServer:
         fn = self._stage_fns[si]
         m = self.metrics.stages[si]
         qs = self._qs  # epoch-bound: a zombie must not touch new queues
+        ns = time.perf_counter_ns
         try:
             stream = stage_stream(self.device)
             item = self._take_redispatch(si, gen)
             if item is not None:
                 self.metrics.recovery.note_redispatch(item.valid)
             while True:
-                if item is None:
+                log = self.metrics.spans  # one test a phase while it is None
+                w0 = ns() if log is not None else 0
+                again = item is not None
+                if not again:
                     item = qs[si - 1].get()
                     if item is _SENTINEL:
                         self._forward(qs[si], _SENTINEL, si, gen)
                         return
                     self._set_processing(si, gen, item)
+                w1 = ns() if log is not None else 0
                 t0 = time.perf_counter()
-                out = self._execute(si, gen, fn, item.env, stream)
+                out = self._execute(si, gen, fn, item.env, stream, log, item.id, again)
                 t1 = time.perf_counter()
                 if not self._gen_current(si, gen):
                     return  # declared stalled; replacement re-dispatched
@@ -1049,9 +1082,16 @@ class PipelineServer:
                     m.started_at = t0
                 m.stopped_at = t1
                 m.record(t1 - t0, item.valid, item.padded)
+                h0 = ns() if log is not None else 0
                 ok = self._forward(
-                    qs[si], MicroBatch(item.tickets, out, valid=item.valid), si, gen
+                    qs[si], MicroBatch(item.tickets, out, valid=item.valid, id=item.id), si, gen
                 )
+                if log is not None:
+                    h1 = ns()
+                    if not again:
+                        log.add("wait", item.id, si, w0, w1)
+                    log.add("handoff", item.id, si, h0, h1, again)
+                    log.add("", item.id, si, w0, h1, again)
                 self._clear_processing(si, gen)
                 if not ok:
                     return

@@ -1095,6 +1095,68 @@ def test_graph_server_recovers_a_stalled_stage_with_the_same_bits(cuda):
         assert torch.equal(a, b.cpu())
 
 
+def test_each_stage_thread_launches_on_a_stream_of_its_own_inside_its_launch_spans(cuda):
+    """What the span metrics stand on, over a served run of VGG-16 at
+    micro-batch 8 with the span log on and the profiler tracing the CUDA
+    activity.  Kineto gives a runtime call's thread as its resource id:
+    the low 32 bits of its pthread id, the span log's ``ident``.  Every
+    device operation a stage's thread launched runs on one stream, and no
+    two stages share one, so a stream's busy time is its stage's device
+    time.  Once the spans are moved onto the profiler's clock (Unix
+    nanoseconds), at least 95% of the graph launches lie inside a
+    ``launch`` span of their thread."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cnn.models import MODELS
+
+    server = serve(MODELS["vgg16"](), backend="cuda_fused", batch_size=8, seed=3)
+    images = list(torch.randn(128, 224, 224, 3, device=cuda).unbind(0))
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        log = server.metrics.start_spans(1024)
+        server.run(images[:32])  # every stage thread reads the log on from here
+        prof.start()
+        server.run(images)
+        prof.stop()
+        server.metrics.stop_spans()
+    finally:
+        server.stop()
+    reads = []
+    for _ in range(5):
+        a, u, b = time.perf_counter_ns(), time.time_ns(), time.perf_counter_ns()
+        reads.append((b - a, u - (a + b) // 2))
+    offset = min(reads)[1]
+    assert log.dropped == 0
+    records = log.records()
+    stage_of = {s.ident & 0xFFFFFFFF: s.stage for s in records if s.name == f"stage{s.stage}"}
+    ops, calls = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            ops.append((e.device_resource_id(), e.correlation_id() or e.linked_correlation_id()))
+        elif e.name().startswith("cuda"):
+            calls[e.correlation_id()] = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+                                         e.device_resource_id() & 0xFFFFFFFF)
+    streams = collections.defaultdict(collections.Counter)
+    for stream, corr in ops:
+        if corr in calls and calls[corr][3] in stage_of:
+            streams[stage_of[calls[corr][3]]][stream] += 1
+    n_stages = len(server.plan.allocation)
+    assert sorted(streams) == list(range(n_stages)), (streams, stage_of)
+    assert all(len(c) == 1 for c in streams.values()), streams
+    assert len({next(iter(c)) for c in streams.values()}) == n_stages, streams
+    launches = collections.defaultdict(list)
+    for s in records:
+        if s.name.endswith(".launch"):
+            launches[s.ident & 0xFFFFFFFF].append((s.start_ns + offset, s.end_ns + offset))
+    graph = [c for c in calls.values() if c[0].startswith("cudaGraphLaunch")]
+    inside = [c for c in graph if any(a <= c[1] and c[2] <= b for a, b in launches.get(c[3], ()))]
+    assert len(graph) >= n_stages * len(images) // 8
+    assert len(inside) >= 0.95 * len(graph), (len(inside), len(graph))
+
+
 def test_a_failed_capture_raises(cuda):
     """Code that reads a device value on the host cannot be captured: the
     capture raises, and nothing falls back to running op by op.  In a

@@ -345,3 +345,109 @@ def test_swap_plan_keeps_outputs_and_closes_cleanly(setup):
         assert torch.equal(a, b)
     with pytest.raises(ServerClosed):
         srv.submit(images[0])
+
+
+# ---------------------------------------------------------------- span log
+def _phases(stage):
+    """A stage's phases of one micro-batch, in order (no device span on the CPU)."""
+    mid = ["wait", "fill", "stack"] if stage == 0 else ["wait"]
+    return [f"stage{stage}.{p}" for p in mid + ["launch", "sync", "handoff"]]
+
+
+def _spans_by_batch(records):
+    by = {}
+    for s in records:
+        got = by.setdefault((s.stage, s.micro_batch), {})
+        assert s.name not in got, f"{s.name} twice for micro-batch {s.micro_batch}"
+        got[s.name] = s
+    return by
+
+
+def test_span_log_gives_each_micro_batch_one_id_and_its_phases_in_order(setup):
+    g, params, _, _, images, plan = setup
+    n_stages = len(plan.allocation)
+    assert n_stages >= 2
+    srv = PipelineServer(g, params, plan, batch_size=2, backend="cuda_fused", device="cpu")
+    log = srv.metrics.start_spans(256)
+    with srv:
+        srv.run(images)
+    assert srv.metrics.stop_spans() is log and srv.metrics.spans is None
+    by = _spans_by_batch(log.records())
+    batches = srv.metrics.stages[0].batches
+    assert sorted({mb for _, mb in by}) == list(range(batches))
+    assert sorted(by) == [(st, mb) for st in range(n_stages) for mb in range(batches)]
+    for (stage, mb), got in by.items():
+        phases = [got[name] for name in _phases(stage)]
+        assert sorted(got) == sorted([f"stage{stage}"] + _phases(stage))
+        assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
+        parent = got[f"stage{stage}"]
+        assert parent.start_ns <= phases[0].start_ns and phases[-1].end_ns <= parent.end_ns
+        assert len({s.ident for s in got.values()}) == 1
+        assert not any(s.redispatched for s in got.values())
+    assert log.dropped == 0
+
+
+def test_span_log_off_records_nothing_and_reads_no_clock(setup, monkeypatch):
+    import threading
+    import time as time_mod
+
+    from repro_torch.serving import metrics as metrics_mod
+
+    g, params, _, _, images, plan = setup
+    srv = PipelineServer(g, params, plan, batch_size=2, backend="cuda_fused", device="cpu",
+                         name="spans-off")
+    srv.warmup()
+    readers = []  # the threads that read the nanosecond clock
+    real = time_mod.perf_counter_ns
+    monkeypatch.setattr(
+        time_mod, "perf_counter_ns",
+        lambda: readers.append(threading.current_thread().name) or real(),
+    )
+    monkeypatch.setattr(metrics_mod.SpanLog, "__init__", lambda *a: pytest.fail("a span log was made"))
+    with srv:
+        outs = srv.run(images)["outputs"]
+    assert len(outs) == len(images) and srv.metrics.spans is None
+    assert not [name for name in readers if name.startswith("spans-off")]
+    assert srv.metrics.stages[0].batches > 0
+
+
+def test_span_log_counts_drops_past_capacity_and_does_not_grow(setup):
+    g, params, _, _, images, plan = setup
+    n_stages = len(plan.allocation)
+    srv = PipelineServer(g, params, plan, batch_size=2, backend="cuda_fused", device="cpu")
+    log = srv.metrics.start_spans(3)
+    with srv:
+        srv.run(images)
+    srv.metrics.stop_spans()
+    batches = srv.metrics.stages[0].batches
+    written = batches * sum(1 + len(_phases(st)) for st in range(n_stages))
+    records = log.records()
+    assert len(records) == 3 * n_stages  # one buffer a stage thread, full
+    assert log.dropped == written - len(records)
+    assert all(len({s.stage for s in records if s.ident == t}) == 1 for t in {s.ident for s in records})
+
+
+def test_span_log_keeps_a_redispatched_micro_batchs_id_and_marks_its_spans(setup):
+    g, params, _, _, images, plan = setup
+    n_stages = len(plan.allocation)
+    inj = FaultPlan(events=(FaultEvent("crash", stage=0, at_call=2),)).injector(POLICY)
+    builder = fault_injecting_builder(
+        lambda gr, pl: build_stage_fns(gr, pl, backend="cuda_fused"), inj
+    )
+    srv = PipelineServer(
+        g, params, plan, batch_size=1, flush_timeout_s=0.0,
+        stage_fn_builder=builder, recovery=POLICY, device="cpu",
+    )
+    log = srv.metrics.start_spans(256)
+    with srv:
+        srv.run(images)
+    srv.metrics.stop_spans()
+    assert inj.fired_kinds() == {"crash": 1}
+    records = log.records()
+    by = _spans_by_batch(records)
+    # the crashed call's micro-batch (stage 0's third) ran again under its id
+    assert {(s.stage, s.micro_batch) for s in records if s.redispatched} == {(0, 2)}
+    assert sorted(by[(0, 2)]) == sorted(
+        ["stage0"] + [n for n in _phases(0) if n not in ("stage0.wait", "stage0.fill")]
+    )
+    assert sorted(mb for st, mb in by if st == n_stages - 1) == list(range(len(images)))
