@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of a checkout, on a GPU host
+    python3 chip_smoke.py --b1 [--src DIR]   # csrc/gemm.cu's B1, B2, B3 alone (b1_only)
+    python3 chip_smoke.py --b6 [--src DIR]   # B6's wide form alone (b6_only)
 
 Phases (any failure exits non-zero):
 
@@ -20,7 +22,9 @@ Phases (any failure exits non-zero):
    shape; the quantized conv (B1q) at every ``groups == 1`` conv
    geometry, bitwise (3c).  Then time every kernel at VGG-16's shapes at
    batch 4 beside its plain version, one library call where there is
-   one, and its bound (3b, 3d), as device time (a run of calls queued
+   one, and its bound (3b, 3d; for csrc/gemm.cu's entries their route's
+   own, the split-TF32 rate where they sum in the tensor-core order,
+   with the f32 CUDA-core bound beside it), as device time (a run of calls queued
    behind a sleep kernel, ``device_ms``), with the host-paced time
    (``time_ms``) beside it.  3d also holds bits: at each VGG-16 conv the
    fused conv's image 0 alone equals image 0 of the batch of 4, every
@@ -43,7 +47,7 @@ Phases (any failure exits non-zero):
    builder), then as CUDA graphs (the default: each stage captured at
    its first micro-batch, replayed for every later one).  In each the
    launch counters must show 13 conv and 3 dense launches per
-   micro-batch (a replay counts what its capture recorded) and the
+   micro-batch (12 and 3 of them in csrc/gemm.cu's tensor-core order) (a replay counts what its capture recorded) and the
    graph launches one per stage and micro-batch (none op by op); the
    graph outputs must be bitwise equal to the eager outputs and to the
    single-stage ``cuda_fused`` engine's (itself a graph) and close to the
@@ -362,7 +366,12 @@ NO_LIBRARY = {
 }
 # per-layer numbers of 3d that are also summed over the layers
 EXTRA_TOTALS = ("whole_call_ms", "quantize_ms", "pack_once_ms", "int32_cuda_core_bound_ms",
-                "library_copy_only_ms")
+                "library_copy_only_ms", "f32_cuda_core_bound_ms")
+# csrc/gemm.cu's tensor-core order (gemm.order 1) issues three TF32 term
+# products for each f32 one, at the TF32 rate, half the bf16 rate: 989 / 2
+# / 3 = 165 TFLOP/s of f32 work on an H100, the bound of B1, B2 and B3 at
+# the shapes that take it (the f32 CUDA cores' printed beside it)
+TC_SPLIT_PRODUCTS = 3
 # Hymba-1.5B served at full width: batch 4, a 768-token prompt (896 with the
 # 128 meta tokens), 128 greedy steps, so max_len = 1024 = the window
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "hymba-1.5b", 4, 768, 128
@@ -1941,7 +1950,7 @@ def serve_route(torch, serve, backend, images, graphs, live=None, **kw):
         # and draining the pipeline is a few of its 256 micro-batches
         steady_s = [window(STEADY_IMAGES) for _ in range(STEADY_REPS)]
         snap = server.metrics.snapshot()
-        counts = runtime.launch_counts()
+        counts = runtime.launch_counts(tensor_cores=True)
         graph_launches = runtime.graph_launches()
         stage_graphs = [graph_device_ms(torch, c) for fn in server._stage_fns
                         for c in fn.graphs.values()] if graphs else []
@@ -2299,8 +2308,12 @@ def baseline_bytes(torch):
 
 
 def check_launches(name, counts, micro_batches):
-    check(counts["conv2d_fused"] == 13 * micro_batches and counts["matmul_fused"] == 3 * micro_batches,
-          f"{name}: {counts} over {micro_batches} micro-batches (served and warm-ups), want 13 + 3 each")
+    """``counts`` (``launch_counts(tensor_cores=True)``) over VGG-16's
+    ``micro_batches``: 13 conv and 3 fc launches each, all but conv1_1's
+    (K = 27) in csrc/gemm.cu's tensor-core order."""
+    want = {"conv2d_fused": 13, "conv2d_fused_tc": 12, "matmul_fused": 3, "matmul_fused_tc": 3}
+    check(all(counts[k] == n * micro_batches for k, n in want.items()),
+          f"{name}: {counts} over {micro_batches} micro-batches (served and warm-ups), want {want} each")
 
 
 def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
@@ -2385,7 +2398,7 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
                 swapped_in = w
     finally:
         stop_error = stop_quietly(server)
-    counts = runtime.launch_counts()
+    counts = runtime.launch_counts(tensor_cores=True)
     swaps = monitor.controller.swaps
     report = loop_report(server, monitor, windows, after_swaps)
     report["launches"] = counts
@@ -2418,7 +2431,7 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
                 oracle_rate = rate
     finally:
         static_stop_error = stop_quietly(static)
-    static_counts = runtime.launch_counts()
+    static_counts = runtime.launch_counts(tensor_cores=True)
     check_launches("5e static", static_counts, served_batches(static) + 6)
     add(static_counts)
     del static
@@ -2464,7 +2477,7 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
                 after_swaps.append(reserved())
     finally:
         stop_error = stop_quietly(server)
-    counts = runtime.launch_counts()
+    counts = runtime.launch_counts(tensor_cores=True)
     report = loop_report(server, monitor, windows, after_swaps)
     check_launches("5e-ii", counts, served_batches(server) + monitor.controller.swaps)
     add(counts)
@@ -2527,7 +2540,7 @@ def closed_loop(torch, serve, images, params, want, tuner, measured, tmp):
         stage_freqs = server.governor.stage_freqs
     finally:
         stop_error = stop_quietly(server)
-    counts = runtime.launch_counts()
+    counts = runtime.launch_counts(tensor_cores=True)
     check_launches("5f", counts, served_batches(server) + 1)
     add(counts)
     stored = PlanStore(path).load_plan()
@@ -3348,6 +3361,105 @@ def b6_only(torch, src: str) -> int:
     return 0
 
 
+B1_BATCHES = (1, 4, 32)  # --b1: the fused conv at the open-loop, smoke and benchmark micro-batches
+
+
+def b1_only(torch, src: str) -> int:
+    """``--b1``: csrc/gemm.cu's three entries alone at VGG-16's shapes, from
+    the ``repro_torch`` under ``src``: B1 (the fused conv) at every conv at
+    batch 1, 4 and 32, B2 (the fused fc) at batch 4 (the skinny path) and
+    32 (the tiled one), B3 (the GEMM) at every conv GEMM and fc at batch 4.
+    Each call is held to its plain version's tolerance and timed as device
+    time; beside it the f32 CUDA cores' bound and the tensor-core order's
+    (TF32 at half the bf16 rate, three products a multiply-add), each the
+    larger of its operations' and the bytes' time.  With ``--src`` naming
+    an earlier tree unpacked beside this one, the same draws run on that
+    tree's kernels, so two trees compare on one card in one call."""
+    import numpy as np
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import conv_fused as K
+    from repro_torch.kernels import gemm as G
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} src {src}")
+    t0 = time.perf_counter()
+    build.build_all(["gemm", "im2col"])
+    print(f"build_s={time.perf_counter() - t0:.3f}")
+    flops_peak, bytes_peak, _, bf16_peak = peaks(kind)
+    tc_peak = bf16_peak / 2 / TC_SPLIT_PRODUCTS
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    vgg = MODELS["vgg16"]()
+    shapes = vgg.infer_shapes()
+    totals, worst = {}, 0.0
+
+    def row(kernel, where, batch, fn, y, ref, flops, nbytes):
+        nonlocal worst
+        err, ratio = tol_ok(y, ref)
+        worst = max(worst, ratio)
+        r = {"kernel": kernel, "shape": where, "batch": batch, "kernel_ms": device_ms(fn, torch),
+             "f32_cuda_core_bound_ms": max(flops / flops_peak, nbytes / bytes_peak) * 1e3,
+             "tensor_core_bound_ms": max(flops / tc_peak, nbytes / bytes_peak) * 1e3,
+             "byte_bound_ms": nbytes / bytes_peak * 1e3, "max_abs_err": err, "err_over_tol": ratio}
+        print(json.dumps({"b1": r}))
+        t = totals.setdefault(f"{kernel} batch {batch}", {"kernel_ms": 0.0, "f32_cuda_core_bound_ms": 0.0,
+                                                          "tensor_core_bound_ms": 0.0, "layers": 0})
+        for key in ("kernel_ms", "f32_cuda_core_bound_ms", "tensor_core_bound_ms"):
+            t[key] += r[key]
+        t["layers"] += 1
+
+    for node in vgg.major_nodes():
+        hin = shapes[node.inputs[0]]
+        relu = node.attrs.get("act") == "relu"
+        where = f"vgg16:{node.name}"
+        if node.kind == "conv":
+            h, w, c = hin
+            fk, st, pd, cout = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"], node.attrs["out_ch"]
+            wt = torch.randn(fk, fk, c, cout, device=dev, generator=gen) * (2.0 / (fk * fk * c)) ** 0.5
+            b = torch.randn(cout, device=dev, generator=gen) * 0.1
+            for batch in B1_BATCHES:
+                x = torch.randn(batch, h, w, c, device=dev, generator=gen)
+                y = K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu)
+                flops = 2.0 * y.shape[0] * y.shape[1] * y.shape[2] * cout * fk * fk * c
+                nbytes = 4.0 * (x.numel() + wt.numel() + 2 * cout + y.numel())
+                row("conv2d_fused", where, batch, lambda: K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu),
+                    y, K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu), flops, nbytes)
+                if batch == BATCH:
+                    cols, w2 = ops.im2col_batched(x, fk, fk, st, pd), wt.reshape(fk * fk * c, cout)
+                    yg = ops.gemm(cols, w2)
+                    row("gemm", where, batch, lambda: ops.gemm(cols, w2), yg, G.gemm_ref(cols, w2), flops,
+                        4.0 * (cols.numel() + w2.numel() + yg.numel()))
+                    del cols, yg
+                del x, y
+        else:
+            k, n = int(np.prod(hin)), node.attrs["out_features"]
+            wt = torch.randn(k, n, device=dev, generator=gen) * (1.0 / k) ** 0.5
+            b = torch.randn(n, device=dev, generator=gen) * 0.1
+            for batch in (BATCH, 32):
+                a = torch.randn(batch, k, device=dev, generator=gen)
+                y = K.matmul_fused(a, wt, b, relu=relu)
+                nbytes = 4.0 * (a.numel() + wt.numel() + 2 * n + y.numel())
+                row("matmul_fused", where, batch, lambda: K.matmul_fused(a, wt, b, relu=relu),
+                    y, K.matmul_fused_ref(a, wt, b, relu=relu), 2.0 * batch * k * n, nbytes)
+                if batch == BATCH:
+                    yg = ops.gemm(a, wt)
+                    row("gemm", where, batch, lambda: ops.gemm(a, wt), yg, G.gemm_ref(a, wt), 2.0 * batch * k * n,
+                        4.0 * (a.numel() + wt.numel() + yg.numel()))
+    torch.cuda.synchronize()
+    print(json.dumps({"b1_totals": totals, "src": src, "device": kind, "worst_err_over_tol": worst,
+                      "timer": "cuda events behind a sleep kernel (device time)"}))
+    check(worst <= 1.0, f"--b1: a kernel exceeds its tolerance (err/tol {worst:.3g})")
+    print(json.dumps({"b1_only": True, "src": src, "device": kind}))
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -3356,7 +3468,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA card.")
     ap.add_argument("--b6", action="store_true",
                     help="only B6's wide form: 6b's wide-form cases and 6d's xLSTM row")
-    ap.add_argument("--src", default=SRC, help="the directory holding repro_torch (with --b6; default: this checkout's src)")
+    ap.add_argument("--b1", action="store_true",
+                    help="only csrc/gemm.cu's entries (B1, B2, B3) at VGG-16's shapes, timed beside their bounds")
+    ap.add_argument("--src", default=SRC,
+                    help="the directory holding repro_torch (with --b6 or --b1; default: this checkout's src)")
     args = ap.parse_args()
     src = os.path.abspath(args.src)
     if not torch.cuda.is_available():
@@ -3370,6 +3485,8 @@ def main() -> int:
     sys.path.insert(0, src)
     if args.b6:
         return b6_only(torch, src)
+    if args.b1:
+        return b1_only(torch, src)
     import numpy as np
     import torch.nn.functional as F
 
@@ -3540,6 +3657,14 @@ def main() -> int:
     not_bitwise = []  # 3d's bitwise checks of B1, B2, B3, B4
     layer_rows = {}  # each kernel's 3d rows, in layer order
 
+    def route_bound(order, flops, byte_ms):
+        """The operations' bound on the units csrc/gemm.cu's ``order`` runs
+        them on, and beside it the f32 CUDA cores' bound (the larger of
+        their operations' time and the bytes')."""
+        f32_ms = flops / flops_peak * 1e3
+        op_ms = flops / (bf16_peak / 2 / TC_SPLIT_PRODUCTS) * 1e3 if order else f32_ms
+        return {"op_ms": op_ms, "extra": {"order": order, "f32_cuda_core_bound_ms": max(f32_ms, byte_ms)}}
+
     def record(name, where, kern, plain, lib, y, r, op_ms, byte_ms, exact=False, **extra):
         err, ratio = tol_ok(y, r)
         if exact:
@@ -3597,13 +3722,14 @@ def main() -> int:
             m, k = BATCH * oh * ow, fk * fk * c
             flops = 2.0 * m * cout * k
             nbytes = 4.0 * (x.numel() + wt.numel() + 2 * cout + y.numel())
+            route = route_bound(G.order(k, cout), flops, nbytes / bytes_peak * 1e3)
             record(
                 "conv2d_fused", where,
                 lambda: K.conv2d_fused(x, wt, b, stride=st, pad=pd, relu=relu),
                 lambda: K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu),
                 lambda: F.conv2d(xn, wn, b, stride=st, padding=pd),
                 y, K.fused_route_ref(x, wt, b, stride=st, pad=pd, relu=relu),
-                flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3,
+                route["op_ms"], nbytes / bytes_peak * 1e3, **route["extra"],
             )
             # B4: the patch matrix of this conv, beside one PyTorch copy of
             # the same matrix (im2col_library: F.pad, then one strided copy;
@@ -3638,12 +3764,12 @@ def main() -> int:
             if not torch.equal(torch.relu(unfused) if relu else unfused, y):
                 not_bitwise.append(f"conv2d_fused vs relu(gemm(im2col) + b) at {where}")
             del unfused
+            gbyte_ms = 4.0 * (cols.numel() + w2.numel() + yg.numel()) / bytes_peak * 1e3
+            groute = route_bound(G.order(k, cout), flops, gbyte_ms)
             record(
                 "gemm", where,
                 lambda: ops.gemm(cols, w2), lambda: G.gemm_ref(cols, w2), lambda: torch.mm(cols, w2),
-                yg, G.gemm_ref(cols, w2),
-                flops / flops_peak * 1e3, 4.0 * (cols.numel() + w2.numel() + yg.numel()) / bytes_peak * 1e3,
-                m=m, k=k, n=cout,
+                yg, G.gemm_ref(cols, w2), groute["op_ms"], gbyte_ms, m=m, k=k, n=cout, **groute["extra"],
             )
             del cols, yg
             # B1q: the quantized conv at this geometry.  Timed as the kernel
@@ -3703,21 +3829,22 @@ def main() -> int:
             del a16, y16, unfused
             flops = 2.0 * BATCH * k * n
             nbytes = 4.0 * (a.numel() + wt.numel() + 2 * n + y.numel())
+            route = route_bound(G.order(k, n), flops, nbytes / bytes_peak * 1e3)
             record(
                 "matmul_fused", where,
                 lambda: K.matmul_fused(a, wt, b, relu=relu),
                 lambda: K.matmul_fused_ref(a, wt, b, relu=relu),
                 lambda: torch.addmm(b, a, wt),
                 y, K.matmul_fused_ref(a, wt, b, relu=relu),
-                flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3,
+                route["op_ms"], nbytes / bytes_peak * 1e3, **route["extra"],
             )
             yg = ops.gemm(a, wt)
+            gbyte_ms = 4.0 * (a.numel() + wt.numel() + yg.numel()) / bytes_peak * 1e3
+            groute = route_bound(G.order(k, n), flops, gbyte_ms)
             record(
                 "gemm", where,
                 lambda: ops.gemm(a, wt), lambda: G.gemm_ref(a, wt), lambda: torch.mm(a, wt),
-                yg, G.gemm_ref(a, wt),
-                flops / flops_peak * 1e3, 4.0 * (a.numel() + wt.numel() + yg.numel()) / bytes_peak * 1e3,
-                m=BATCH, k=k, n=n,
+                yg, G.gemm_ref(a, wt), groute["op_ms"], gbyte_ms, m=BATCH, k=k, n=n, **groute["extra"],
             )
         del y
 
@@ -3749,7 +3876,9 @@ def main() -> int:
     # server of cuda_fused also takes a hot swap
     rng = np.random.default_rng(SEED)
     images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(N_IMAGES)]
-    per_batch = {"cuda_fused": {"conv2d_fused": 13, "matmul_fused": 3}, "cuda": {"im2col": 13, "gemm": 16}}
+    # all but conv1_1 (K = 27) in csrc/gemm.cu's tensor-core order (gemm.order)
+    per_batch = {"cuda_fused": {"conv2d_fused": 13, "matmul_fused": 3, "conv2d_fused_tc": 12, "matmul_fused_tc": 3},
+                 "cuda": {"im2col": 13, "gemm": 16, "gemm_tc": 15}}
     served_outs, served_reports, path_counts, params = {}, {}, {}, None
     for backend in ("cuda_fused", "cuda"):
         for graphs in (False, True):

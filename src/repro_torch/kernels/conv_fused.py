@@ -15,18 +15,25 @@ the same epilogue.  Both are entries of ``csrc/gemm.cu`` (``conv_fused_f32``,
   NHWC input (``ImplicitA``: a per-block table of each output pixel's
   input offset, one filter tap per k-step where ``C % BK == 0``, padding
   taps zero-filled by the copy) and a bias/ReLU epilogue.  On an H100 it
-  is bound by operations (18*C flops per output for a 3x3 conv) at the
-  CUDA cores' f32 FMA rate: it stays in IEEE f32 (no TF32), so the
-  reference's tolerance holds.
+  is bound by operations (18*C flops per output for a 3x3 conv).  Where
+  K = FH*FW*C is a multiple of 16 and at least 64 (``gemm.order`` 1: every
+  VGG-16 conv but conv1_1) they run on the TF32 tensor cores on operands
+  split into two TF32 terms each, three term products kept (165 TFLOP/s
+  of f32 work); elsewhere in IEEE ``fmaf`` on the CUDA cores (67
+  TFLOP/s).  Either way the sums keep f32 accuracy, so the reference's
+  tolerance holds.
 * the fc GEMM runs B3's split-K skinny kernel for the serving
-  micro-batch (M <= 8; 8 weight rows in flight a thread, float4 loads),
-  and its second pass applies the epilogue; larger M take the tiled
-  kernel.  At the micro-batch it is bound by the bytes of the weights.
+  micro-batch (M <= 8; in order 0 8 weight rows in flight a thread,
+  float4 loads; in order 1 a warpgroup's fragments of the weights read
+  straight from device memory, the M rows padded to 8 with zeros), and
+  its second pass applies the epilogue; larger M take the tiled kernel.
+  At the micro-batch it is bound by the bytes of the weights.
 
 Both sum every output in B3's order, fixed by (K, N) alone: K cut into
-slices of ``gemm_slice_len(K, N)`` rows, each one ``fmaf`` chain, the
-slice sums added in order; the epilogue adds the bias with one rounded
-add.  So a row's bits do not depend on the batch it rides in, and the
+slices of ``gemm_slice_len(K, N)`` rows, each one ``fmaf`` chain (order
+0) or a chain of 32-deep tensor-core steps, each folded in by one IEEE
+add (order 1), the slice sums added in order; the epilogue adds the bias
+with one rounded add.  So a row's bits do not depend on the batch it rides in, and the
 ``cuda_fused`` route gives the bits of the ``cuda`` route (``im2col`` +
 ``gemm``, then ``+ b`` and ReLU).  :func:`conv2d_fused_tiled` forces a
 tile variant, for checks that all give the same bits.
@@ -45,7 +52,9 @@ Routing is by the tensor's device alone: a CPU tensor goes to the plain
 version (``fused_route_ref`` / ``qfused_route_ref`` / ``matmul_fused_ref``);
 a CUDA tensor launches the kernel or raises.  ``launches`` (shared with
 every wrapper, ``kernels/runtime.py``) counts kernel launches per
-wrapper: one per call on the card; the plain route never counts.
+wrapper: one per call on the card, and one more under
+``conv2d_fused_tc`` / ``matmul_fused_tc`` where the call summed in order
+1 (``launch_counts(tensor_cores=True)``); the plain route never counts.
 """
 from __future__ import annotations
 
@@ -181,6 +190,8 @@ def conv2d_fused(
     y = _conv_launch(x, w, b, stride=stride, pad=pad, relu=relu, what="conv2d_fused",
                      variant=variant)
     R.count("conv2d_fused")
+    if G.order(w.shape[0] * w.shape[1] * w.shape[2], w.shape[3]):
+        R.count("conv2d_fused_tc")
     return y
 
 
@@ -473,4 +484,6 @@ def matmul_fused(
     )
     R.check(err, "matmul_fused_f32")
     R.count("matmul_fused")
+    if G.order(k, n):
+        R.count("matmul_fused_tc")
     return out

@@ -31,9 +31,12 @@ from . import build
 KERNEL_NAMES = (
     "conv2d_fused", "matmul_fused", "qconv2d_fused", "gemm", "im2col", "flash_decode", "ssd",
 )
+# the launches of csrc/gemm.cu's three entries that summed in its
+# tensor-core order (gemm.order 1), each also counted under its wrapper
+TENSOR_CORE_NAMES = ("conv2d_fused_tc", "matmul_fused_tc", "gemm_tc")
 
 _count_lock = threading.Lock()
-launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES + TENSOR_CORE_NAMES}
 _graph_launches = 0
 _capturing = threading.local()
 
@@ -52,7 +55,7 @@ def recording() -> Iterator[Dict[str, int]]:
     """Count this thread's launches into a fresh tally (yielded) instead
     of ``launches``, for as long as the block runs."""
     outer = getattr(_capturing, "tally", None)
-    _capturing.tally = tally = {name: 0 for name in KERNEL_NAMES}
+    _capturing.tally = tally = {name: 0 for name in KERNEL_NAMES + TENSOR_CORE_NAMES}
     try:
         yield tally
     finally:
@@ -82,9 +85,11 @@ def reset_launches() -> None:
         _graph_launches = 0
 
 
-def launch_counts() -> Dict[str, int]:
+def launch_counts(tensor_cores: bool = False) -> Dict[str, int]:
+    """Launches per wrapper name (``KERNEL_NAMES``) since the last reset;
+    with ``tensor_cores`` also the ``TENSOR_CORE_NAMES`` counts."""
     with _count_lock:
-        return dict(launches)
+        return {k: v for k, v in launches.items() if tensor_cores or k in KERNEL_NAMES}
 
 
 # ------------------------------------------------------------ ctypes binding

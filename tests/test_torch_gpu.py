@@ -78,9 +78,17 @@ CONV_CASES = [
     (2, 9, 9, 32, 3, 40, 2, 1, True),  # C % 32 == 0 (one tap a k-step) at stride 2
     (2, 8, 8, 48, 3, 20, 1, 1, False),  # C = 48: one tap a k-step of 16, not of 32
     (3, 7, 7, 256, 1, 36, 2, 0, True),  # strided 1x1 projection
+    # csrc/gemm.cu's tensor-core order (K % 16 == 0, K >= 64) at VGG-16's and ResNet-50's widths
+    (3, 11, 11, 64, 3, 128, 1, 1, True),  # C = 64 (conv1_2, conv2_1), M = 363 ragged
+    (3, 7, 7, 512, 1, 256, 1, 0, True),  # C = 512 (ResNet-50's 1x1 reduce), M = 147 ragged
+    (2, 14, 14, 256, 1, 512, 2, 0, False),  # ResNet-50's strided 1x1 projection at C = 256
+    (2, 15, 15, 128, 3, 128, 2, 1, True),  # ResNet-50's strided 3x3 at C = 128
+    (2, 10, 10, 48, 3, 64, 1, 1, True),  # C = 48: the generic loader's 16-byte copies, K % 32 == 16
+    (1, 12, 12, 3, 8, 16, 2, 1, True),  # C = 3, K = 192: the generic loader's 4-byte copies
 ]
 # (M, K, N, relu)
-MM_CASES = [(4, 40, 24, True), (3, 17, 10, False), (9, 300, 130, True), (4, 4096, 1000, False)]
+MM_CASES = [(4, 40, 24, True), (3, 17, 10, False), (9, 300, 130, True), (4, 4096, 1000, False),
+            (32, 25088, 4096, True)]  # VGG-16's fc1 at the benchmark's micro-batch 32
 
 
 @pytest.fixture
@@ -154,6 +162,49 @@ def test_matmul_kernel_rows_bitwise_at_every_batch_and_equal_gemm_plus_bias(cuda
     for m in (4, 16):
         assert torch.equal(torch.relu(ops.gemm(a[:m].contiguous(), w) + bias), y[:m])
     assert torch.equal(K.matmul_fused(a[:4].contiguous(), w, bias), ops.gemm(a[:4].contiguous(), w) + bias)
+
+
+def test_the_kernels_split_gives_the_plain_versions_bits(cuda):
+    """csrc/gemm.cu's ``split_tf32`` on the device gives the bits of
+    ``gemm.split_tf32_ref``, over values of every exponent from 2^-100 to
+    2^100 and on the rounding ties (the low 13 bits 0x1000), which go away
+    from zero."""
+    rng = np.random.default_rng(34)
+    v = (rng.standard_normal(1 << 16) * 2.0 ** rng.integers(-100, 100, 1 << 16)).astype(np.float32)
+    kept = rng.integers(0, 1 << 10, 4096).astype(np.uint32) << 13  # TF32's 10 stored significand bits
+    ties = kept | 0x1000 | (rng.integers(1, 250, 4096).astype(np.uint32) << 23)
+    x = torch.from_numpy(np.concatenate([v, ties.view(np.float32), -ties.view(np.float32)]))
+    hi, lo = G.split_tf32(x.to(cuda))
+    want_hi, want_lo = G.split_tf32_ref(x)
+    assert torch.equal(hi.cpu().view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.cpu().view(torch.int32), want_lo.view(torch.int32))
+
+
+def test_tensor_core_order_takes_twelve_of_vgg16s_thirteen_convs(cuda):
+    """``gemm.order`` 1 (K % 16 == 0, K >= 64) takes every VGG-16 conv but
+    conv1_1 (K = 27) and all three fcs: a forward counts 13 conv launches,
+    12 of them under ``conv2d_fused_tc``, and 3 fc launches, all under
+    ``matmul_fused_tc``; conv1_1 alone counts under ``conv2d_fused`` only."""
+    from repro_torch.cnn.models import MODELS
+    from repro_torch.kernels.backend import resolve_backend
+
+    g = MODELS["vgg16"]()
+    params = g.init(0, device=cuda)
+    x = torch.randn(2, 224, 224, 3, device=cuda)
+    keys = ("conv2d_fused", "conv2d_fused_tc", "matmul_fused", "matmul_fused_tc")
+    before = K.launch_counts(tensor_cores=True)
+    with torch.no_grad():
+        y = g.apply(params, x, backend=resolve_backend("cuda_fused"))
+    torch.cuda.synchronize()
+    after = K.launch_counts(tensor_cores=True)
+    assert y.shape == (2, 1000)
+    assert {k: after[k] - before[k] for k in keys} == dict(zip(keys, (13, 12, 3, 3)))
+    assert set(K.launch_counts()) == set(runtime.KERNEL_NAMES)  # the default keys stay as they were
+    conv1_1 = next(nd for nd in g.nodes if nd.kind == "conv")
+    p = params[conv1_1.name]
+    K.conv2d_fused(x, p["w"], p["b"], stride=1, pad=1, relu=True)
+    last = K.launch_counts(tensor_cores=True)
+    assert (last["conv2d_fused"] - after["conv2d_fused"], last["conv2d_fused_tc"] - after["conv2d_fused_tc"]) == (1, 0)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

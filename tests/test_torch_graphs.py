@@ -237,6 +237,26 @@ def test_capture_tally_is_the_capturing_threads_own():
     assert runtime.graph_launches() == 0 and not any(runtime.launch_counts().values())
 
 
+def test_tensor_core_launches_count_beside_their_wrappers():
+    """csrc/gemm.cu's tensor-core launches count under ``<wrapper>_tc``
+    beside the wrapper's own count, through a capture's tally and its
+    replay too; ``launch_counts()`` shows them only when asked."""
+    runtime.reset_launches()
+    with runtime.recording() as tally:
+        runtime.count("conv2d_fused")
+        runtime.count("conv2d_fused_tc")
+    runtime.add_launches(tally)
+    runtime.count("gemm")
+    runtime.count("gemm_tc")
+    assert set(runtime.launch_counts()) == set(runtime.KERNEL_NAMES)
+    counts = runtime.launch_counts(tensor_cores=True)
+    assert set(counts) == set(runtime.KERNEL_NAMES + runtime.TENSOR_CORE_NAMES)
+    assert {k: counts[k] for k in ("conv2d_fused", "conv2d_fused_tc", "gemm", "gemm_tc", "matmul_fused_tc")} == \
+        {"conv2d_fused": 1, "conv2d_fused_tc": 1, "gemm": 1, "gemm_tc": 1, "matmul_fused_tc": 0}
+    runtime.reset_launches()
+    assert not any(runtime.launch_counts(tensor_cores=True).values())
+
+
 def test_recordings_nest():
     with runtime.recording() as outer:
         runtime.count("ssd")

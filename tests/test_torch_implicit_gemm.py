@@ -181,6 +181,24 @@ def test_one_tap_a_k_step_map_builds_the_reference_patch_matrix(case):
     np.testing.assert_array_equal(gather(x, fast), _reference(x, f, stride, pad))
 
 
+@pytest.mark.parametrize("geom", [g for g in GEOMETRIES if g[0] % 4 == 0], ids=_gid)
+def test_four_k_from_a_multiple_of_four_lie_side_by_side(geom):
+    """The tensor-core order's 16-byte copies where C % 4 == 0: the generic
+    ``k_at`` of a k that is a multiple of 4 gives the tap of k .. k + 3,
+    whose offsets in x run on by one (one bounds check holds for all
+    four), and K % 4 == 0 keeps the four on the same side of K."""
+    c, f, stride, pad = geom
+    w, k_total = _shape(c, f, stride, pad)[2], f * f * c
+    k = np.arange(0, k_total + 4, 4, dtype=np.int64)
+    fi0, fj0, off0, ok0 = k_generic(k, w, c, f, k_total)
+    for u in range(1, 4):
+        fi, fj, off, ok = k_generic(k + u, w, c, f, k_total)
+        np.testing.assert_array_equal(ok, ok0)
+        np.testing.assert_array_equal(fi[ok], fi0[ok])
+        np.testing.assert_array_equal(fj[ok], fj0[ok])
+        np.testing.assert_array_equal(off[ok], off0[ok] + u)
+
+
 @pytest.mark.parametrize("bm", TILE_BMS)
 def test_rows_past_m_read_nothing(bm):
     # VGG-16's conv5 has 4 * 14 * 14 = 784 rows: not a multiple of 128

@@ -61,6 +61,56 @@ def test_gemm_plain_route_matches_reference_kernel(case):
     assert torch.equal(got, G.gemm_ref(torch.from_numpy(a), torch.from_numpy(b)))
 
 
+# B3's tensor-core order multiplies each f32 operand split into two TF32
+# terms (csrc/gemm.cu::split_tf32, whose plain version is gemm.py's)
+def _split_values(rng, n):
+    """f32 values of every exponent from 2^-100 to 2^100, values TF32
+    holds exactly, and rounding ties (low 13 bits 0x1000), both signs."""
+    v = (rng.standard_normal(n) * 2.0 ** rng.integers(-100, 100, n)).astype(np.float32)
+    kept = rng.integers(0, 1 << 10, n).astype(np.uint32) << 13
+    expo = rng.integers(30, 220, n).astype(np.uint32) << 23
+    exact, ties = (kept | expo).view(np.float32), (kept | 0x1000 | expo).view(np.float32)
+    return {"spread": v, "tf32_exact": np.concatenate([exact, -exact]),
+            "ties": np.concatenate([ties, -ties])}
+
+
+def test_tf32_split_gives_the_f32_value_back_within_2_to_the_minus_22():
+    """hi and lo are TF32 values (low 13 bits 0), v - hi is exact in f32,
+    and hi + lo is v within 2^-22 |v|: 22 of v's 24 significant bits.
+    A value TF32 holds is hi itself; a tie rounds away from zero."""
+    rng = np.random.default_rng(34)
+    for name, v in _split_values(rng, 50_000).items():
+        hi, lo = (t.numpy() for t in G.split_tf32_ref(torch.from_numpy(v)))
+        for t in (hi, lo):
+            assert not (t.view(np.uint32) & 0x1FFF).any(), name
+        v64, hi64, lo64 = v.astype(np.float64), hi.astype(np.float64), lo.astype(np.float64)
+        np.testing.assert_array_equal((v - hi).astype(np.float64), v64 - hi64, err_msg=name)
+        assert np.all(np.abs(v64 - hi64 - lo64) <= 2.0 ** -22 * np.abs(v64)), name
+        assert np.all(np.abs(lo64) <= 2.0 ** -11 * (1 + 2.0 ** -10) * np.abs(v64)), name
+        if name == "tf32_exact":
+            np.testing.assert_array_equal(hi, v)
+            assert not lo.any()
+        if name == "ties":
+            assert np.all(np.abs(hi64) > np.abs(v64))
+
+
+def test_three_term_products_keep_the_product_within_3_times_2_to_the_minus_22():
+    """lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), each product of two TF32
+    values exact in f32, is a b within 3 x 2^-22 |a b| (the dropped lo(a)
+    lo(b) and each operand's split error), summed exactly; the kernel sums
+    them on the tensor cores and folds each 32-deep step by an f32 add."""
+    rng = np.random.default_rng(35)
+    a, b = ((rng.standard_normal(50_000) * 2.0 ** rng.integers(-50, 50, 50_000)).astype(np.float32)
+            for _ in range(2))  # every product and term product a normal f32
+    (ha, la), (hb, lb) = ((t.numpy().astype(np.float64) for t in G.split_tf32_ref(torch.from_numpy(x)))
+                          for x in (a, b))
+    for x, y in ((la, hb), (ha, lb), (ha, hb)):
+        np.testing.assert_array_equal((x * y).astype(np.float32).astype(np.float64), x * y)
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    kept = la * hb + ha * lb + ha * hb
+    assert np.all(np.abs(exact - kept) <= 3.01 * 2.0 ** -22 * np.abs(exact))
+
+
 # ------------------------------------------------------------------- B4
 # (H, W, F, stride, pad), C = 3
 IM2COL_CASES = [
